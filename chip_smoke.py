@@ -6,19 +6,27 @@
 Phases, one JSON line each on stdout:
   1. device   the card, and `nvidia-smi` name + power limit on a line of its
               own; exits non-zero without a CUDA card or outside the repo;
-  2. build    the three CUDA kernels from csrc/ (one nvcc each, in parallel);
+  2. build    the six CUDA kernels from csrc/ (one nvcc each, in parallel);
   3. kernels  each kernel against its plain PyTorch version at the shapes
-              the 7B int8 decode path gives it, with its time (CUDA events,
-              L2 flushed before each launch of a weight-reading kernel), the
+              the three serve paths give it, with its time (CUDA events, L2
+              flushed before each launch of a weight-reading kernel), the
               plain version's time, one PyTorch library call's time
-              (`library_ms`, a yardstick the port never calls) and the bound
-              (max of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16);
-  4. serve    the 7B int8 spec path at full width (random int8 base from a
-              seeded torch.Generator, the committed thin draft) over three
-              64-token prompts x 128 new tokens through SpecEngine.generate,
-              with every kernel's launch count on that run (each must be >0);
-  5. lossless generate_ar on the same prompts; a first divergence at a
-              position whose AR top-2 logit gap is >= 0.05 fails the run.
+              (`library_ms`, a yardstick the port never calls; null for the
+              packed 4-bit products, which no single call computes; there
+              `bf16_matmul_ms` times `x @ w` on a pre-decoded bf16 weight,
+              which reads four times the bytes) and the bound (max of bytes
+              / 3.35 TB/s and operations / 989 TFLOP/s bf16);
+  4. serve / lossless             7B int8 base, int8 thin draft;
+     serve_13b_mixed / lossless_13b_mixed   13B, attention int4 + FFN int8,
+                                  the 13B thin draft in int8;
+     serve_7b_nf4 / lossless_7b_nf4         7B, base and thin draft nf4.
+     Each at full width and depth: random base from a seeded
+     torch.Generator, the committed thin draft, 64-token prompts through
+     SpecEngine.generate, then generate_ar on the same prompts. Every
+     kernel's launch count is set to 0 before a configuration runs and read
+     after; a kernel of the configuration's path with no launch fails the
+     run, and so does a first spec/AR divergence at a position whose AR
+     top-2 logit gap is >= 0.05.
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Per-shape
 details go to chiprun_out/chip_smoke_kernels.jsonl. Any failure raises: no
 phase catches an error and still exits 0.
@@ -41,10 +49,11 @@ BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 3
 NEAR_TIE_GAP = 0.05
+TOLERANCE = "|err| <= 1e-2*|plain| + 1e-2"
 
-# int8 shapes on the 7B path: (name, M, In, Out); M = 1 AR step, 9 draft
-# context, 10 beam level, 64 prefill chunk, 81 tree verify (node_cap 96
-# clamped to total_tokens + 1), 96 the unclamped node cap
+# int8 shapes on the 7B and 13B paths: (name, M, In, Out); M = 1 AR step, 9
+# draft context, 10 beam level, 64 prefill chunk, 81 tree verify (node_cap
+# 96 clamped to total_tokens + 1), 96 the unclamped node cap
 INT8_SHAPES = (
     [(f"base_{w}_M{m}", m, i, o) for m in (1, 64, 81, 96)
      for w, i, o in (("wq", 4096, 4096), ("w_gate", 4096, 11008),
@@ -52,22 +61,68 @@ INT8_SHAPES = (
     + [(f"draft_{w}_M{m}", m, i, o) for m in (9, 10)
        for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
                        ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
+                       ("w_out", 1024, 4096))]
+    + [(f"13b_{w}_M{m}", m, i, o) for m in (1, 64, 81)
+       for w, i, o in (("w_gate", 5120, 13824), ("w_down", 13824, 5120))]
+    + [(f"13b_draft_{w}_M10", 10, i, o)
+       for w, i, o in (("fc", 10240, 1024), ("w_out", 1024, 5120))])
+BASE_7B = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
+           ("w_down", 11008, 4096))
+# packed 4-bit shapes: nf4 on the 7B nf4 path (base at M 1 / 64 / 81, the
+# thin draft's five at M 9 / 10); int4 strip kernel on 13B attention at
+# prefill and verify width; int4 split-K kernel on 13B attention at M 1 / 9
+# / 32 and on the 7B w_down (half-In 5504 has no divisor that is a multiple
+# of 256, the shape the TPU kernel declines)
+NF4_SHAPES = (
+    [(f"base_{w}_M{m}", m, i, o) for m in (1, 64, 81) for w, i, o in BASE_7B]
+    + [(f"draft_{w}_M{m}", m, i, o) for m in (9, 10)
+       for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
+                       ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
                        ("w_out", 1024, 4096))])
+INT4_SHAPES = [("13b_wq_M64", 64, 5120, 5120), ("13b_wq_M81", 81, 5120, 5120)]
+INT4_SMALLM_SHAPES = [("13b_wq_M1", 1, 5120, 5120),
+                      ("13b_wq_M9", 9, 5120, 5120),
+                      ("13b_wq_M32", 32, 5120, 5120),
+                      ("7b_w_down_M1", 1, 11008, 4096)]
 # attention: (name, nq, nkv, T, S, n_valid)
 ATTN_SHAPES = [("verify_T81", 32, 32, 81, 512, 64 + 64 + 81),
                ("verify_T96", 32, 32, 96, 512, 64 + 64 + 96),
                ("prefill_T64", 32, 32, 64, 512, 64),
                ("ar_T1", 32, 32, 1, 512, 200),
                ("draft_ctx_T9", 8, 8, 9, 512, 150),
-               ("beam_T10", 8, 8, 10, 512, 150 + 80)]
-HEAD_SHAPES = [("root_T1", 1), ("beam_T10", 10)]
+               ("beam_T10", 8, 8, 10, 512, 150 + 80),
+               ("13b_verify_T81", 40, 40, 81, 512, 64 + 64 + 81),
+               ("13b_prefill_T64", 40, 40, 64, 512, 64),
+               ("13b_ar_T1", 40, 40, 1, 512, 200)]
+# head top-k: (name, T, H)
+HEAD_SHAPES = [("root_T1", 1, 4096), ("beam_T10", 10, 4096),
+               ("13b_root_T1", 1, 5120), ("13b_beam_T10", 10, 5120)]
 MAIN = {"int8_matmul": "base_w_gate_M81", "tree_attention": "verify_T81",
-        "head_topk": "beam_T10"}
+        "head_topk": "beam_T10", "nf4_matmul": "base_w_gate_M81",
+        "int4_matmul": "13b_wq_M81", "int4_matmul_smallm": "13b_wq_M1"}
 REPLACES = {
     "int8_matmul": "flowspec_tpu/ops/quant_matmul.py:47",
     "tree_attention": "flowspec_tpu/ops/tree_attention.py:31",
     "head_topk": "flowspec_tpu/ops/head_topk.py:90",
+    "nf4_matmul": "flowspec_tpu/ops/quant_matmul.py:118",
+    "int4_matmul": "flowspec_tpu/ops/quant_matmul.py:144",
+    "int4_matmul_smallm": "flowspec_tpu/ops/quant_matmul.py:203",
 }
+# configurations served: (tag, model, quant, requests, new tokens), then the
+# kernels whose launch count must be > 0 on generate, and on generate_ar
+CONFIGS = {
+    "7b_int8": ("7b", "int8", N_REQUESTS, NEW_TOKENS),
+    "13b_mixed": ("13b", "mixed", N_REQUESTS, NEW_TOKENS),
+    "7b_nf4": ("7b", "nf4", 1, 64),
+}
+ON_SPEC = {"7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
+           "13b_mixed": ("int8_matmul", "int4_matmul", "tree_attention",
+                         "head_topk"),
+           "7b_nf4": ("nf4_matmul", "tree_attention", "head_topk")}
+ON_AR = {"7b_int8": ("int8_matmul", "tree_attention"),
+         "13b_mixed": ("int8_matmul", "int4_matmul", "int4_matmul_smallm",
+                       "tree_attention"),
+         "7b_nf4": ("nf4_matmul", "tree_attention")}
 
 
 def emit(obj) -> None:
@@ -128,7 +183,7 @@ def check_int8(dev, gen, flush, details):
                          2.0 * m * n_in * n_out)
         row = {"kernel": "int8_matmul", "shape": name, "M": m, "In": n_in,
                "Out": n_out, "max_abs_err": float(err.max()),
-               "tolerance": "|err| <= 1e-2*|plain| + 1e-2", "ok": ok,
+               "tolerance": TOLERANCE, "ok": ok,
                "ms": time_ms(lambda: int8_matmul(x, q, s), flush),
                "plain_ms": time_ms(lambda: int8_matmul_plain(x, q, s), flush,
                                    iters=5),
@@ -139,6 +194,53 @@ def check_int8(dev, gen, flush, details):
         rows[name] = row
         if not ok:
             raise AssertionError(f"int8_matmul disagrees at {name}: {row}")
+    return rows
+
+
+def check_packed4(kernel, shapes, dev, gen, flush, details):
+    """One of the packed 4-bit kernels (`nf4_matmul`, `int4_matmul`,
+    `int4_matmul_smallm`) at `shapes` against its plain version."""
+    import torch
+    from flowspec_tpu_torch.ops import quant_matmul as qm
+    fn = getattr(qm, kernel)
+    nf4 = kernel == "nf4_matmul"
+    plain = qm.nf4_matmul_plain if nf4 else qm.int4_matmul_plain
+    rows = {}
+    for name, m, n_in, n_out in shapes:
+        x = torch.randn((1, m, n_in), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q = torch.randint(0, 256, (n_in // 2, n_out), generator=gen,
+                          device=dev).to(torch.uint8)
+        s = torch.full((n_in // 64, n_out),
+                       n_in ** -0.5 / (1.0 if nf4 else 7.0), device=dev)
+        before = fn.launches
+        got = fn(x, q, s)
+        if fn.launches != before + 1:
+            raise AssertionError(f"{kernel} did not launch at {name}")
+        want = plain(x, q, s)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        # the same bf16 operands; f32 sums in another order, one bf16 cast
+        ok = bool((err <= 1e-2 * want.float().abs() + 1e-2).all())
+        w_bf16 = qm._decode4_bf16(q, s, nf4)
+        b, by = bound_ms(n_in * n_out // 2 + n_in // 64 * n_out * 4
+                         + m * (n_in + n_out) * 2, 2.0 * m * n_in * n_out)
+        row = {"kernel": kernel, "shape": name, "M": m, "In": n_in,
+               "Out": n_out, "max_abs_err": float(err.max()),
+               "tolerance": TOLERANCE, "ok": ok,
+               "ms": time_ms(lambda: fn(x, q, s), flush),
+               "plain_ms": time_ms(lambda: plain(x, q, s), flush, iters=5),
+               "library_ms": None,
+               "bf16_matmul_ms": time_ms(lambda: x @ w_bf16, flush, iters=10),
+               "bound_ms": b, "bound_by": by}
+        if kernel == "int4_matmul_smallm":
+            row["ksplit"] = qm.split_k(n_in, n_out)
+            row["equal_bits"] = bool(torch.equal(got, fn(x, q, s)))
+            ok = ok and row["equal_bits"]
+        details.append(row)
+        rows[name] = row
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees at {name}: {row}")
     return rows
 
 
@@ -199,12 +301,15 @@ def check_head(dev, gen, flush, details):
     from flowspec_tpu_torch.ops.head_topk import (
         head_logits, head_topk_int8, head_topk_plain)
     from flowspec_tpu_torch.ops.quant import Int8Tensor
-    h, v, k = 4096, 32000, 10
-    q = torch.randint(-127, 128, (h, v), generator=gen, device=dev).to(
-        torch.int8)
-    s = torch.full((v,), h ** -0.5 / 127.0, device=dev)
+    v, k = 32000, 10
     rows = {}
-    for name, t in HEAD_SHAPES:
+    h = None
+    for name, t, h_new in HEAD_SHAPES:
+        if h_new != h:
+            h = h_new
+            q = torch.randint(-127, 128, (h, v), generator=gen,
+                              device=dev).to(torch.int8)
+            s = torch.full((v,), h ** -0.5 / 127.0, device=dev)
         x = (torch.randn((t, h), generator=gen, device=dev) * 5.0).to(
             torch.bfloat16)
         lp, tok = head_topk_int8(x, q, s, k)
@@ -223,7 +328,7 @@ def check_head(dev, gen, flush, details):
                          2.0 * t * h * v)
         row = {"kernel": "head_topk", "shape": name, "T": t, "H": h, "V": v,
                "k": k, "max_abs_err": err,
-               "tolerance": "1e-3 abs on log-probs (f32 sums of 4096 terms)",
+               "tolerance": "1e-3 abs on log-probs (f32 sums of H terms)",
                "ok": ok,
                "ms": time_ms(lambda: head_topk_int8(x, q, s, k), flush),
                "plain_ms": time_ms(lambda: head_topk_plain(x, q, s, k), flush,
@@ -251,29 +356,34 @@ def check_head(dev, gen, flush, details):
     return rows
 
 
-def serve_7b(dev):
+def make_engine(dev, model: str = "7b", quant: str = "int8",
+                n_requests: int = N_REQUESTS, new_tokens: int = NEW_TOKENS):
+    """(engine, prompts, seconds to build it): LLaMA `model` ("7b", "13b")
+    at full width and depth with a random base of kind `quant` from a
+    seeded generator, and the committed thin draft of that scale quantized
+    the same way ("mixed" keeps the draft int8)."""
     import torch
     from flowspec_tpu_torch.config import (
         EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
     from flowspec_tpu_torch.draft.eagle import (
         load_thin_draft, quantize_eagle_params)
-    from flowspec_tpu_torch.models.llama import random_int8_llama_params
+    from flowspec_tpu_torch.models.llama import random_llama_params
     from flowspec_tpu_torch.runtime import SpecEngine
 
-    mc = ModelConfig.llama_7b()
+    mc = {"7b": ModelConfig.llama_7b, "13b": ModelConfig.llama_13b}[model]()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    params = random_int8_llama_params(mc, gen, dev)
+    params = random_llama_params(mc, gen, dev, quant)
     draft = load_thin_draft(str(ROOT / "checkpoints" /
-                                "draft_7b_thin_fp16.npz"), params.embed)
-    draft = quantize_eagle_params(draft, "int8")
+                                f"draft_{model}_thin_fp16.npz"), params.embed)
+    draft = quantize_eagle_params(draft, quant)
     # bench.py's trained-draft tree: depth 8, score_temperature 0.2,
     # node_cap 96; max_seq = prompt + new + 24 (bench.py:347)
     tc = TreeConfig(node_cap=96, leaf_cap=96, depth=8, depth_cap=16,
                     score_temperature=0.2)
     cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
-                       max_new_tokens=NEW_TOKENS,
+                       max_new_tokens=new_tokens,
                        max_seq_len=PROMPT_LEN + NEW_TOKENS + 24)
     eng = SpecEngine(params, draft, cfg)
     torch.cuda.synchronize()
@@ -281,16 +391,115 @@ def serve_7b(dev):
     rng = torch.Generator().manual_seed(SEED)
     prompts = [torch.randint(3, mc.vocab_size, (PROMPT_LEN,),
                              generator=rng).tolist()
-               for _ in range(N_REQUESTS)]
+               for _ in range(n_requests)]
     return eng, prompts, build_s
 
 
 def launch_counts():
+    """The wrapper that carries each kernel's launch count."""
+    from flowspec_tpu_torch.ops import quant_matmul as qm
     from flowspec_tpu_torch.ops.head_topk import head_topk
-    from flowspec_tpu_torch.ops.quant_matmul import int8_matmul
     from flowspec_tpu_torch.ops.tree_attention import tree_attention
-    return {"int8_matmul": int8_matmul, "tree_attention": tree_attention,
-            "head_topk": head_topk}
+    return {"int8_matmul": qm.int8_matmul, "tree_attention": tree_attention,
+            "head_topk": head_topk, "nf4_matmul": qm.nf4_matmul,
+            "int4_matmul": qm.int4_matmul,
+            "int4_matmul_smallm": qm.int4_matmul_smallm}
+
+
+def expected_per_round(eng) -> dict:
+    """Launches per speculative round that the code implies: a base verify
+    pass (7 projections and one attention per layer), the draft context and
+    one pass per tree level (9 projections and one attention each, one head
+    top-k per level)."""
+    from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+    names = {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul",
+             Int4Tensor: "int4_matmul"}
+    n_layers = eng.cfg.model.num_hidden_layers
+    passes = eng.cfg.tree.depth + 1
+    out = {"tree_attention": n_layers + passes, "head_topk": passes}
+    lp = eng.params.layers
+    for w, n in ([(getattr(lp, f), n_layers) for f in
+                  ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+                 + [(getattr(eng.draft, f), passes) for f in
+                    ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up",
+                     "w_down", "w_out")]):      # w_out: None unless thin
+        if type(w) in names:            # plain weights launch no kernel
+            out[names[type(w)]] = out.get(names[type(w)], 0) + n
+    return out
+
+
+def serve_config(tag, dev, counters):
+    """Drive one configuration through SpecEngine.generate and generate_ar
+    with the launch counts zeroed before and read after each, emit its
+    serve and lossless lines, and return its launches {kernel: count} over
+    both. Raises if a kernel of its path never launched or spec diverges
+    from AR off a near-tie."""
+    import torch
+    model, quant, n_requests, new_tokens = CONFIGS[tag]
+    suffix = "" if tag == "7b_int8" else "_" + tag
+    eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
+                                         new_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    spec_out, req_s, rounds, new = [], [], 0, 0
+    for p in prompts:
+        t0 = time.perf_counter()
+        out, stats = eng.generate(p, max_new_tokens=new_tokens,
+                                  eos_token_id=-1)
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t0)
+        spec_out.append(out[PROMPT_LEN:])
+        rounds += stats["rounds"]
+        new += stats["new_tokens"]
+    launches = {n: fn.launches for n, fn in counters.items()}
+    draft_kind = "int8" if quant == "mixed" else quant
+    emit({"phase": "serve" + suffix,
+          "model": f"llama_{model} {quant} (random, seeded)",
+          "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
+          "beam_head": type(eng.beam_head).__name__,
+          "requests": len(prompts), "prompt_len": PROMPT_LEN,
+          "new_tokens": new, "rounds": rounds,
+          "accept_per_round": new / rounds, "tok_s": new / sum(req_s),
+          "request_s": req_s, "param_build_s": params_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches,
+          "expected_launches_per_round": expected_per_round(eng)})
+    missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: generate never launched {missing}")
+
+    # lossless: greedy spec == greedy AR except at near-ties
+    for fn in counters.values():
+        fn.launches = 0
+    ar_out, ar_s = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        ar, _ = eng.generate_ar(p, max_new_tokens=new_tokens, eos_token_id=-1)
+        torch.cuda.synchronize()
+        ar_s.append(time.perf_counter() - t0)
+        ar_out.append(ar[PROMPT_LEN:])
+    ar_launches = {n: fn.launches for n, fn in counters.items()}
+    matches, faults = [], []
+    for p, spec, ar in zip(prompts, spec_out, ar_out):
+        same = [a == b for a, b in zip(spec, ar)]
+        matches.append(sum(same) / len(same))
+        if not all(same):
+            i = same.index(False)
+            faults.append({"position": i,
+                           "top2_gap": top2_gap(eng, p + ar[:i])})
+    emit({"phase": "lossless" + suffix, "match_fraction": matches,
+          "first_divergences": faults, "ar_tok_s": new / sum(ar_s),
+          "ar_request_s": ar_s, "near_tie_gap": NEAR_TIE_GAP,
+          "ar_launches": ar_launches})
+    missing = [n for n in ON_AR[tag] if ar_launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: generate_ar never launched {missing}")
+    real = [f for f in faults if f["top2_gap"] >= NEAR_TIE_GAP]
+    if real:
+        raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
+                             f"{real}")
+    return {n: launches[n] + ar_launches[n] for n in counters}
 
 
 def top2_gap(eng, prefix) -> float:
@@ -341,7 +550,7 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
 
-    # 3. kernels at the 7B path's shapes
+    # 3. kernels at the shapes of the three serve paths
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -350,6 +559,13 @@ def main() -> int:
         "int8_matmul": check_int8(dev, gen, flush, details),
         "tree_attention": check_attention(dev, gen, details),
         "head_topk": check_head(dev, gen, flush, details),
+        "nf4_matmul": check_packed4("nf4_matmul", NF4_SHAPES, dev, gen,
+                                    flush, details),
+        "int4_matmul": check_packed4("int4_matmul", INT4_SHAPES, dev, gen,
+                                     flush, details),
+        "int4_matmul_smallm": check_packed4(
+            "int4_matmul_smallm", INT4_SMALLM_SHAPES, dev, gen, flush,
+            details),
     }
     del flush
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:
@@ -359,58 +575,16 @@ def main() -> int:
           "all_ok": all(r["ok"] for r in details),
           "main_shapes": {n: kernel_rows[n][s] for n, s in MAIN.items()}})
 
-    # 4. 7B int8 spec serving through the entry points
-    eng, prompts, params_s = serve_7b(dev)
+    # 4. the three configurations through the entry points, one at a time
     counters = launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    spec_out, req_s, rounds, new = [], [], 0, 0
-    for p in prompts:
-        t0 = time.perf_counter()
-        out, stats = eng.generate(p, max_new_tokens=NEW_TOKENS,
-                                  eos_token_id=-1)
-        torch.cuda.synchronize()
-        req_s.append(time.perf_counter() - t0)
-        spec_out.append(out[PROMPT_LEN:])
-        rounds += stats["rounds"]
-        new += stats["new_tokens"]
-    launches = {n: fn.launches for n, fn in counters.items()}
-    emit({"phase": "serve", "model": "llama_7b int8 (random, seeded)",
-          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
-          "requests": len(prompts), "prompt_len": PROMPT_LEN,
-          "new_tokens": new, "rounds": rounds,
-          "accept_per_round": new / rounds, "tok_s": new / sum(req_s),
-          "request_s": req_s, "param_build_s": params_s,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches,
-          "expected_launches_per_round": {
-              "int8_matmul": 32 * 7 + 9 * 9, "tree_attention": 32 + 9,
-              "head_topk": 9}})
+    by_config = {}
+    for tag in CONFIGS:
+        by_config[tag] = serve_config(tag, dev, counters)
+        torch.cuda.empty_cache()
+    launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
-        raise AssertionError(f"main path never launched: {missing}")
-
-    # 5. lossless: greedy spec == greedy AR except at near-ties
-    matches, faults, ar_s = [], [], []
-    for p, spec in zip(prompts, spec_out):
-        t0 = time.perf_counter()
-        ar, _ = eng.generate_ar(p, max_new_tokens=NEW_TOKENS, eos_token_id=-1)
-        torch.cuda.synchronize()
-        ar_s.append(time.perf_counter() - t0)
-        ar = ar[PROMPT_LEN:]
-        same = [a == b for a, b in zip(spec, ar)]
-        matches.append(sum(same) / len(same))
-        if not all(same):
-            i = same.index(False)
-            gap = top2_gap(eng, p + ar[:i])
-            faults.append({"position": i, "top2_gap": gap})
-    emit({"phase": "lossless", "match_fraction": matches,
-          "first_divergences": faults, "ar_tok_s": new / sum(ar_s),
-          "ar_request_s": ar_s, "near_tie_gap": NEAR_TIE_GAP})
-    real = [f for f in faults if f["top2_gap"] >= NEAR_TIE_GAP]
-    if real:
-        raise AssertionError(f"spec diverges from AR off a near-tie: {real}")
+        raise AssertionError(f"no serve path launched: {missing}")
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -423,7 +597,8 @@ def main() -> int:
          "bound_ms": kernel_rows[n][MAIN[n]]["bound_ms"],
          "bound_by": kernel_rows[n][MAIN[n]]["bound_by"],
          "library_ms": kernel_rows[n][MAIN[n]]["library_ms"],
-         "shape": MAIN[n]}
+         "shape": MAIN[n],
+         "launches_by_config": {t: c[n] for t, c in by_config.items()}}
         for n in _build.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

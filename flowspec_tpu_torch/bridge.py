@@ -3,8 +3,10 @@
 The JAX package's containers, turned into nested dicts of numpy arrays by
 the caller (`dataclasses.asdict(jax.tree_util.tree_map(np.asarray, p))`),
 become the port's dataclasses of torch tensors with the same layouts: (In,
-Out) weights, stacked (L, ...) layers, (L, B, nkv, S, D) KV. A dict with
-exactly the keys {"q", "scale"} is an int8 weight. This module imports no
+Out) weights, stacked (L, ...) layers, (L, B, nkv, S, D) KV. A quantized
+weight is a dict {"kind", "q", "scale"} with kind "int8", "nf4" or "int4":
+the two packed 4-bit containers have the same fields, dtypes and shapes, so
+the caller, who knows the JAX class, names the kind. This module imports no
 JAX: the tests do the JAX -> numpy step.
 """
 
@@ -16,7 +18,9 @@ import torch
 from flowspec_tpu_torch.draft.eagle import EagleParams
 from flowspec_tpu_torch.models.kv_cache import KVCache
 from flowspec_tpu_torch.models.llama import LlamaLayerParams, LlamaParams
-from flowspec_tpu_torch.ops.quant import Int8Tensor
+from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+
+CONTAINERS = {"int8": Int8Tensor, "nf4": NF4Tensor, "int4": Int4Tensor}
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -30,15 +34,29 @@ def tensor(a, device="cpu") -> torch.Tensor:
 
 
 def weight(w, device="cpu"):
-    """A plain array, or a {"q", "scale"} dict -> Int8Tensor."""
-    if isinstance(w, dict):
-        if set(w) != {"q", "scale"}:
-            raise NotImplementedError(
-                f"bridge: weight container with keys {sorted(w)} is not "
-                "ported (int8 only)")
-        return Int8Tensor(q=tensor(w["q"], device),
-                          scale=tensor(w["scale"], device))
-    return None if w is None else tensor(w, device)
+    """A plain array, or a {"kind", "q", "scale"} dict -> its container. A
+    dict without "kind" is taken as int8 only if q is int8; a kind-less
+    uint8 q could be nf4 or int4 and is refused (never guessed from values).
+    """
+    if not isinstance(w, dict):
+        return None if w is None else tensor(w, device)
+    if set(w) - {"kind"} != {"q", "scale"}:
+        raise ValueError(f"bridge: weight container with keys {sorted(w)}")
+    q = np.asarray(w["q"])
+    kind = w.get("kind")
+    if kind is None:
+        if q.dtype != np.int8:
+            raise ValueError(
+                f"bridge: a {q.dtype} q without \"kind\" may be nf4 or int4; "
+                "name the container kind")
+        kind = "int8"
+    if kind not in CONTAINERS:
+        raise ValueError(f"bridge: container kind {kind!r} not in "
+                         f"{sorted(CONTAINERS)}")
+    if q.dtype != (np.int8 if kind == "int8" else np.uint8):
+        raise TypeError(f"bridge: {kind} container with {q.dtype} q")
+    return CONTAINERS[kind](q=tensor(q, device),
+                            scale=tensor(w["scale"], device))
 
 
 def llama_params(d: dict, device="cpu") -> LlamaParams:

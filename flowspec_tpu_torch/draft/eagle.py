@@ -17,8 +17,10 @@ import torch.nn.functional as F
 
 from flowspec_tpu_torch.config import ModelConfig
 from flowspec_tpu_torch.models.kv_cache import KVCache
-from flowspec_tpu_torch.models.llama import attention_block, rms_norm
-from flowspec_tpu_torch.ops.quant import qmatmul, quantize_int8
+from flowspec_tpu_torch.models.llama import (
+    QUANT_KINDS, QUANTIZERS, attention_block, rms_norm,
+)
+from flowspec_tpu_torch.ops.quant import qmatmul
 
 
 @dataclasses.dataclass
@@ -96,11 +98,12 @@ EAGLE_QUANT_FIELDS = ("fc_w", "wq", "wk", "wv", "wo",
 
 
 def quantize_eagle_params(p: EagleParams, kind: str) -> EagleParams:
-    """Weight-only int8 quantize the draft matmuls (nf4/int4 not ported)."""
-    if kind not in ("int8", "mixed"):
-        raise NotImplementedError(f"quantize_eagle_params: {kind!r} is not "
-                                  "ported yet (int8 only)")
-    return dataclasses.replace(p, **{f: quantize_int8(getattr(p, f))
+    """Weight-only quantize the draft matmuls as "int8", "nf4" or "int4";
+    "mixed" keeps the draft (~1/32 of the base) all int8."""
+    if kind not in QUANT_KINDS:
+        raise ValueError(f"quantization kind {kind!r} not in {QUANT_KINDS}")
+    fn = QUANTIZERS["int8" if kind == "mixed" else kind]
+    return dataclasses.replace(p, **{f: fn(getattr(p, f))
                                      for f in EAGLE_QUANT_FIELDS
                                      if getattr(p, f) is not None})
 

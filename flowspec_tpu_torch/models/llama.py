@@ -5,9 +5,10 @@ along a leading layer axis (the JAX layout, so the bridge copies arrays
 unchanged) and run by a Python loop in place of `lax.scan`. Attention is
 mask-agnostic: one additive (T, S) bias carries the causal/tree structure.
 Every attention goes through the tree-attention kernel's wrapper
-(`ops/tree_attention.py`) and every int8 projection through the int8
-dequant-matmul's (`ops/quant_matmul.py`). bf16 rounding points follow the
-JAX package: rms_norm and rope in f32 then cast, probs cast to q's dtype.
+(`ops/tree_attention.py`) and every quantized projection (int8, nf4, int4)
+through its dequant-matmul's (`ops/quant_matmul.py`). bf16 rounding points
+follow the JAX package: rms_norm and rope in f32 then cast, probs cast to
+q's dtype.
 """
 
 from __future__ import annotations
@@ -19,14 +20,18 @@ import torch.nn.functional as F
 
 from flowspec_tpu_torch.config import ModelConfig
 from flowspec_tpu_torch.models.kv_cache import KVCache, clamp_start
-from flowspec_tpu_torch.ops.quant import Int8Tensor, qmatmul, quantize_int8
+from flowspec_tpu_torch.ops.quant import (
+    NF4_BLOCK, Int4Tensor, Int8Tensor, NF4Tensor, qmatmul, quantize_int4,
+    quantize_int8, quantize_nf4,
+)
 from flowspec_tpu_torch.ops.tree_attention import tree_attention
 
 
 @dataclasses.dataclass
 class LlamaLayerParams:
     """All tensors have a leading (num_layers,) axis; the weights may be
-    stacked `Int8Tensor`s. bq/bk/bv are None unless attention_bias."""
+    stacked quantized containers (`ops/quant.py`). bq/bk/bv are None unless
+    attention_bias."""
     wq: object           # (L, H, nq*D)
     wk: object           # (L, H, nkv*D)
     wv: object           # (L, H, nkv*D)
@@ -157,52 +162,87 @@ def lm_head_logits(params: LlamaParams, hidden: torch.Tensor) -> torch.Tensor:
 
 
 QUANT_FIELDS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+QUANT_KINDS = ("int8", "nf4", "int4", "mixed")
+QUANTIZERS = {"int8": quantize_int8, "nf4": quantize_nf4,
+              "int4": quantize_int4}
+
+
+def field_kinds(kind: str) -> dict:
+    """Container kind per decoder matmul. "mixed" = attention int4 + FFN
+    int8: the attention stacks (a third of the bytes) take the 4-bit format,
+    the FFN keeps int8."""
+    if kind not in QUANT_KINDS:
+        raise ValueError(f"quantization kind {kind!r} not in {QUANT_KINDS}")
+    if kind == "mixed":
+        return {f: ("int4" if f in ("wq", "wk", "wv", "wo") else "int8")
+                for f in QUANT_FIELDS}
+    return {f: kind for f in QUANT_FIELDS}
 
 
 def quantize_llama_params(params: LlamaParams, kind: str) -> LlamaParams:
-    """Weight-only int8 quantize the decoder matmuls (stacked (L, In, Out)
-    leaves quantize per output channel of each layer). Embeddings, lm_head,
-    norms and biases stay in the working dtype. nf4/int4/mixed are not
-    ported yet."""
-    if kind != "int8":
-        raise NotImplementedError(f"quantize_llama_params: {kind!r} is not "
-                                  "ported yet (int8 only)")
+    """Weight-only quantize the decoder matmuls as "int8", "nf4", "int4" or
+    "mixed" (stacked (L, In, Out) leaves quantize per layer). Embeddings,
+    lm_head, norms and biases stay in the working dtype."""
+    kinds = field_kinds(kind)
     lp = dataclasses.replace(params.layers, **{
-        f: quantize_int8(getattr(params.layers, f)) for f in QUANT_FIELDS})
+        f: QUANTIZERS[kinds[f]](getattr(params.layers, f))
+        for f in QUANT_FIELDS})
     return dataclasses.replace(params, layers=lp)
 
 
-def random_int8_llama_params(cfg: ModelConfig, generator: torch.Generator,
-                             device) -> LlamaParams:
-    """Random int8 base built directly on `device` (no bf16 copy), with the
-    distributions of the JAX bench (`bench.py:138-218`): codes uniform in
-    [-127, 127] with scale In^-1/2 / 127, embed N(0, 0.02), lm_head
-    N(0, 1) * H^-1/2, unit norms. `jax.random`'s bits cannot be reproduced
-    here, so this is the same distribution, not the same weights."""
+def random_llama_params(cfg: ModelConfig, generator: torch.Generator,
+                        device, kind: str = "int8") -> LlamaParams:
+    """Random quantized base of any kind built directly on `device` (no bf16
+    copy), with the distributions of the JAX bench (`bench.py:138-218`):
+    int8 codes uniform in [-127, 127] with scale In^-1/2 / 127; packed 4-bit
+    bytes uniform in [0, 255] with block scale In^-1/2 (nf4) or In^-1/2 / 7
+    (int4); embed N(0, 0.02), lm_head N(0, 1) * H^-1/2, unit norms.
+    `jax.random`'s bits cannot be reproduced here, so this is the same
+    distribution, not the same weights."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     n, d = cfg.num_hidden_layers, cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     dt = getattr(torch, cfg.dtype)
+    kinds = field_kinds(kind)
 
-    def q_of(n_in, n_out):
-        q = torch.empty((n, n_in, n_out), dtype=torch.int8, device=device)
+    def fill(q, lo, hi):
         for layer in q:                 # per layer: a small int64 transient
-            layer.copy_(torch.randint(-127, 128, (n_in, n_out),
+            layer.copy_(torch.randint(lo, hi, tuple(layer.shape),
                                       generator=generator, device=device))
-        s = torch.full((n, n_out), n_in ** -0.5 / 127.0, dtype=torch.float32,
-                       device=device)
-        return Int8Tensor(q=q, scale=s)
+        return q
+
+    def q_of(field, n_in, n_out):
+        fk = kinds[field]
+        if fk == "int8":
+            q = torch.empty((n, n_in, n_out), dtype=torch.int8, device=device)
+            s = torch.full((n, n_out), n_in ** -0.5 / 127.0,
+                           dtype=torch.float32, device=device)
+            return Int8Tensor(q=fill(q, -127, 128), scale=s)
+        q = torch.empty((n, n_in // 2, n_out), dtype=torch.uint8,
+                        device=device)
+        s = torch.full((n, n_in // NF4_BLOCK, n_out),
+                       n_in ** -0.5 / (7.0 if fk == "int4" else 1.0),
+                       dtype=torch.float32, device=device)
+        cls = Int4Tensor if fk == "int4" else NF4Tensor
+        return cls(q=fill(q, 0, 256), scale=s)
 
     def normal(shape, std):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * std).to(dt)
 
     layers = LlamaLayerParams(
-        wq=q_of(h, nq * d), wk=q_of(h, nkv * d), wv=q_of(h, nkv * d),
-        wo=q_of(nq * d, h), w_gate=q_of(h, i), w_up=q_of(h, i),
-        w_down=q_of(i, h),
+        wq=q_of("wq", h, nq * d), wk=q_of("wk", h, nkv * d),
+        wv=q_of("wv", h, nkv * d), wo=q_of("wo", nq * d, h),
+        w_gate=q_of("w_gate", h, i), w_up=q_of("w_up", h, i),
+        w_down=q_of("w_down", i, h),
         input_ln=torch.ones((n, h), dtype=dt, device=device),
         post_ln=torch.ones((n, h), dtype=dt, device=device))
     return LlamaParams(embed=normal((v, h), 0.02), layers=layers,
                        final_norm=torch.ones((h,), dtype=dt, device=device),
                        lm_head=normal((h, v), h ** -0.5))
+
+
+def random_int8_llama_params(cfg: ModelConfig, generator: torch.Generator,
+                             device) -> LlamaParams:
+    """`random_llama_params` of kind "int8"."""
+    return random_llama_params(cfg, generator, device, "int8")

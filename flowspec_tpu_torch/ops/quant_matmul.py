@@ -1,13 +1,23 @@
-"""int8 weight-only dequant-matmul: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Weight-only dequant-matmuls: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Port of `flowspec_tpu/ops/quant_matmul.py:47 _int8_kernel` / `:54
+int8 — port of `flowspec_tpu/ops/quant_matmul.py:47 _int8_kernel` / `:54
 int8_matmul`. y = (x @ q) * scale with x (B, T, In), q (In, Out) int8,
 scale (Out,) f32, f32 accumulation, one cast to x's dtype at the end — the
 rounding order of `flowspec_tpu/ops/quant.py:238-240`.
 
-On a CUDA tensor the wrapper launches `csrc/int8_matmul.cu` (bf16
-activations) or raises; on a CPU tensor it runs `int8_matmul_plain`.
+Packed 4-bit — port of `:118 _nf4_kernel`, `:144 _int4_kernel` and `:203
+_int4_kfull_kernel`. q (In/2, Out) uint8 holds two codes per byte along In,
+scale (In/64, Out) f32 one value per 64 rows per column. The operand is
+decoded **in bf16**, as the TPU kernels do:
+`w = bf16(bf16(value) * bf16(scale))` with value = nibble - 8 (int4) or
+`NF4_CODE[nibble]` (nf4), then `y = cast(sum_f32 x * w)`. This differs from
+the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The three
+kernels compute this one function and differ only in the order of the f32
+sum; `int4_matmul` sends calls of at most 32 rows to the split-K kernel.
+
+On a CUDA tensor every wrapper launches its kernel (bf16 activations) or
+raises; on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +25,10 @@ from __future__ import annotations
 import torch
 
 from flowspec_tpu_torch.ops import _build
+from flowspec_tpu_torch.ops.quant import NF4_BLOCK, NF4_CODE, unpack_nf4
+
+SMALL_M = 32            # int4 calls of at most this many rows use split-K
+SPLITK_BLOCKS = 4 * 132  # blocks the split-K grid aims for (4 per SM)
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -70,3 +84,166 @@ def _launch(x, q, scale):
 
 
 int8_matmul.launches = 0
+
+
+# ---- packed 4-bit ----------------------------------------------------------
+
+def _operands4_bf16(q: torch.Tensor, scale: torch.Tensor, nf4: bool):
+    """(In/2, Out) packed bytes -> the (In, Out) bf16 values and the bf16
+    block scales repeated over their 64 rows."""
+    idx = unpack_nf4(q)
+    if nf4:
+        val = torch.from_numpy(NF4_CODE).to(q.device).to(
+            torch.bfloat16)[idx.long()]
+    else:
+        val = (idx.to(torch.int16) - 8).to(torch.bfloat16)
+    return val, scale.to(torch.bfloat16).repeat_interleave(NF4_BLOCK, dim=-2)
+
+
+def _decode4_bf16(q: torch.Tensor, scale: torch.Tensor,
+                  nf4: bool) -> torch.Tensor:
+    """The (In, Out) bf16 operand the kernels build: one bf16 multiply of
+    the bf16 value and the bf16 block scale."""
+    val, s = _operands4_bf16(q, scale, nf4)
+    return val * s
+
+
+def _packed4_plain(x, q, scale, nf4: bool):
+    w = _decode4_bf16(q, scale, nf4)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+
+
+def nf4_matmul_plain(x: torch.Tensor, q: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the nf4 kernel: bf16 decode, f32 sum, cast last."""
+    return _packed4_plain(x, q, scale, nf4=True)
+
+
+def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of both int4 kernels (they differ in summation order
+    only): bf16 decode, f32 sum, cast last."""
+    return _packed4_plain(x, q, scale, nf4=False)
+
+
+def _check_packed4(name, x, q, scale):
+    if x.dim() != 3 or q.dim() != 2 or scale.dim() != 2:
+        raise ValueError(f"{name}: bad ranks x{tuple(x.shape)} "
+                         f"q{tuple(q.shape)} scale{tuple(scale.shape)}")
+    n_in, n_out = x.shape[2], q.shape[1]
+    if n_in % NF4_BLOCK:
+        raise ValueError(f"{name}: In = {n_in} is not a multiple of "
+                         f"{NF4_BLOCK}")
+    if (q.shape[0] * 2 != n_in
+            or tuple(scale.shape) != (n_in // NF4_BLOCK, n_out)):
+        raise ValueError(f"{name}: shape mismatch x{tuple(x.shape)} "
+                         f"q{tuple(q.shape)} scale{tuple(scale.shape)}")
+    if q.dtype != torch.uint8 or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: q {q.dtype}, scale {scale.dtype}")
+
+
+def _launch4(wrapper, x, q, scale, ptrs=(), ints=()):
+    """Launch the packed 4-bit kernel named like `wrapper` and count it. The
+    C entry point takes (x, q, scale, *ptrs, y, M, In, Out, *ints, stream);
+    anything the kernel does not take raises here."""
+    name = wrapper.__name__
+    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
+        raise ValueError(f"{name}: x, q and scale must share one device")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
+    if q.shape[1] % 32:
+        raise ValueError(f"{name} kernel needs Out % 32 == 0, got "
+                         f"Out={q.shape[1]}")
+    if not (q.is_contiguous() and scale.is_contiguous()
+            and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
+        raise ValueError(f"{name} kernel needs contiguous, 16-byte aligned "
+                         "q and scale")
+    x = _build.aligned16(x)
+    b, t, n_in = x.shape
+    n_out = q.shape[1]
+    y = torch.empty((b, t, n_out), dtype=x.dtype, device=x.device)
+    fn = _build.bind(name, 4 + len(ptrs), 3 + len(ints))
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                 *(p.data_ptr() for p in ptrs), y.data_ptr(), b * t, n_in,
+                 n_out, *ints, _build.stream_ptr(x.device))
+    _build.check(err, name)
+    wrapper.launches += 1
+    return y
+
+
+_nf4_code: dict = {}
+
+
+def _nf4_code_on(device) -> torch.Tensor:
+    """NF4_CODE rounded to bf16 once, on `device` (the kernel's table)."""
+    if device not in _nf4_code:
+        _nf4_code[device] = torch.from_numpy(NF4_CODE).to(device).to(
+            torch.bfloat16)
+    return _nf4_code[device]
+
+
+def nf4_matmul(x: torch.Tensor, q: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """x (B, T, In) @ NF4(q (In/2, Out) packed u8, scale (In/64, Out))
+    -> (B, T, Out)."""
+    _check_packed4("nf4_matmul", x, q, scale)
+    if x.device.type == "cpu":
+        return nf4_matmul_plain(x, q, scale)
+    return _launch4(nf4_matmul, x, q, scale, ptrs=(_nf4_code_on(x.device),))
+
+
+nf4_matmul.launches = 0
+
+
+def int4_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x (B, T, In) @ Int4(q (In/2, Out) packed u8, scale (In/64, Out))
+    -> (B, T, Out). Calls of at most SMALL_M rows go to the split-K kernel
+    (`int4_matmul_smallm`), wider ones to the strip kernel; `launches`
+    counts the strip kernel only."""
+    _check_packed4("int4_matmul", x, q, scale)
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q, scale)
+    if x.shape[0] * x.shape[1] <= SMALL_M:
+        return int4_matmul_smallm(x, q, scale)
+    return _launch4(int4_matmul, x, q, scale)
+
+
+int4_matmul.launches = 0
+
+
+def split_k(n_in: int, n_out: int) -> int:
+    """How many K splits the small-M kernel runs: enough that column strips
+    (128 columns where Out allows) x splits reach SPLITK_BLOCKS, every split
+    a whole number of 64-row blocks and none empty."""
+    if n_in % NF4_BLOCK or n_out % 32:
+        raise ValueError(f"split_k needs In % {NF4_BLOCK} == 0 and "
+                         f"Out % 32 == 0, got In={n_in} Out={n_out}")
+    nkb = n_in // NF4_BLOCK
+    bn = 128 if n_out % 128 == 0 else 64 if n_out % 64 == 0 else 32
+    want = max(1, -(-SPLITK_BLOCKS // (n_out // bn)))
+    chunk = -(-nkb // min(want, nkb))
+    return -(-nkb // chunk)
+
+
+def int4_matmul_smallm(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """The same product for B*T <= SMALL_M rows through the split-K kernel:
+    f32 partials per split, added in ascending order by a second pass (no
+    atomics: equal bits on every launch)."""
+    _check_packed4("int4_matmul_smallm", x, q, scale)
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q, scale)
+    rows, n_out = x.shape[0] * x.shape[1], q.shape[1]
+    if rows > SMALL_M:
+        raise ValueError(f"int4_matmul_smallm takes at most {SMALL_M} rows, "
+                         f"got {rows}")
+    ksplit = split_k(x.shape[2], n_out)
+    partial = torch.empty((ksplit, rows, n_out), dtype=torch.float32,
+                          device=x.device)
+    return _launch4(int4_matmul_smallm, x, q, scale, ptrs=(partial,),
+                    ints=(ksplit,))
+
+
+int4_matmul_smallm.launches = 0

@@ -8,9 +8,8 @@ Python loop. Positions and lengths (commit_len, n_pending, cache lengths)
 are host ints, so every kernel launch knows its live KV rows without a
 device sync; the round syncs once, to read the accepted length.
 
-Not ported yet (ROADMAP.md, Queue 1): stochastic acceptance,
-`generate_fused` / CUDA graphs, KV buckets, `resume_and_generate`, `serve`
-and `force_accept`.
+Not ported yet (ROADMAP.md, Queue 1): `generate_fused` / CUDA graphs, KV
+buckets, `resume_and_generate`, `serve` and `force_accept`.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from flowspec_tpu_torch.models.kv_cache import KVCache, init_kv_cache
 from flowspec_tpu_torch.models.llama import (
     LlamaParams, embed_tokens, final_hidden, lm_head_logits, llama_forward,
 )
-from flowspec_tpu_torch.ops.quant import Int8Tensor, quantize_int8
+from flowspec_tpu_torch.ops.quant import Int8Tensor, NF4Tensor, quantize_int8
 from flowspec_tpu_torch.tree.posterior import (
     evaluate_posterior_greedy, evaluate_posterior_stochastic,
 )
@@ -54,10 +53,12 @@ def resolve_device(device=None) -> torch.device:
 def make_beam_head(params: LlamaParams, draft: EagleParams,
                    cfg: EngineConfig):
     """The lm_head copy the draft beam scores proposals with
-    (EngineConfig.beam_head_quant; "auto" = int8 iff the draft is)."""
+    (EngineConfig.beam_head_quant; "auto" = int8 for an int8 or nf4 draft,
+    plain for an int4 or unquantized one, as in the JAX package)."""
     mode = cfg.beam_head_quant
     if mode == "auto":
-        mode = "int8" if isinstance(draft.wq, Int8Tensor) else "none"
+        mode = ("int8" if isinstance(draft.wq, (Int8Tensor, NF4Tensor))
+                else "none")
     if mode == "int8":
         return quantize_int8(params.lm_head)
     assert mode == "none", mode
@@ -347,9 +348,12 @@ def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
     node_logits = lm_head_logits(params, normed[0])      # (N, V) f32
 
     # 3. accept
-    if not sampling.is_greedy:
-        evaluate_posterior_stochastic(node_logits, tree, sampling)
-    res = evaluate_posterior_greedy(node_logits, tree)
+    if sampling.is_greedy:
+        res = evaluate_posterior_greedy(node_logits, tree)
+    else:
+        res = evaluate_posterior_stochastic(
+            node_logits, tree, sampling, state.generator,
+            max_trials=min(2 * tree_cfg.top_k, tree_cfg.leaf_cap))
     new_root = sample_token(state.generator, res.sample_p, sampling,
                             is_probs=True)
     n_acc = int(res.accept_len) + 1                      # the round's sync

@@ -1,12 +1,12 @@
-"""Acceptance: greedy longest-prefix match.
+"""Acceptance: greedy longest-prefix match and stochastic rejection sampling.
 
-Port of `flowspec_tpu/tree/posterior.py` (greedy half). Works on per-node
-logits (N_cap, V): `logits[n]` is the base model's next-token distribution
-at tree node n. `accept_len` counts accepted tree tokens beyond the root;
+Port of `flowspec_tpu/tree/posterior.py`. Works on per-node logits
+(N_cap, V): `logits[n]` is the base model's next-token distribution at tree
+node n. `accept_len` counts accepted tree tokens beyond the root;
 `sample_p` is the (V,) distribution the next root token is drawn from.
 
-The stochastic rejection-sampling path is not ported yet (ROADMAP.md,
-Queue 1) and raises.
+The stochastic path draws from an explicit `torch.Generator`; its bits
+cannot match `jax.random`'s, its sampling law does.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from flowspec_tpu_torch.config import SamplingConfig
+from flowspec_tpu_torch.tree.sampling import warp_logits
 from flowspec_tpu_torch.tree.types import TokenTree
 
 
@@ -47,6 +49,75 @@ def evaluate_posterior_greedy(node_logits: torch.Tensor,
     return PosteriorResult(best, accept_len, sample_p)
 
 
-def evaluate_posterior_stochastic(*args, **kwargs):
-    raise NotImplementedError(
-        "stochastic acceptance is not ported yet; use greedy sampling")
+def evaluate_posterior_stochastic(
+        node_logits: torch.Tensor, tree: TokenTree, cfg: SamplingConfig,
+        generator: torch.Generator | None,
+        max_trials: int | None = None) -> PosteriorResult:
+    """EAGLE/SpecInfer-style sequential rejection sampling.
+
+    At each depth along the accepted path: try the distinct sibling tokens in
+    leaf-row order; accept token x with probability p(x) (draft q == 1); on
+    rejection zero p(x) and renormalize. Trial tokens are distinct, so that
+    is p(x_m) / (1 - sum_{j<m} p(x_j)) and one vector of uniforms decides a
+    whole depth. If the walk ends on rejections, the residual distribution
+    is returned for sampling. The depth loop is a Python loop with one host
+    read per depth (the JAX package scans it on device)."""
+    node_cap, vocab = node_logits.shape
+    leaf_cap, depth_cap = tree.retrieve.shape
+    m_trials = leaf_cap if max_trials is None else min(max_trials, leaf_cap)
+    dev = node_logits.device
+    cand = tree.candidates()
+    leaf_valid = tree.leaf_valid()
+    warped = warp_logits(node_logits.float(), cfg)
+    rows = torch.arange(leaf_cap, device=dev)
+    earlier = rows[None, :] < rows[:, None]
+    slots = torch.arange(m_trials, device=dev)
+
+    is_eq = leaf_valid.clone()      # rows matching the accepted prefix
+    accept_len, best = 0, 0
+    residual = None                 # set iff the last depth tried ended rejected
+    for i in range(1, depth_cap):
+        fi = torch.argmax(is_eq.to(torch.int8))
+        path_node = tree.retrieve[fi, i - 1].clamp(0, node_cap - 1).long()
+        gtp0 = torch.softmax(warped[path_node], dim=-1)
+
+        # first-occurrence dedup of sibling tokens among matching rows
+        x = cand[:, i]
+        eligible = is_eq & (x >= 0) & leaf_valid & (tree.retrieve[:, i] >= 0)
+        dup = ((x[None, :] == x[:, None]) & earlier
+               & eligible[None, :]).any(dim=1)
+        trial = eligible & ~dup
+        t_rows = torch.argsort((~trial).to(torch.int8),
+                               stable=True)[:m_trials]
+        t_valid = trial[t_rows]
+        t_tok = torch.where(t_valid, x[t_rows], 0).clamp(0, vocab - 1).long()
+        p_t = torch.where(t_valid, gtp0[t_tok], 0.0)
+
+        r = torch.rand((m_trials,), generator=generator, device=dev)
+        denom = (1.0 - (torch.cumsum(p_t, 0) - p_t)).clamp_min(1e-30)
+        acc = t_valid & (r * denom <= p_t)
+        first = torch.argmax(acc.to(torch.int8))
+        any_acc = acc.any()
+        rej = t_valid & (~any_acc | (slots < first))
+        any_elig, any_acc, first, any_rej = torch.stack(
+            [eligible.any(), any_acc, first, rej.any()]).tolist()
+        if not any_elig:
+            break
+        if not any_acc:
+            if any_rej:
+                residual = gtp0.index_fill(0, t_tok[rej], 0.0)
+                residual = residual / residual.sum().clamp_min(1e-30)
+            break
+        best = int(t_rows[first])
+        is_eq = is_eq & (x == x[best])
+        accept_len += 1
+
+    if residual is not None and accept_len < depth_cap - 1:
+        sample_p = residual
+    else:
+        last_node = tree.retrieve[best, accept_len].clamp(
+            0, node_cap - 1).long()
+        sample_p = torch.softmax(warped[last_node], dim=-1)
+    return PosteriorResult(
+        torch.tensor(best, dtype=torch.int32, device=dev),
+        torch.tensor(accept_len, dtype=torch.int32, device=dev), sample_p)

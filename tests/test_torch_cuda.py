@@ -8,9 +8,10 @@ tests). On a machine with a card and the CUDA toolkit:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py sets up JAX, which these tests do not
-use.) Tolerances: int8 and attention outputs are bf16, compared at one bf16
-rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head log-probs are f32
-sums of H terms, compared at 1e-3.
+use.) Tolerances: int8, nf4, int4 and attention outputs are bf16, compared
+at one bf16 rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head
+log-probs are f32 sums of H terms, compared at 1e-3. The split-K int4 kernel
+must give equal bits on every launch (no atomics).
 """
 
 import pytest
@@ -19,7 +20,9 @@ import torch
 from flowspec_tpu_torch.ops.head_topk import (
     head_logits, head_topk, head_topk_int8, head_topk_plain)
 from flowspec_tpu_torch.ops.quant import Int8Tensor
-from flowspec_tpu_torch.ops.quant_matmul import int8_matmul, int8_matmul_plain
+from flowspec_tpu_torch.ops.quant_matmul import (
+    int4_matmul, int4_matmul_plain, int4_matmul_smallm, int8_matmul,
+    int8_matmul_plain, nf4_matmul, nf4_matmul_plain)
 from flowspec_tpu_torch.ops.tree_attention import (
     live_keys, tree_attention, tree_attention_plain)
 
@@ -52,6 +55,73 @@ def test_int8_matmul_matches_plain(cuda, m, n_in, n_out):
     assert int8_matmul.launches == before + 1
     err = (got.float() - want.float()).abs()
     assert bool((err <= 1e-2 * want.float().abs() + 1e-2).all()), err.max()
+
+
+def _packed4(gen, m, n_in, n_out, step):
+    x = torch.randn((1, m, n_in), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = torch.randint(0, 256, (n_in // 2, n_out), generator=gen,
+                      device="cuda").to(torch.uint8)
+    s = (torch.rand((n_in // 64, n_out), generator=gen, device="cuda") + 0.5
+         ) * n_in ** -0.5 * step
+    return x, q, s
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 1e-2 * want.float().abs() + 1e-2).all()), err.max()
+
+
+# one small and the path's shapes: 7B base and thin draft at every M
+@pytest.mark.parametrize("m,n_in,n_out", [
+    (1, 64, 32), (7, 128, 96), (1, 4096, 4096), (10, 1024, 2816),
+    (9, 8192, 1024), (33, 256, 64), (64, 4096, 11008), (81, 11008, 4096),
+    (130, 256, 640)])
+def test_nf4_matmul_matches_plain(cuda, m, n_in, n_out):
+    x, q, s = _packed4(cuda, m, n_in, n_out, 1.0)
+    before = nf4_matmul.launches
+    got = nf4_matmul(x, q, s)
+    want = nf4_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert nf4_matmul.launches == before + 1
+    ok, err = _close(got, want)
+    assert ok, err
+
+
+# wide kernel: 13B wq at prefill and verify width, and ragged small shapes
+@pytest.mark.parametrize("m,n_in,n_out", [
+    (33, 128, 96), (40, 256, 64), (64, 5120, 5120), (81, 5120, 5120),
+    (130, 192, 640)])
+def test_int4_matmul_wide_matches_plain(cuda, m, n_in, n_out):
+    x, q, s = _packed4(cuda, m, n_in, n_out, 1 / 7)
+    before = int4_matmul.launches, int4_matmul_smallm.launches
+    got = int4_matmul(x, q, s)
+    want = int4_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert (int4_matmul.launches, int4_matmul_smallm.launches) == (
+        before[0] + 1, before[1])
+    ok, err = _close(got, want)
+    assert ok, err
+
+
+# split-K kernel: 13B wq, the 7B w_down whose half-In has no divisor that is
+# a multiple of 256, strips of 32 / 64 / 128 columns, a single 64-row block
+@pytest.mark.parametrize("m,n_in,n_out", [
+    (1, 64, 32), (5, 128, 96), (17, 256, 64), (1, 5120, 5120),
+    (9, 5120, 5120), (32, 5120, 5120), (1, 11008, 4096), (10, 10240, 1280)])
+def test_int4_matmul_smallm_matches_plain_with_equal_bits(cuda, m, n_in,
+                                                          n_out):
+    x, q, s = _packed4(cuda, m, n_in, n_out, 1 / 7)
+    before = int4_matmul.launches, int4_matmul_smallm.launches
+    got = int4_matmul(x, q, s)            # dispatches on M <= 32
+    again = int4_matmul_smallm(x, q, s)
+    want = int4_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert (int4_matmul.launches, int4_matmul_smallm.launches) == (
+        before[0], before[1] + 2)
+    ok, err = _close(got, want)
+    assert ok, err
+    assert torch.equal(got, again)        # fixed-order reduction
 
 
 def _attn(gen, nq, nkv, t, s_max, d, n_valid):
@@ -135,3 +205,14 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         tree_attention(qa, kv, kv, torch.zeros((3, 256), device="cuda"))
     with pytest.raises(TypeError):
         head_topk_int8(x[0], q, s, 4)
+    q4 = torch.zeros((32, 32), dtype=torch.uint8, device="cuda")
+    s4 = torch.ones((1, 32), device="cuda")
+    for fn in (nf4_matmul, int4_matmul, int4_matmul_smallm):
+        with pytest.raises(TypeError):                      # f32 x
+            fn(x, q4, s4)
+        with pytest.raises(ValueError):                     # Out % 32 != 0
+            fn(x.bfloat16(), q4[:, :24].contiguous(),
+               s4[:, :24].contiguous())
+    with pytest.raises(ValueError):                         # 40 rows
+        int4_matmul_smallm(torch.zeros((1, 40, 64), dtype=torch.bfloat16,
+                                       device="cuda"), q4, s4)

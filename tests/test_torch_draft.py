@@ -107,3 +107,42 @@ def test_topk_generate_gives_identical_tree(setup):
     assert int(np.asarray(want.depth).max()) >= 2       # a real multi-level tree
     np.testing.assert_allclose(gcache.k.numpy(), np.asarray(wcache.k), **F32)
     assert gcache.length == int(wcache.length)
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4", "int4", "mixed"])
+def test_quantize_eagle_params_matches_jax(kind):
+    """The port's draft quantizer gives JAX's containers, bytes and scales
+    for every kind ("mixed" keeps the draft int8), and the quantized draft
+    runs: its context forward agrees with the JAX f32 dequant path within
+    the bf16 decode's 1e-2 of the largest value (exactly 1e-5 for int8)."""
+    jc = dataclasses.replace(JModelConfig.tiny(vocab_size=256),
+                             dtype="float32")
+    base = init_llama_params(jax.random.key(0), jc, dtype=jnp.float32)
+    draft = jeagle.init_eagle_params(jax.random.key(1), jc, embed=base.embed,
+                                     dtype=jnp.float32)
+    want = jeagle.quantize_eagle_params(draft, kind)
+    got = teagle.quantize_eagle_params(port_eagle(draft), kind)
+    bridged = port_eagle(want)
+    for f in teagle.EAGLE_QUANT_FIELDS:
+        w, g, b = getattr(want, f), getattr(got, f), getattr(bridged, f)
+        if w is None:
+            assert g is None
+            continue
+        assert type(g) is type(b)
+        assert type(g).__name__ == type(w).__name__
+        np.testing.assert_array_equal(g.q.numpy(), np.asarray(w.q))
+        np.testing.assert_array_equal(g.scale.numpy(), np.asarray(w.scale))
+    with pytest.raises(ValueError, match="not in"):
+        teagle.quantize_eagle_params(port_eagle(draft), "fp4")
+
+    tc = tcfg.ModelConfig(**dataclasses.asdict(jc))
+    jcache, tokens, hidden, n_valid, start = _context(jc, want)
+    w_out, _ = jeagle.draft_context_forward(
+        want, jcache, jnp.asarray(tokens), jnp.asarray(hidden),
+        jnp.asarray(start), jnp.asarray(n_valid), jc)
+    g_out, _ = teagle.draft_context_forward(
+        got, port_cache(jcache), torch.from_numpy(tokens),
+        torch.from_numpy(hidden), start, n_valid, tc)
+    w_out = np.asarray(w_out)
+    tol = 1e-5 if kind in ("int8", "mixed") else 1e-2
+    assert np.abs(g_out.numpy() - w_out).max() <= tol * np.abs(w_out).max()

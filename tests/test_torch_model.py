@@ -4,6 +4,12 @@ builders and tree_attention_bias, with inputs made by numpy from a seed.
 
 f32 checks at 1e-5 (summation order only); bf16 checks at 2e-2 absolute on
 O(1) values (bf16 keeps 8 bits; both sides round at the same points).
+Packed 4-bit weights (nf4, int4, mixed) are quantized by JAX and carried
+over the bridge; the port decodes them in bf16 as the TPU kernels do, so
+against JAX's f32 dequant path the hidden states and logits are held to
+1e-2 of their largest value, and against the Pallas kernels in interpret
+mode (which at f32 keep the bf16 value and scale but not the product's
+rounding) to 5e-3.
 """
 
 import dataclasses
@@ -18,10 +24,12 @@ from flowspec_tpu.config import ModelConfig as JModelConfig
 from flowspec_tpu.models import bias as jbias
 from flowspec_tpu.models import llama as jl
 from flowspec_tpu.models.kv_cache import KVCache as JKVCache, init_kv_cache
+from flowspec_tpu.ops import quant as jquant
 from flowspec_tpu.tree import types as jtypes
 from flowspec_tpu_torch import config as tcfg
 from flowspec_tpu_torch.models import bias as tbias
 from flowspec_tpu_torch.models import llama as tl
+from flowspec_tpu_torch.ops import quant as tquant
 from flowspec_tpu_torch.tree import types as ttypes
 from tests.torch_bridge_util import np_of, port_cache, port_llama
 
@@ -140,6 +148,86 @@ def test_llama_forward_matches(quant):
         tl.lm_head_logits(tp, tl.final_hidden(tp, got, tc)).numpy(),
         np.asarray(jl.lm_head_logits(jp, jl.final_hidden(jp, want, jc))),
         **F32)
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas"])
+@pytest.mark.parametrize("kind", ["nf4", "int4", "mixed"])
+def test_llama_forward_matches_with_4bit_weights(kind, path, monkeypatch):
+    from jax.experimental.pallas import tpu as pltpu
+    jc, tc = _cfgs(n_layers=3)
+    jp = jl.quantize_llama_params(
+        jl.init_llama_params(jax.random.key(0), jc, dtype=jnp.float32), kind)
+    tp = port_llama(jp)
+    want_cls = {"nf4": (tquant.NF4Tensor, tquant.NF4Tensor),
+                "int4": (tquant.Int4Tensor, tquant.Int4Tensor),
+                "mixed": (tquant.Int4Tensor, tquant.Int8Tensor)}[kind]
+    assert (type(tp.layers.wq), type(tp.layers.w_down)) == want_cls
+    # the port's own quantizer gives the same containers, bytes and scales
+    mine = tl.quantize_llama_params(port_llama(
+        jl.init_llama_params(jax.random.key(0), jc, dtype=jnp.float32)), kind)
+    for f in tl.QUANT_FIELDS:
+        a, b = getattr(mine.layers, f), getattr(tp.layers, f)
+        assert type(a) is type(b)
+        np.testing.assert_array_equal(a.q.numpy(), b.q.numpy())
+        np.testing.assert_array_equal(a.scale.numpy(), b.scale.numpy())
+
+    t, s, start = 6, 256, 17
+    rng = np.random.default_rng(3)
+    cache = init_kv_cache(3, 1, jc.num_key_value_heads, s, jc.head_dim_,
+                          jnp.float32)
+    hidden = rng.standard_normal((1, t, jc.hidden_size)).astype(np.float32)
+    pos = np.arange(start, start + t, dtype=np.int32)
+    bias = np.asarray(jbias.prefill_bias(jnp.asarray(start), t, s))
+    # JAX on the CPU takes its f32 dequant path; "pallas" sends the 4-bit
+    # products through the TPU kernels in interpret mode instead
+    monkeypatch.setattr(jquant, "_USE_PALLAS", {
+        "int8": False, "nf4": path == "pallas", "int4": path == "pallas"})
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jl.llama_forward(jp, cache, jnp.asarray(hidden),
+                                   jnp.asarray(pos), jnp.asarray(bias),
+                                   jnp.asarray(start), jc)
+        want_logits = jl.lm_head_logits(jp, jl.final_hidden(jp, want, jc))
+    got, _ = tl.llama_forward(tp, port_cache(cache), torch.from_numpy(hidden),
+                              torch.from_numpy(pos), torch.from_numpy(bias),
+                              start, tc)
+    got_logits = tl.lm_head_logits(tp, tl.final_hidden(tp, got, tc))
+    tol = 1e-2 if path == "xla" else 5e-3
+    for g, w in ((got, want), (got_logits, want_logits)):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= tol * np.abs(w).max()
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4", "int4", "mixed"])
+def test_random_llama_params_layout(kind):
+    """The random base of each kind has the containers, shapes and dtypes of
+    a quantized one, and the old int8 entry point is the int8 kind."""
+    _, tc = _cfgs(n_layers=2, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    p = tl.random_llama_params(tc, gen, "cpu", kind)
+    ref = tl.quantize_llama_params(tl.LlamaParams(
+        embed=p.embed, final_norm=p.final_norm, lm_head=p.lm_head,
+        layers=dataclasses.replace(p.layers, **{
+            f: torch.zeros((2, getattr(p.layers, f).in_features,
+                            getattr(p.layers, f).out_features))
+            for f in tl.QUANT_FIELDS})), kind)
+    for f in tl.QUANT_FIELDS:
+        a, b = getattr(p.layers, f), getattr(ref.layers, f)
+        assert type(a) is type(b)
+        assert (a.q.shape, a.q.dtype) == (b.q.shape, b.q.dtype)
+        assert (a.scale.shape, a.scale.dtype) == (b.scale.shape,
+                                                  b.scale.dtype)
+    if kind == "int8":
+        q = tl.random_int8_llama_params(tc, torch.Generator().manual_seed(0),
+                                        "cpu")
+        assert torch.equal(q.layers.w_up.q, p.layers.w_up.q)
+        assert torch.equal(q.lm_head, p.lm_head)
+    h = torch.zeros((1, 3, tc.hidden_size), dtype=torch.bfloat16)
+    from flowspec_tpu_torch.models.kv_cache import init_kv_cache as tinit
+    cache = tinit(2, 1, tc.num_key_value_heads, 256, tc.head_dim_,
+                  torch.bfloat16, "cpu")
+    out, _ = tl.llama_forward(p, cache, h + 1, torch.arange(3),
+                              tbias.prefill_bias(0, 3, 256), 0, tc)
+    assert out.shape == h.shape and bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.parametrize("src,n_src,dst", [

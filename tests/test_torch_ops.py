@@ -91,7 +91,8 @@ def test_int8_matmul_bf16_matches_pallas():
 
 
 def test_qmatmul_rejects_unported_containers():
-    with pytest.raises(NotImplementedError):
+    # every container of the JAX package is ported; anything else is no weight
+    with pytest.raises(TypeError, match="not a weight"):
         qmatmul(torch.zeros(1, 1, 64), object())
 
 
@@ -222,7 +223,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_kernel_build_keys_on_source_hash():
     names = {_build.lib_path(n).name for n in _build.KERNELS}
-    assert len(names) == 3
+    assert len(names) == 6
     for n in _build.KERNELS:
         assert (_build.CSRC / f"{n}.cu").exists()
         assert _build.lib_path(n).parent == _build.BUILD_DIR

@@ -1,0 +1,260 @@
+"""The PyTorch port's packed 4-bit formats against the JAX package on the CPU.
+
+(a) quantize_nf4 / quantize_int4 / pack / unpack / dequantize give JAX's
+    bytes and scales, exact-midpoint (nf4) and half-way (int4) inputs
+    included;
+(b) the plain versions of the nf4 / int4 dequant-matmuls (what the CUDA
+    kernels are held to on the card) against the Pallas kernels in interpret
+    mode, `_int4_matmul_kfull` with two K steps included. bf16 x (what the
+    card runs): within one bf16 ulp (rtol 1e-2). f32 x: XLA on the CPU keeps
+    excess precision and drops the bf16 rounding of value * scale when its
+    consumer is f32, so there the bf16 value times the bf16 scale,
+    unrounded, must match within 1e-4 relative (same operand bits, f32 sums
+    in another order), and the plain version, which rounds the product as
+    the chip does, within that rounding's own bound 2^-8 * (|x| @ |w|). And
+    loosely against JAX's f32 `dequantize` path, which rounds nothing to
+    bf16: within the three roundings' bound 2^-7 * (|x| @ |w|), and within
+    rtol 5e-2 / atol 2e-1 (tests/test_quant.py:150-155 holds 8 rows to
+    atol 1e-1; these cases have up to 40 rows and longer tails);
+(c) `qmatmul` dispatch, the wrappers' refusals and the bridge's refusal to
+    guess the kind of a uint8 container.
+Inputs come from numpy with a seed.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from flowspec_tpu.ops import quant as jq
+from flowspec_tpu.ops import quant_matmul as jqm
+from flowspec_tpu_torch import bridge
+from flowspec_tpu_torch.ops import quant as tq
+from flowspec_tpu_torch.ops import quant_matmul as tqm
+from tests.torch_bridge_util import np_of, to_numpy_dict
+
+QUANTIZERS = {"nf4": (jq.quantize_nf4, tq.quantize_nf4),
+              "int4": (jq.quantize_int4, tq.quantize_int4)}
+PLAIN = {"nf4": tqm.nf4_matmul_plain, "int4": tqm.int4_matmul_plain}
+JKERNEL = {"nf4": jqm.nf4_matmul, "int4": jqm.int4_matmul}
+
+
+def _weights(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _port(jt):
+    return bridge.weight(to_numpy_dict(jt))
+
+
+def _x(seed, m, n_in, dtype):
+    x = np.random.default_rng(seed).standard_normal((1, m, n_in)).astype(
+        np.float32)
+    jx = jnp.asarray(x, dtype)
+    tx = torch.from_numpy(np.array(jx, np.float32)).to(getattr(torch, dtype))
+    return jx, tx
+
+
+def _check_against_kernel(kind, dtype, tx, tt, got, want):
+    scale = np.abs(want).max()
+    if dtype == "bfloat16":    # one bf16 rounding of f32 sums that differ
+        np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * scale)
+        return
+    val, s = tqm._operands4_bf16(tt.q, tt.scale, nf4=kind == "nf4")
+    w = val.float() * s.float()                # the product left unrounded
+    np.testing.assert_allclose((tx @ w).numpy(), want, rtol=1e-4,
+                               atol=1e-4 * scale)
+    bound = 2.0 ** -8 * (tx.abs() @ w.abs()).numpy() + 1e-4 * scale
+    assert (np.abs(got - want) <= bound).all()
+
+
+def test_nf4_code_is_the_jax_table():
+    np.testing.assert_array_equal(tq.NF4_CODE, jq.NF4_CODE)
+    assert tq.NF4_BLOCK == jq.NF4_BLOCK == 64
+
+
+@pytest.mark.parametrize("kind", ["nf4", "int4"])
+@pytest.mark.parametrize("shape", [(256, 128), (3, 128, 64), (1024, 256)])
+def test_quantize_bytes_and_scales_equal_jax(kind, shape):
+    w = _weights(0, shape)
+    jfn, tfn = QUANTIZERS[kind]
+    want, got = jfn(jnp.asarray(w)), tfn(torch.from_numpy(w))
+    assert got.q.dtype == torch.uint8 and got.scale.dtype == torch.float32
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    np.testing.assert_array_equal(tq.dequantize(got).numpy(),
+                                  np.asarray(jq.dequantize(want)))
+    assert (got.in_features, got.out_features) == shape[-2:]
+    if len(shape) == 3:                      # the layer axis indexes away
+        np.testing.assert_array_equal(got[1].q.numpy(), np.asarray(want.q)[1])
+        assert type(got[1]) is type(got)
+
+
+def test_nf4_exact_midpoints_go_down_as_in_jax():
+    # column c holds the midpoint between codes c and c+1 (and its two f32
+    # neighbours); row 0 pins the block's absmax at 1 so norm == value
+    code = tq.NF4_CODE
+    mids = (code[1:] + code[:-1]) * np.float32(0.5)
+    w = np.zeros((64, 15), np.float32)
+    w[0] = 1.0
+    w[1], w[2] = mids, np.nextafter(mids, np.float32(2))
+    w[3] = np.nextafter(mids, np.float32(-2))
+    want = jq.quantize_nf4(jnp.asarray(w))
+    got = tq.quantize_nf4(torch.from_numpy(w))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    codes = tq.unpack_nf4(got.q).numpy()
+    np.testing.assert_array_equal(codes[1], np.arange(15))       # down
+    np.testing.assert_array_equal(codes[2], np.arange(15) + 1)
+    np.testing.assert_array_equal(codes[3], np.arange(15))
+
+
+def test_int4_half_way_values_round_to_even_as_in_jax():
+    # absmax 7 -> scale 1: the values k + 0.5 are exactly half-way
+    w = np.zeros((64, 4), np.float32)
+    w[0] = 7.0
+    w[1:15, 0] = np.arange(-7, 7) + 0.5
+    w[1:15, 1] = -(np.arange(-7, 7) + 0.5)
+    w[1:4, 2] = [7.5, -7.5, 100.0]           # clipped to the -7..7 grid
+    w[0, 2] = 100.0
+    want = jq.quantize_int4(jnp.asarray(w))
+    got = tq.quantize_int4(torch.from_numpy(w))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    codes = tq.unpack_nf4(got.q).numpy().astype(np.int32) - 8
+    np.testing.assert_array_equal(codes[1:15, 0],
+                                  np.round(np.arange(-7, 7) + 0.5))
+    assert codes.min() >= -7 and codes.max() <= 7
+
+
+def test_pack_unpack_equal_jax_and_round_trip():
+    idx = np.random.default_rng(1).integers(0, 16, (2, 128, 32)).astype(
+        np.uint8)
+    packed = tq.pack_nf4(torch.from_numpy(idx))
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jq.pack_nf4(jnp.asarray(idx))))
+    np.testing.assert_array_equal(tq.unpack_nf4(packed).numpy(), idx)
+    np.testing.assert_array_equal(
+        tq.unpack_nf4(packed).numpy(),
+        np.asarray(jq.unpack_nf4(jnp.asarray(packed.numpy()))))
+    assert int(packed[0, 0, 0]) == (int(idx[0, 0, 0]) << 4 | int(idx[0, 1, 0]))
+
+
+@pytest.mark.parametrize("kind", ["nf4", "int4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n_in,n_out", [(1, 256, 128), (8, 1024, 256),
+                                          (40, 256, 256)])
+def test_plain_matches_pallas_kernel_in_interpret_mode(kind, dtype, m, n_in,
+                                                       n_out):
+    jt = QUANTIZERS[kind][0](jnp.asarray(_weights(2, (n_in, n_out))))
+    tt = _port(jt)
+    jx, tx = _x(3, m, n_in, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JKERNEL[kind](jx, jt.q, jt.scale), np.float32)
+    got = np_of(PLAIN[kind](tx, tt.q, tt.scale))
+    assert got.shape == (1, m, n_out)
+    _check_against_kernel(kind, dtype, tx, tt, got, want)
+    # loosely against the f32 dequant path (no bf16 rounding of the operand)
+    # (value, scale and product each round to bf16: 3 * 2^-9 per weight,
+    # plus the output's own rounding when x is bf16)
+    wd = jq.dequantize(jt)
+    ref = np.asarray(jx.astype(jnp.float32) @ wd)
+    bound = 2.0 ** -7 * np.asarray(jnp.abs(jx.astype(jnp.float32))
+                                   @ jnp.abs(wd)) + 2.0 ** -8 * np.abs(ref)
+    assert (np.abs(got - ref) <= bound + 1e-4).all()
+    np.testing.assert_allclose(got, ref, rtol=5e-2, atol=2e-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kb", [None, 256])
+def test_int4_plain_matches_pallas_kfull_kernel(dtype, kb):
+    """The small-M TPU kernel, one K step (kb None) and two (kb 256)."""
+    jt = jq.quantize_int4(jnp.asarray(_weights(4, (1024, 256))))
+    tt = _port(jt)
+    jx, tx = _x(5, 8, 1024, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jqm._int4_matmul_kfull(jx, jt.q, jt.scale, kb_override=kb)
+    want = np.asarray(want, np.float32)
+    got = np_of(tqm.int4_matmul_plain(tx, tt.q, tt.scale))
+    _check_against_kernel("int4", dtype, tx, tt, got, want)
+    # the small-M wrapper is the same function on the CPU
+    np.testing.assert_array_equal(
+        np_of(tqm.int4_matmul_smallm(tx, tt.q, tt.scale)), got)
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4", "int4"])
+def test_qmatmul_dispatches_on_the_container(kind, monkeypatch):
+    w = torch.from_numpy(_weights(6, (128, 64)))
+    t = {"int8": tq.quantize_int8, "nf4": tq.quantize_nf4,
+         "int4": tq.quantize_int4}[kind](w)
+    calls = []
+    for name in ("int8_matmul", "nf4_matmul", "int4_matmul"):
+        fn = getattr(tqm, name)
+        monkeypatch.setattr(
+            tqm, name, lambda *a, _n=name, _f=fn: calls.append(_n) or _f(*a))
+    x = torch.from_numpy(_weights(7, (2, 3, 128)))
+    y = tq.qmatmul(x, t)
+    assert calls == [f"{kind}_matmul"] and y.shape == (2, 3, 64)
+    want = {"int8": tqm.int8_matmul_plain, "nf4": tqm.nf4_matmul_plain,
+            "int4": tqm.int4_matmul_plain}[kind](x.reshape(1, 6, 128), t.q,
+                                                 t.scale)
+    np.testing.assert_array_equal(y.numpy(), want.reshape(2, 3, 64).numpy())
+    np.testing.assert_array_equal(tq.qmatmul(x, w).numpy(), (x @ w).numpy())
+
+
+def test_qmatmul_and_wrappers_refuse_bad_inputs():
+    x = torch.zeros((1, 2, 96))
+    q = torch.zeros((48, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="multiple of 64"):     # In = 96
+        tqm.nf4_matmul(x, q, torch.zeros((1, 32)))
+    with pytest.raises(ValueError, match="multiple of the 64"):
+        tq.quantize_int4(torch.zeros((96, 32)))
+    x = torch.zeros((1, 2, 128))
+    q = torch.zeros((64, 32), dtype=torch.uint8)
+    s = torch.zeros((2, 32))
+    with pytest.raises(TypeError):                               # int8 q
+        tqm.int4_matmul(x, q.to(torch.int8), s)
+    with pytest.raises(TypeError):                               # f16 scale
+        tqm.nf4_matmul(x, q, s.half())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tqm.int4_matmul(x, q, torch.zeros((1, 32)))
+    with pytest.raises(ValueError, match="bad ranks"):
+        tqm.int4_matmul_smallm(x[0], q, s)
+    with pytest.raises(TypeError, match="not a weight"):
+        tq.qmatmul(x, {"q": q, "scale": s})
+    assert tqm.int4_matmul(x, q, s).shape == (1, 2, 32)
+
+
+def test_split_k_covers_every_block_with_no_empty_split():
+    for n_in, n_out in [(64, 32), (256, 128), (4096, 4096), (5120, 5120),
+                        (11008, 4096), (13824, 5120), (4096, 11008),
+                        (1024, 2816), (10240, 1280)]:
+        nkb, ks = n_in // 64, tqm.split_k(n_in, n_out)
+        chunk = -(-nkb // ks)                 # the kernel's own rule
+        assert 1 <= ks <= nkb and (ks - 1) * chunk < nkb <= ks * chunk
+    assert tqm.split_k(5120, 5120) * (5120 // 128) >= 4 * 132
+    for n_in, n_out in [(64, 24), (96, 32)]:      # what the kernel refuses
+        with pytest.raises(ValueError, match="split_k needs"):
+            tqm.split_k(n_in, n_out)
+
+
+def test_bridge_tells_nf4_from_int4_and_refuses_to_guess():
+    w = jnp.asarray(_weights(8, (128, 32)))
+    for jfn, cls in ((jq.quantize_nf4, tq.NF4Tensor),
+                     (jq.quantize_int4, tq.Int4Tensor),
+                     (jq.quantize_int8, tq.Int8Tensor)):
+        d = to_numpy_dict(jfn(w))
+        got = bridge.weight(d)
+        assert type(got) is cls
+        np.testing.assert_array_equal(got.q.numpy(), d["q"])
+    d = to_numpy_dict(jq.quantize_nf4(w))
+    with pytest.raises(ValueError, match="nf4 or int4"):
+        bridge.weight({"q": d["q"], "scale": d["scale"]})
+    with pytest.raises(ValueError, match="not in"):
+        bridge.weight({**d, "kind": "fp4"})
+    with pytest.raises(TypeError):
+        bridge.weight({**d, "kind": "int8"})
+    i8 = to_numpy_dict(jq.quantize_int8(w))
+    assert type(bridge.weight({"q": i8["q"], "scale": i8["scale"]})) \
+        is tq.Int8Tensor

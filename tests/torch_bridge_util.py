@@ -5,16 +5,27 @@ from __future__ import annotations
 
 import dataclasses
 
-import jax
 import numpy as np
 import torch
 
+from flowspec_tpu.ops import quant as jq
 from flowspec_tpu_torch import bridge
 
 
+KINDS = {jq.Int8Tensor: "int8", jq.NF4Tensor: "nf4", jq.Int4Tensor: "int4"}
+
+
 def to_numpy_dict(x):
-    """A JAX dataclass pytree as nested dicts of numpy arrays."""
-    return dataclasses.asdict(jax.tree_util.tree_map(np.asarray, x))
+    """A JAX dataclass pytree as nested dicts of numpy arrays; a quantized
+    container carries its class as "kind" (nf4 and int4 have the same
+    fields, so the bridge cannot tell them apart otherwise)."""
+    if type(x) in KINDS:
+        return {"kind": KINDS[type(x)], "q": np.asarray(x.q),
+                "scale": np.asarray(x.scale)}
+    if dataclasses.is_dataclass(x):
+        return {f.name: to_numpy_dict(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    return None if x is None else np.asarray(x)
 
 
 def port_llama(params):
