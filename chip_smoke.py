@@ -15,7 +15,11 @@ Phases, one JSON line each on stdout:
               packed 4-bit products, which no single call computes; there
               `bf16_matmul_ms` times `x @ w` on a pre-decoded bf16 weight,
               which reads four times the bytes) and the bound (max of bytes
-              / 3.35 TB/s and operations / 989 TFLOP/s bf16);
+              / 3.35 TB/s and operations / 989 TFLOP/s bf16). The split-K
+              wgmma kernels `int8_matmul` and `nf4_matmul` are also held
+              against their earlier strip versions (`strip_ms`, timed in
+              turns: new, strip, strip, new), must give equal bits on two
+              launches, and are checked at ragged shapes;
   4. serve / lossless             7B int8 base, int8 thin draft;
      serve_13b_mixed / lossless_13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
@@ -26,7 +30,9 @@ Phases, one JSON line each on stdout:
      kernel's launch count is set to 0 before a configuration runs and read
      after; a kernel of the configuration's path with no launch fails the
      run, and so does a first spec/AR divergence at a position whose AR
-     top-2 logit gap is >= 0.05.
+     top-2 logit gap is >= 0.05. Each serve line carries `round_ms`: per
+     kernel, the sum over the shapes of one speculative round of launches x
+     measured ms, beside the same sum of bounds.
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Per-shape
 details go to chiprun_out/chip_smoke_kernels.jsonl. Any failure raises: no
 phase catches an error and still exits 0.
@@ -49,6 +55,7 @@ BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 3
 NEAR_TIE_GAP = 0.05
+HEAD_START = 40                  # flushes queued before a timed loop (~4 ms)
 TOLERANCE = "|err| <= 1e-2*|plain| + 1e-2"
 
 # int8 shapes on the 7B and 13B paths: (name, M, In, Out); M = 1 AR step, 9
@@ -79,6 +86,14 @@ NF4_SHAPES = (
        for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
                        ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
                        ("w_out", 1024, 4096))])
+# ragged shapes for the two split-K wgmma kernels: Out a multiple of 32 but
+# not of 64 (1056) and of 64 but not of 128 (1088), In = 64 (one block), In /
+# 64 prime (13, 37: a split count that does not divide), M around every
+# instantiated width
+RAGGED_SHAPES = [(f"ragged_M{m}_{i}x{o}", m, i, o)
+                 for i, o in ((832, 1056), (2368, 1088), (64, 1056),
+                              (2368, 4096))
+                 for m in (1, 8, 17, 81, 96, 130)]
 INT4_SHAPES = [("13b_wq_M64", 64, 5120, 5120), ("13b_wq_M81", 81, 5120, 5120)]
 INT4_SMALLM_SHAPES = [("13b_wq_M1", 1, 5120, 5120),
                       ("13b_wq_M9", 9, 5120, 5120),
@@ -113,7 +128,7 @@ REPLACES = {
 CONFIGS = {
     "7b_int8": ("7b", "int8", N_REQUESTS, NEW_TOKENS),
     "13b_mixed": ("13b", "mixed", N_REQUESTS, NEW_TOKENS),
-    "7b_nf4": ("7b", "nf4", 1, 64),
+    "7b_nf4": ("7b", "nf4", N_REQUESTS, NEW_TOKENS),
 }
 ON_SPEC = {"7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
            "13b_mixed": ("int8_matmul", "int4_matmul", "tree_attention",
@@ -136,18 +151,56 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str) -> list:
+    """From an `nvcc -Xptxas -v` log: one line per kernel (a short name,
+    registers, spills) and every warning."""
+    out, entry, spills = [], "", ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1][:48]
+        elif "spill" in ln:
+            spills = ln
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}; {spills}")
+        elif "warning" in ln.lower():
+            out.append(ln)
+    return out
+
+
+FLUSH_BY_WRITE = False
+
+
+def flush_l2(buf) -> None:
+    """Push everything out of the 50 MB L2 by reading `buf` (256 MB). The
+    lines left behind are clean, as the previous layer's weights are on the
+    decode path; zeroing the buffer instead (FLUSH_BY_WRITE) leaves the L2
+    full of dirty lines, whose write-back then competes with the timed
+    kernel's reads."""
+    import torch
+    if FLUSH_BY_WRITE:
+        buf.zero_()
+    else:
+        buf.view(torch.int32).sum()
+
+
 def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events around each launch;
-    `flush` (a large buffer) is zeroed before each so weights come from HBM,
-    not L2, as they do on the decode path."""
+    `flush` (a large buffer) is read before each (`flush_l2`) so weights come
+    from HBM, not L2, as they do on the decode path. A few milliseconds of device work
+    are queued first, so the host runs ahead of the device for the whole
+    loop and an event pair never spans the host's time to issue the call."""
     import torch
     for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    if flush is not None:
+        for _ in range(HEAD_START):
+            flush_l2(flush)
     for s, e in ev:
         if flush is not None:
-            flush.zero_()
+            flush_l2(flush)
         s.record()
         fn()
         e.record()
@@ -161,86 +214,122 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def matmul_bound(kind: str, m: int, n_in: int, n_out: int):
+    """Bound of one dequant-matmul: weights, scales, x and y each moved
+    once; 2*M*In*Out operations at the bf16 tensor-core rate."""
+    if kind == "int8":                    # else packed 4-bit
+        n_bytes = n_in * n_out + n_out * 4
+    else:
+        n_bytes = n_in * n_out // 2 + n_in // 64 * n_out * 4
+    return bound_ms(n_bytes + m * (n_in + n_out) * 2, 2.0 * m * n_in * n_out)
+
+
+def _matmul_row(kernel, fn, strip, plain, x, q, s, shape, flush, library):
+    """One dequant-matmul at one shape: against its plain version, and for a
+    kernel with an earlier strip version also against that, with equal bits
+    on two launches; timed when `flush` is given. Raises on a disagreement."""
+    import torch
+    name, m, n_in, n_out = shape
+    before = fn.launches
+    got = fn(x, q, s)
+    if fn.launches != before + 1:
+        raise AssertionError(f"{kernel} did not launch at {name}")
+    want = plain(x, q, s)
+    torch.cuda.synchronize()
+
+    def close(a, b):
+        # one bf16 rounding of the same f32 sum in another order: <= 1 ulp
+        err = (a.float() - b.float()).abs()
+        return bool((err <= 1e-2 * b.float().abs() + 1e-2).all()), err
+
+    ok, err = close(got, want)
+    b, by = matmul_bound("int8" if kernel == "int8_matmul" else "packed4", m,
+                         n_in, n_out)
+    row = {"kernel": kernel, "shape": name, "M": m, "In": n_in, "Out": n_out,
+           "max_abs_err": float(err.max()), "tolerance": TOLERANCE, "ok": ok,
+           "bound_ms": b, "bound_by": by}
+    if strip is not None:
+        ok_strip, err_strip = close(got, strip(x, q, s))
+        row["vs_strip_max_abs_err"] = float(err_strip.max())
+        row["equal_bits"] = bool(torch.equal(got, fn(x, q, s)))
+        ok = row["ok"] = ok and ok_strip and row["equal_bits"]
+    if flush is not None:
+        if strip is not None:
+            t = [time_ms(lambda: f(x, q, s), flush)
+                 for f in (fn, strip, strip, fn)]
+            row["ms"], row["strip_ms"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            row["runs_ms"] = t
+        else:
+            row["ms"] = time_ms(lambda: fn(x, q, s), flush)
+        row["plain_ms"] = time_ms(lambda: plain(x, q, s), flush, iters=5)
+        row["library_ms"] = (None if library is None
+                             else time_ms(library, flush, iters=10))
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees at {name}: {row}")
+    return row
+
+
 def check_int8(dev, gen, flush, details):
     import torch
-    from flowspec_tpu_torch.ops.quant_matmul import (
-        int8_matmul, int8_matmul_plain)
+    from flowspec_tpu_torch.ops import quant_matmul as qm
     rows = {}
-    for name, m, n_in, n_out in INT8_SHAPES:
+    for shape in INT8_SHAPES + RAGGED_SHAPES:
+        name, m, n_in, n_out = shape
         x = torch.randn((1, m, n_in), generator=gen, device=dev).to(
             torch.bfloat16)
         q = torch.randint(-127, 128, (n_in, n_out), generator=gen,
                           device=dev).to(torch.int8)
         s = torch.full((n_out,), n_in ** -0.5 / 127.0, device=dev)
-        got = int8_matmul(x, q, s)
-        want = int8_matmul_plain(x, q, s)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        # one bf16 rounding of the same f32 sum in another order: <= 1 ulp
-        tol = 1e-2 * want.float().abs() + 1e-2
-        ok = bool((err <= tol).all())
-        b, by = bound_ms(n_in * n_out + n_out * 4 + m * (n_in + n_out) * 2,
-                         2.0 * m * n_in * n_out)
-        row = {"kernel": "int8_matmul", "shape": name, "M": m, "In": n_in,
-               "Out": n_out, "max_abs_err": float(err.max()),
-               "tolerance": TOLERANCE, "ok": ok,
-               "ms": time_ms(lambda: int8_matmul(x, q, s), flush),
-               "plain_ms": time_ms(lambda: int8_matmul_plain(x, q, s), flush,
-                                   iters=5),
-               "library_ms": time_ms(
-                   lambda: (x @ q.to(torch.bfloat16)) * s, flush, iters=10),
-               "bound_ms": b, "bound_by": by}
+        timed = shape not in RAGGED_SHAPES
+        row = _matmul_row(
+            "int8_matmul", qm.int8_matmul, qm.int8_matmul_strip,
+            qm.int8_matmul_plain, x, q, s, shape, flush if timed else None,
+            lambda: (x @ q.to(torch.bfloat16)) * s)
+        row["plan"] = qm.matmul_plan(m, n_in, n_out, False)._asdict()
         details.append(row)
-        rows[name] = row
-        if not ok:
-            raise AssertionError(f"int8_matmul disagrees at {name}: {row}")
+        if timed:
+            rows[name] = row
     return rows
 
 
 def check_packed4(kernel, shapes, dev, gen, flush, details):
     """One of the packed 4-bit kernels (`nf4_matmul`, `int4_matmul`,
-    `int4_matmul_smallm`) at `shapes` against its plain version."""
+    `int4_matmul_smallm`) at `shapes` against its plain version; nf4 also
+    against its strip version and at the ragged shapes."""
     import torch
     from flowspec_tpu_torch.ops import quant_matmul as qm
     fn = getattr(qm, kernel)
     nf4 = kernel == "nf4_matmul"
     plain = qm.nf4_matmul_plain if nf4 else qm.int4_matmul_plain
     rows = {}
-    for name, m, n_in, n_out in shapes:
+    for shape in list(shapes) + (RAGGED_SHAPES if nf4 else []):
+        name, m, n_in, n_out = shape
         x = torch.randn((1, m, n_in), generator=gen, device=dev).to(
             torch.bfloat16)
         q = torch.randint(0, 256, (n_in // 2, n_out), generator=gen,
                           device=dev).to(torch.uint8)
         s = torch.full((n_in // 64, n_out),
                        n_in ** -0.5 / (1.0 if nf4 else 7.0), device=dev)
-        before = fn.launches
-        got = fn(x, q, s)
-        if fn.launches != before + 1:
-            raise AssertionError(f"{kernel} did not launch at {name}")
-        want = plain(x, q, s)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        # the same bf16 operands; f32 sums in another order, one bf16 cast
-        ok = bool((err <= 1e-2 * want.float().abs() + 1e-2).all())
-        w_bf16 = qm._decode4_bf16(q, s, nf4)
-        b, by = bound_ms(n_in * n_out // 2 + n_in // 64 * n_out * 4
-                         + m * (n_in + n_out) * 2, 2.0 * m * n_in * n_out)
-        row = {"kernel": kernel, "shape": name, "M": m, "In": n_in,
-               "Out": n_out, "max_abs_err": float(err.max()),
-               "tolerance": TOLERANCE, "ok": ok,
-               "ms": time_ms(lambda: fn(x, q, s), flush),
-               "plain_ms": time_ms(lambda: plain(x, q, s), flush, iters=5),
-               "library_ms": None,
-               "bf16_matmul_ms": time_ms(lambda: x @ w_bf16, flush, iters=10),
-               "bound_ms": b, "bound_by": by}
+        timed = shape not in RAGGED_SHAPES
+        row = _matmul_row(kernel, fn, qm.nf4_matmul_strip if nf4 else None,
+                          plain, x, q, s, shape, flush if timed else None,
+                          None)
+        if nf4:
+            row["plan"] = qm.matmul_plan(m, n_in, n_out, True)._asdict()
+        if timed:
+            w_bf16 = qm._decode4_bf16(q, s, nf4)
+            row["bf16_matmul_ms"] = time_ms(lambda: x @ w_bf16, flush,
+                                            iters=10)
         if kernel == "int4_matmul_smallm":
             row["ksplit"] = qm.split_k(n_in, n_out)
-            row["equal_bits"] = bool(torch.equal(got, fn(x, q, s)))
-            ok = ok and row["equal_bits"]
+            row["equal_bits"] = row["ok"] = bool(
+                torch.equal(fn(x, q, s), fn(x, q, s)))
+            if not row["ok"]:
+                raise AssertionError(f"{kernel}: two launches differ at "
+                                     f"{name}: {row}")
         details.append(row)
-        rows[name] = row
-        if not ok:
-            raise AssertionError(f"{kernel} disagrees at {name}: {row}")
+        if timed:
+            rows[name] = row
     return rows
 
 
@@ -428,12 +517,69 @@ def expected_per_round(eng) -> dict:
     return out
 
 
-def serve_config(tag, dev, counters):
+def round_sums(eng, kernel_rows) -> dict:
+    """Per kernel, one speculative round of `eng` as the sum over its shapes
+    of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
+    "strip_ms" (kernels with a strip version)}}. A base verify pass runs the
+    7 projections and one attention per layer at node_cap rows; the draft
+    runs depth + 1 passes (the context pass, then one per tree level) of 9
+    projections, one attention and one head top-k at top_k rows (the root's
+    head call has one row). The launches must add up to
+    `expected_per_round`; a shape without a measured row raises."""
+    from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+    names = {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul",
+             Int4Tensor: "int4_matmul"}
+    tree, mc = eng.cfg.tree, eng.cfg.model
+    n_layers, depth = mc.num_hidden_layers, tree.depth
+    items = []                                   # (kernel, row, launches)
+
+    def matmul(w, m, launches):
+        if type(w) not in names:                 # plain weights: no kernel
+            return
+        kernel = names[type(w)]
+        n_in = w.q.shape[-2] * (1 if kernel == "int8_matmul" else 2)
+        key = (m, n_in, w.q.shape[-1])
+        for row in kernel_rows[kernel].values():
+            if (row["M"], row["In"], row["Out"]) == key:
+                items.append((kernel, row, launches))
+                return
+        raise AssertionError(f"round_sums: no measured {kernel} row at "
+                             f"(M, In, Out) = {key}")
+
+    for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        matmul(getattr(eng.params.layers, f), tree.node_cap, n_layers)
+    for f in ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+              "w_out"):
+        matmul(getattr(eng.draft, f), tree.top_k, depth + 1)
+    pre = "" if mc.hidden_size == 4096 else "13b_"
+    attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
+    items += [("tree_attention", attn[f"{pre}verify_T{tree.node_cap}"],
+               n_layers),
+              ("tree_attention", attn["draft_ctx_T9"], 1),
+              ("tree_attention", attn[f"beam_T{tree.top_k}"], depth),
+              ("head_topk", head[f"{pre}root_T1"], 1),
+              ("head_topk", head[f"{pre}beam_T{tree.top_k}"], depth)]
+    out = {}
+    for kernel, row, n in items:
+        o = out.setdefault(kernel, {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+        o["launches"] += n
+        o["ms"] += n * row["ms"]
+        o["bound_ms"] += n * row["bound_ms"]
+        if "strip_ms" in row:
+            o["strip_ms"] = o.get("strip_ms", 0.0) + n * row["strip_ms"]
+    counted = {k: o["launches"] for k, o in out.items()}
+    if counted != expected_per_round(eng):
+        raise AssertionError(f"round_sums counts {counted}, the code implies "
+                             f"{expected_per_round(eng)}")
+    return out
+
+
+def serve_config(tag, dev, counters, kernel_rows):
     """Drive one configuration through SpecEngine.generate and generate_ar
     with the launch counts zeroed before and read after each, emit its
     serve and lossless lines, and return its launches {kernel: count} over
-    both. Raises if a kernel of its path never launched or spec diverges
-    from AR off a near-tie."""
+    both and its `round_sums`. Raises if a kernel of its path never launched
+    or spec diverges from AR off a near-tie."""
     import torch
     model, quant, n_requests, new_tokens = CONFIGS[tag]
     suffix = "" if tag == "7b_int8" else "_" + tag
@@ -464,7 +610,8 @@ def serve_config(tag, dev, counters):
           "request_s": req_s, "param_build_s": params_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches,
-          "expected_launches_per_round": expected_per_round(eng)})
+          "expected_launches_per_round": expected_per_round(eng),
+          "round_ms": (sums := round_sums(eng, kernel_rows))})
     missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: generate never launched {missing}")
@@ -499,7 +646,7 @@ def serve_config(tag, dev, counters):
     if real:
         raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
                              f"{real}")
-    return {n: launches[n] + ar_launches[n] for n in counters}
+    return {n: launches[n] + ar_launches[n] for n in counters}, sums
 
 
 def top2_gap(eng, prefix) -> float:
@@ -546,14 +693,12 @@ def main() -> int:
     (OUT_DIR / "ptxas.log").write_text("\n".join(
         f"== {n}\n{log}" for n, log in logs.items()))
     emit({"phase": "build", "seconds": build_s, "per_kernel_s": per_kernel,
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in logs.items()}})
+          "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
 
     # 3. kernels at the shapes of the three serve paths
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     details = []
     kernel_rows = {
         "int8_matmul": check_int8(dev, gen, flush, details),
@@ -577,9 +722,10 @@ def main() -> int:
 
     # 4. the three configurations through the entry points, one at a time
     counters = launch_counts()
-    by_config = {}
+    by_config, sums = {}, {}
     for tag in CONFIGS:
-        by_config[tag] = serve_config(tag, dev, counters)
+        by_config[tag], sums[tag] = serve_config(tag, dev, counters,
+                                                 kernel_rows)
         torch.cuda.empty_cache()
     launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
     missing = [n for n, c in launches.items() if c == 0]
@@ -598,7 +744,11 @@ def main() -> int:
          "bound_by": kernel_rows[n][MAIN[n]]["bound_by"],
          "library_ms": kernel_rows[n][MAIN[n]]["library_ms"],
          "shape": MAIN[n],
-         "launches_by_config": {t: c[n] for t, c in by_config.items()}}
+         # the strip version's time in the same run (int8, nf4), else null
+         "earlier_ms": kernel_rows[n][MAIN[n]].get("strip_ms"),
+         "launches_by_config": {t: c[n] for t, c in by_config.items()},
+         # per configuration: one round's launches x ms, bounds, strip ms
+         "round_ms": {t: v[n] for t, v in sums.items() if n in v}}
         for n in _build.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,29 +3,46 @@
 // Replaces the TPU kernel flowspec_tpu/ops/quant_matmul.py:_int8_kernel
 // (called from :54 int8_matmul). Computes y = bf16((x @ bf16(q)) * scale)
 // with x (M, In) bf16, q (In, Out) int8 row-major, scale (Out,) f32, f32
-// accumulation — the rounding order of flowspec_tpu/ops/quant.py:238-240.
+// accumulation -- the rounding order of flowspec_tpu/ops/quant.py:238-240.
 //
 // Bound on the H100: device-memory bytes. Along the decode path M is 1 (AR
 // step), 9-10 (draft), 64 (prefill) or 81 (tree verify), so the product does
-// at most ~160 operations per weight byte, well under the ~590 int8-byte
-// ridge of the bf16 tensor cores; the weight read (16.8 MB for a 7B wq,
-// 45.1 MB for w_gate) sets the time.
+// at most ~160 operations per weight byte, well under the ~590 per int8 byte
+// at which the bf16 tensor cores would bound it; the weight read (16.8 MB for
+// a 7B wq, 45.1 MB for w_gate) sets the time. To come near it the whole card
+// has to pull on the weights at once, megabytes have to be in flight, and
+// the int8 -> bf16 conversion must not cost more issue slots than the read
+// leaves.
 //
-// Design (simple first): each block owns a strip of 32*NT output columns and
-// loops over all of In (no split-K, so no cross-block reduction), streaming
-// the weight strip once with 16-byte cp.async copies double-buffered in
-// shared memory; the int8 -> bf16 conversion happens in registers as the
-// mma fragments are built; sums stay in f32 registers; the per-column scale
-// and the single cast to bf16 are the epilogue. All M rows (up to 128 per
-// block) share each weight tile, so the weight is read once for every row.
-// Known slack, left for a later change: with Out = 4096 only 128 blocks run
-// on 132 SMs, and each block re-reads x from L2.
+// Design (`int8_matmul`, the skeleton in qmm_wgmma.cuh):
+//  - Grid over (128-column strip, K split): about two blocks on every SM at
+//    any shape the path has, where a grid over strips alone left half the
+//    card idle at Out = 4096. f32 partials per split, added in ascending
+//    order by a second pass that applies the per-column scale and casts
+//    once: no atomics, equal bits on every launch. One split writes bf16
+//    directly.
+//  - A cp.async ring of 4-6 stages in dynamic shared memory (an 8 KB weight
+//    tile and the matching x tile per stage, ~100 KB a block at M 81), so
+//    each SM keeps 48-64 KB of weight reads in flight.
+//  - `wgmma` on the transposed product: the weight is the register operand,
+//    fetched from shared memory as 32-bit words of four adjacent columns
+//    (conflict-free by a 32-byte swizzle), turned into bf16 pairs with one
+//    `prmt` and one f32 subtract per value, exact; x is the shared-memory
+//    operand at the real row count rounded up to 16 / 64 / 96 / 128.
+//
+// The earlier design stays as `int8_matmul_strip`, for timing one against
+// the other in one run: each block owns a strip of 32 or 64 columns and
+// loops over all of In (no split-K), a cp.async double buffer in static
+// shared memory, mma.sync m16n8k16 with B fragments built from single-byte
+// shared loads (int8_mma.cuh, which head_topk.cu goes on using). Nothing on
+// the serving path calls it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "int8_mma.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -81,11 +98,26 @@ void launch_nt(const void* x, const void* q, const void* scale, void* y,
 
 }  // namespace
 
-// x (M, In) bf16, q (In, Out) int8, scale (Out,) f32 -> y (M, Out) bf16.
-// Needs In % 64 == 0, Out % 32 == 0, 16-byte aligned x and q (the Python
-// wrapper checks). Returns cudaGetLastError() after the launch.
+// x (M, In) bf16, q (In, Out) int8, scale (Out,) f32 -> y (M, Out) bf16 by
+// the plan (bn, n, ksplit, chunk, stages) of `ops/quant_matmul.py
+// matmul_plan`; partial is (ksplit, M, Out) f32 scratch, unused when ksplit
+// == 1. Needs In % 64 == 0, Out % bn == 0 and 16-byte aligned x, q, scale,
+// partial and y (the Python wrapper checks). Returns the first CUDA error.
 extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
-                           void* y, int M, int In, int Out, void* stream) {
+                           void* partial, void* y, int M, int In, int Out,
+                           int bn, int n, int ksplit, int chunk, int stages,
+                           void* stream) {
+  return fs::qmm_matmul<fs::QMM_INT8>(x, q, scale, nullptr, partial, y, M, In,
+                                      Out, bn, n, ksplit, chunk, stages,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The strip kernel: x (M, In) bf16, q (In, Out) int8, scale (Out,) f32 ->
+// y (M, Out) bf16. Needs In % 64 == 0, Out % 32 == 0, 16-byte aligned x and
+// q. Returns cudaGetLastError() after the launch.
+extern "C" int int8_matmul_strip(const void* x, const void* q,
+                                 const void* scale, void* y, int M, int In,
+                                 int Out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 16)
     launch_nt<1>(x, q, scale, y, M, In, Out, st);

@@ -97,12 +97,14 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def bind(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
-    """The C entry point `name` of kernel library `name`, taking n_ptrs
-    pointers, then n_ints ints, then n_floats floats, then the stream, and
-    returning cudaGetLastError() (declared in full: ctypes would otherwise
-    pass each pointer as a 32-bit int)."""
-    fn = getattr(library(name), name)
+def bind(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
+         lib: str | None = None):
+    """The C entry point `name` of kernel library `lib` (default: the
+    library of the same name), taking n_ptrs pointers, then n_ints ints, then
+    n_floats floats, then the stream, and returning cudaGetLastError()
+    (declared in full: ctypes would otherwise pass each pointer as a 32-bit
+    int)."""
+    fn = getattr(library(lib or name), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float] * n_floats + [ctypes.c_void_p])

@@ -16,11 +16,21 @@ the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The three
 kernels compute this one function and differ only in the order of the f32
 sum; `int4_matmul` sends calls of at most 32 rows to the split-K kernel.
 
+`int8_matmul` and `nf4_matmul` run the split-K `wgmma` kernels
+(`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan` gives for the shape: column
+strips x K splits over the whole card, f32 partials added in ascending
+order, so the bits are the same on every launch. `int8_matmul_strip` and
+`nf4_matmul_strip` are the earlier one-strip-per-block kernels, kept for
+comparison only: nothing on the serving path calls them.
+
 On a CUDA tensor every wrapper launches its kernel (bf16 activations) or
 raises; on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +39,78 @@ from flowspec_tpu_torch.ops.quant import NF4_BLOCK, NF4_CODE, unpack_nf4
 
 SMALL_M = 32            # int4 calls of at most this many rows use split-K
 SPLITK_BLOCKS = 4 * 132  # blocks the split-K grid aims for (4 per SM)
+
+# ---- the split plan of the wgmma kernels (csrc/qmm_wgmma.cuh) --------------
+N_SMS = 132                   # H100 SXM
+SMEM_PER_SM = 227 * 1024      # shared memory the blocks of one SM may hold
+BLOCKS_PER_SM = 2             # blocks the grid of a product aims for per SM
+WGMMA_WIDTHS = (16, 64, 96, 128)   # rows of x a block covers (instantiated)
+# ring slots instantiated per width; stages - 2 tiles are in flight
+WGMMA_STAGES = {16: (4, 6), 64: (4, 6), 96: (4, 5), 128: (4,)}
+NF4_LUT_BYTES = 8192          # the nf4 kernel's table of decoded byte pairs
+
+
+class MatmulPlan(NamedTuple):
+    """How `int8_matmul` / `nf4_matmul` cut one product (M, In) x (In, Out):
+    `bn` columns a block, `n` rows of x a block (the wgmma width; M > 128
+    runs ceil(M/128) row tiles), `ksplit` K splits of `chunk` 64-row blocks
+    each (the last may be shorter, none is empty), a ring of `stages` tiles
+    in `smem` bytes of dynamic shared memory."""
+    bn: int
+    n: int
+    ksplit: int
+    chunk: int
+    stages: int
+    smem: int
+
+    def scratch_shape(self, m: int, n_out: int) -> tuple | None:
+        """Shape of the f32 partials the wrapper allocates; None when one
+        split writes the result itself."""
+        return (self.ksplit, m, n_out) if self.ksplit > 1 else None
+
+
+def smem_bytes(n: int, stages: int, packed4: bool) -> int:
+    """Dynamic shared memory of one block: `stages` x (the x tile of n rows
+    of 64 bf16 + the weight tile of 64 contraction rows x 128 columns: int8
+    8 KB, packed 4-bit 4 KB and one 512-byte scale row), the nf4 table, and
+    1 KB to align the first tile."""
+    per_stage = n * 128 + (4096 + 512 if packed4 else 8192)
+    return stages * per_stage + (NF4_LUT_BYTES if packed4 else 0) + 1024
+
+
+@lru_cache(maxsize=None)
+def matmul_plan(m: int, n_in: int, n_out: int, packed4: bool,
+                blocks_per_sm: int | None = None,
+                stages: int | None = None) -> MatmulPlan:
+    """The plan for M = m rows. Strips of 128 columns (64 / 32 where Out is
+    ragged); the narrowest instantiated width >= M; as many K splits as bring
+    strips x splits x row tiles to `blocks_per_sm` = 2 blocks on each SM (one
+    wave, whatever the shape; measured best or within 5 % of it from M 1 to
+    81, `tools/torch_matmul_sweep.py --sweep`); the deepest instantiated ring
+    of which that many blocks fit into an SM's shared memory.
+    `blocks_per_sm` and `stages` override the rule (tuning)."""
+    if m < 1 or n_in % NF4_BLOCK or n_out % 32:
+        raise ValueError(f"matmul_plan needs M >= 1, In % {NF4_BLOCK} == 0 "
+                         f"and Out % 32 == 0, got M={m} In={n_in} "
+                         f"Out={n_out}")
+    bn = 128 if n_out % 128 == 0 else 64 if n_out % 64 == 0 else 32
+    n = next((w for w in WGMMA_WIDTHS if w >= m), WGMMA_WIDTHS[-1])
+    if blocks_per_sm is None:
+        blocks_per_sm = BLOCKS_PER_SM
+    if stages is None:
+        room = SMEM_PER_SM // blocks_per_sm - 1024
+        fits = [s for s in WGMMA_STAGES[n]
+                if smem_bytes(n, s, packed4) <= room]
+        stages = max(fits) if fits else min(WGMMA_STAGES[n])
+    elif stages not in WGMMA_STAGES[n]:
+        raise ValueError(f"matmul_plan: width {n} is built with "
+                         f"{WGMMA_STAGES[n]} stages, not {stages}")
+    nkb = n_in // NF4_BLOCK
+    tiles = (n_out // bn) * -(-m // n)
+    want = max(1, (N_SMS * blocks_per_sm) // tiles)
+    chunk = -(-nkb // min(want, nkb))
+    return MatmulPlan(bn=bn, n=n, ksplit=-(-nkb // chunk), chunk=chunk,
+                      stages=stages, smem=smem_bytes(n, stages, packed4))
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -40,50 +122,97 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """x (B, T, In) @ (q (In, Out) int8 * scale (Out,)) -> (B, T, Out)."""
+def _check_int8(name, x, q, scale):
     if x.dim() != 3 or q.dim() != 2 or scale.dim() != 1:
-        raise ValueError(f"int8_matmul: bad ranks x{tuple(x.shape)} "
+        raise ValueError(f"{name}: bad ranks x{tuple(x.shape)} "
                          f"q{tuple(q.shape)} scale{tuple(scale.shape)}")
-    b, t, n_in = x.shape
-    n_out = q.shape[1]
-    if q.shape[0] != n_in or scale.shape[0] != n_out:
-        raise ValueError(f"int8_matmul: shape mismatch x{tuple(x.shape)} "
+    if q.shape[0] != x.shape[2] or scale.shape[0] != q.shape[1]:
+        raise ValueError(f"{name}: shape mismatch x{tuple(x.shape)} "
                          f"q{tuple(q.shape)} scale{tuple(scale.shape)}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"int8_matmul: q {q.dtype}, scale {scale.dtype}")
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, scale)
-    return _launch(x, q, scale)
+        raise TypeError(f"{name}: q {q.dtype}, scale {scale.dtype}")
 
 
-def _launch(x, q, scale):
+def _check_launch(name, x, q, scale):
+    """What every dequant-matmul kernel needs of its operands on the card;
+    anything else raises (there is no fallback)."""
+    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
+        raise ValueError(f"{name}: x, q and scale must share one device")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
+    if x.shape[2] % 64 or q.shape[1] % 32:
+        raise ValueError(f"{name} kernel needs In % 64 == 0 and "
+                         f"Out % 32 == 0, got In={x.shape[2]} "
+                         f"Out={q.shape[1]}")
+    if not (q.is_contiguous() and scale.is_contiguous()
+            and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
+        raise ValueError(f"{name} kernel needs contiguous, 16-byte aligned "
+                         "q and scale")
+
+
+def _launch_planned(wrapper, x, q, scale, packed4: bool, ptrs=(), plan=None):
+    """Launch the wgmma kernel named like `wrapper` by `matmul_plan` (or by
+    `plan`, for tuning) and count it. The C entry point takes (x, q, scale,
+    *ptrs, partial, y, M, In, Out, bn, n, ksplit, chunk, stages, stream)."""
+    name = wrapper.__name__
+    _check_launch(name, x, q, scale)
+    x = _build.aligned16(x)
     b, t, n_in = x.shape
     n_out = q.shape[1]
-    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
-        raise ValueError("int8_matmul: x, q and scale must share one device")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8_matmul kernel takes bf16 x, got {x.dtype}")
-    if n_in % 64 or n_out % 32:
-        raise ValueError(f"int8_matmul kernel needs In % 64 == 0 and "
-                         f"Out % 32 == 0, got In={n_in} Out={n_out}")
-    if not (q.is_contiguous() and scale.is_contiguous()
-            and q.data_ptr() % 16 == 0):
-        raise ValueError("int8_matmul kernel needs contiguous, 16-byte "
-                         "aligned q and scale")
-    x = _build.aligned16(x)
+    if plan is None:
+        plan = matmul_plan(b * t, n_in, n_out, packed4)
+    shape = plan.scratch_shape(b * t, n_out)
+    partial = (torch.empty(shape, dtype=torch.float32, device=x.device)
+               if shape else None)
     y = torch.empty((b, t, n_out), dtype=x.dtype, device=x.device)
-    fn = _build.bind("int8_matmul", 4, 3)
+    fn = _build.bind(name, 5 + len(ptrs), 8)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 b * t, n_in, n_out, _build.stream_ptr(x.device))
-    _build.check(err, "int8_matmul")
-    int8_matmul.launches += 1
+        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                 *(p.data_ptr() for p in ptrs),
+                 partial.data_ptr() if partial is not None else None,
+                 y.data_ptr(), b * t, n_in, n_out, plan.bn, plan.n,
+                 plan.ksplit, plan.chunk, plan.stages,
+                 _build.stream_ptr(x.device))
+    _build.check(err, name)
+    wrapper.launches += 1
     return y
 
 
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                plan: MatmulPlan | None = None) -> torch.Tensor:
+    """x (B, T, In) @ (q (In, Out) int8 * scale (Out,)) -> (B, T, Out).
+    `plan` replaces `matmul_plan`'s choice (tuning only)."""
+    _check_int8("int8_matmul", x, q, scale)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, scale)
+    return _launch_planned(int8_matmul, x, q, scale, packed4=False, plan=plan)
+
+
 int8_matmul.launches = 0
+
+
+def int8_matmul_strip(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """The same product through the earlier strip kernel (one block per 32
+    or 64 columns, no split-K). For comparison only."""
+    _check_int8("int8_matmul_strip", x, q, scale)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, scale)
+    _check_launch("int8_matmul_strip", x, q, scale)
+    x = _build.aligned16(x)
+    b, t, n_in = x.shape
+    n_out = q.shape[1]
+    y = torch.empty((b, t, n_out), dtype=x.dtype, device=x.device)
+    fn = _build.bind("int8_matmul_strip", 4, 3, lib="int8_matmul")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 b * t, n_in, n_out, _build.stream_ptr(x.device))
+    _build.check(err, "int8_matmul_strip")
+    int8_matmul_strip.launches += 1
+    return y
+
+
+int8_matmul_strip.launches = 0
 
 
 # ---- packed 4-bit ----------------------------------------------------------
@@ -142,27 +271,18 @@ def _check_packed4(name, x, q, scale):
         raise TypeError(f"{name}: q {q.dtype}, scale {scale.dtype}")
 
 
-def _launch4(wrapper, x, q, scale, ptrs=(), ints=()):
-    """Launch the packed 4-bit kernel named like `wrapper` and count it. The
-    C entry point takes (x, q, scale, *ptrs, y, M, In, Out, *ints, stream);
-    anything the kernel does not take raises here."""
+def _launch4(wrapper, x, q, scale, ptrs=(), ints=(), lib=None):
+    """Launch the packed 4-bit kernel named like `wrapper` (an entry point
+    of library `lib`, default the same name) and count it. The C entry point
+    takes (x, q, scale, *ptrs, y, M, In, Out, *ints, stream); anything the
+    kernel does not take raises here."""
     name = wrapper.__name__
-    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
-        raise ValueError(f"{name}: x, q and scale must share one device")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
-    if q.shape[1] % 32:
-        raise ValueError(f"{name} kernel needs Out % 32 == 0, got "
-                         f"Out={q.shape[1]}")
-    if not (q.is_contiguous() and scale.is_contiguous()
-            and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
-        raise ValueError(f"{name} kernel needs contiguous, 16-byte aligned "
-                         "q and scale")
+    _check_launch(name, x, q, scale)
     x = _build.aligned16(x)
     b, t, n_in = x.shape
     n_out = q.shape[1]
     y = torch.empty((b, t, n_out), dtype=x.dtype, device=x.device)
-    fn = _build.bind(name, 4 + len(ptrs), 3 + len(ints))
+    fn = _build.bind(name, 4 + len(ptrs), 3 + len(ints), lib=lib)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                  *(p.data_ptr() for p in ptrs), y.data_ptr(), b * t, n_in,
@@ -183,17 +303,32 @@ def _nf4_code_on(device) -> torch.Tensor:
     return _nf4_code[device]
 
 
-def nf4_matmul(x: torch.Tensor, q: torch.Tensor,
-               scale: torch.Tensor) -> torch.Tensor:
+def nf4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+               plan: MatmulPlan | None = None) -> torch.Tensor:
     """x (B, T, In) @ NF4(q (In/2, Out) packed u8, scale (In/64, Out))
-    -> (B, T, Out)."""
+    -> (B, T, Out). `plan` replaces `matmul_plan`'s choice (tuning only)."""
     _check_packed4("nf4_matmul", x, q, scale)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, q, scale)
-    return _launch4(nf4_matmul, x, q, scale, ptrs=(_nf4_code_on(x.device),))
+    return _launch_planned(nf4_matmul, x, q, scale, packed4=True,
+                           ptrs=(_nf4_code_on(x.device),), plan=plan)
 
 
 nf4_matmul.launches = 0
+
+
+def nf4_matmul_strip(x: torch.Tensor, q: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """The same product through the earlier strip kernel (one block per 32
+    or 64 columns, no split-K). For comparison only."""
+    _check_packed4("nf4_matmul_strip", x, q, scale)
+    if x.device.type == "cpu":
+        return nf4_matmul_plain(x, q, scale)
+    return _launch4(nf4_matmul_strip, x, q, scale,
+                    ptrs=(_nf4_code_on(x.device),), lib="nf4_matmul")
+
+
+nf4_matmul_strip.launches = 0
 
 
 def int4_matmul(x: torch.Tensor, q: torch.Tensor,

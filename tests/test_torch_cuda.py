@@ -10,8 +10,9 @@ tests). On a machine with a card and the CUDA toolkit:
 (`--noconftest`: tests/conftest.py sets up JAX, which these tests do not
 use.) Tolerances: int8, nf4, int4 and attention outputs are bf16, compared
 at one bf16 rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head
-log-probs are f32 sums of H terms, compared at 1e-3. The split-K int4 kernel
-must give equal bits on every launch (no atomics).
+log-probs are f32 sums of H terms, compared at 1e-3. The split-K kernels
+(int8, nf4, small-M int4) must give equal bits on every launch (no atomics);
+int8 and nf4 are also held against their earlier strip kernels.
 """
 
 import pytest
@@ -22,7 +23,8 @@ from flowspec_tpu_torch.ops.head_topk import (
 from flowspec_tpu_torch.ops.quant import Int8Tensor
 from flowspec_tpu_torch.ops.quant_matmul import (
     int4_matmul, int4_matmul_plain, int4_matmul_smallm, int8_matmul,
-    int8_matmul_plain, nf4_matmul, nf4_matmul_plain)
+    int8_matmul_plain, int8_matmul_strip, matmul_plan, nf4_matmul,
+    nf4_matmul_plain, nf4_matmul_strip)
 from flowspec_tpu_torch.ops.tree_attention import (
     live_keys, tree_attention, tree_attention_plain)
 
@@ -86,6 +88,69 @@ def test_nf4_matmul_matches_plain(cuda, m, n_in, n_out):
     assert nf4_matmul.launches == before + 1
     ok, err = _close(got, want)
     assert ok, err
+
+
+# the split-K wgmma kernels at ragged shapes: Out a multiple of 32 but not of
+# 64 and of 64 but not of 128, In = 64 (one block, one split), In / 64 prime
+# (a split count that does not divide), M around every instantiated width
+RAGGED = [(m, n_in, n_out)
+          for n_in, n_out in ((832, 1056), (2368, 1088), (64, 1056),
+                              (2368, 4096))
+          for m in (1, 8, 17, 81, 96, 130)]
+
+
+def _int8(gen, m, n_in, n_out):
+    x = torch.randn((1, m, n_in), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = torch.randint(-127, 128, (n_in, n_out), generator=gen,
+                      device="cuda").to(torch.int8)
+    s = (torch.rand((n_out,), generator=gen, device="cuda") + 0.5
+         ) * n_in ** -0.5 / 127
+    return x, q, s
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("m,n_in,n_out", RAGGED + [
+    (1, 4096, 4096), (10, 8192, 1024), (64, 4096, 11008), (81, 11008, 4096)])
+def test_wgmma_matmul_equal_bits_and_agrees_with_strip(cuda, kind, m, n_in,
+                                                       n_out):
+    if kind == "int8":
+        x, q, s = _int8(cuda, m, n_in, n_out)
+        new, strip, plain = int8_matmul, int8_matmul_strip, int8_matmul_plain
+    else:
+        x, q, s = _packed4(cuda, m, n_in, n_out, 1.0)
+        new, strip, plain = nf4_matmul, nf4_matmul_strip, nf4_matmul_plain
+    before = new.launches, strip.launches
+    got, again, old = new(x, q, s), new(x, q, s), strip(x, q, s)
+    want = plain(x, q, s)
+    torch.cuda.synchronize()
+    assert (new.launches, strip.launches) == (before[0] + 2, before[1] + 1)
+    ok, err = _close(got, want)
+    assert ok, (err, matmul_plan(m, n_in, n_out, kind != "int8"))
+    ok, err = _close(got, old)
+    assert ok, err
+    assert torch.equal(got, again)        # fixed-order reduction, no atomics
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+def test_wgmma_matmul_takes_every_instantiated_ring(cuda, kind):
+    # the plan's overrides (tuning): every (width, stages) pair the kernels
+    # are built with, at one and at three blocks per SM
+    from flowspec_tpu_torch.ops.quant_matmul import WGMMA_STAGES
+    for n, rings in WGMMA_STAGES.items():
+        m = n - 3
+        x, q, s = (_int8(cuda, m, 2368, 1152) if kind == "int8"
+                   else _packed4(cuda, m, 2368, 1152, 1.0))
+        fn, plain = ((int8_matmul, int8_matmul_plain) if kind == "int8"
+                     else (nf4_matmul, nf4_matmul_plain))
+        want = plain(x, q, s)
+        for stages in rings:
+            for bps in (1, 3):
+                plan = matmul_plan(m, 2368, 1152, kind != "int8", bps, stages)
+                got = fn(x, q, s, plan=plan)
+                torch.cuda.synchronize()
+                ok, err = _close(got, want)
+                assert ok, (err, plan)
 
 
 # wide kernel: 13B wq at prefill and verify width, and ragged small shapes
@@ -207,7 +272,14 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         head_topk_int8(x[0], q, s, 4)
     q4 = torch.zeros((32, 32), dtype=torch.uint8, device="cuda")
     s4 = torch.ones((1, 32), device="cuda")
-    for fn in (nf4_matmul, int4_matmul, int4_matmul_smallm):
+    with pytest.raises(TypeError):                          # f32 x
+        int8_matmul_strip(x, q, s)
+    with pytest.raises(ValueError):                         # q on the CPU
+        int8_matmul(x.bfloat16(), q.cpu(), s)
+    with pytest.raises(ValueError):                         # misaligned scale
+        int8_matmul(x.bfloat16(), q, torch.ones((33,), device="cuda")[1:])
+    before = int8_matmul.launches, nf4_matmul.launches
+    for fn in (nf4_matmul, nf4_matmul_strip, int4_matmul, int4_matmul_smallm):
         with pytest.raises(TypeError):                      # f32 x
             fn(x, q4, s4)
         with pytest.raises(ValueError):                     # Out % 32 != 0
@@ -216,3 +288,5 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                         # 40 rows
         int4_matmul_smallm(torch.zeros((1, 40, 64), dtype=torch.bfloat16,
                                        device="cuda"), q4, s4)
+    # a refusal launches nothing, neither the kernel nor a stand-in for it
+    assert (int8_matmul.launches, nf4_matmul.launches) == before

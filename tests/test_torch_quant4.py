@@ -17,7 +17,17 @@
     rtol 5e-2 / atol 2e-1 (tests/test_quant.py:150-155 holds 8 rows to
     atol 1e-1; these cases have up to 40 rows and longer tails);
 (c) `qmatmul` dispatch, the wrappers' refusals and the bridge's refusal to
-    guess the kind of a uint8 container.
+    guess the kind of a uint8 container;
+(d) the split plan of the split-K wgmma kernels (`matmul_plan`, shared by
+    int8 and nf4) over every (M, In, Out) the wrappers accept, with
+    hypothesis: the splits tile [0, In/64) exactly and none is empty, the
+    strip width divides Out, the width covers M (or M runs in 128-row
+    tiles), the ring fits an SM, the scratch has the shape the wrapper
+    allocates; and `_split_sum`, a torch emulation of "one f32 partial per
+    split, added in ascending order, scale, one cast" driven by that plan,
+    against `int8_matmul_plain` / `nf4_matmul_plain` at the card's tolerance
+    (|err| <= 1e-2*|plain| + 1e-2: one bf16 ulp of an f32 sum taken in
+    another order).
 Inputs come from numpy with a seed.
 """
 
@@ -25,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from flowspec_tpu.ops import quant as jq
@@ -237,6 +249,151 @@ def test_split_k_covers_every_block_with_no_empty_split():
     for n_in, n_out in [(64, 24), (96, 32)]:      # what the kernel refuses
         with pytest.raises(ValueError, match="split_k needs"):
             tqm.split_k(n_in, n_out)
+
+
+@settings(max_examples=300, deadline=None)
+@given(m=st.integers(1, 700), nkb=st.integers(1, 256),
+       out32=st.integers(1, 448), packed4=st.booleans())
+def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
+                                                              packed4):
+    n_in, n_out = nkb * 64, out32 * 32
+    p = tqm.matmul_plan(m, n_in, n_out, packed4)
+    # strips: the widest of 128 / 64 / 32 that divides Out
+    assert p.bn in (128, 64, 32) and n_out % p.bn == 0
+    assert p.bn == 128 or n_out % (2 * p.bn) != 0
+    # width: the narrowest instantiated one >= M; beyond 128, row tiles
+    assert p.n in tqm.WGMMA_WIDTHS and (p.n >= m or p.n == 128)
+    assert all(w < m for w in tqm.WGMMA_WIDTHS if w < p.n)
+    # splits tile [0, In/64) exactly, in order, none empty
+    edges = [(s * p.chunk, min((s + 1) * p.chunk, nkb))
+             for s in range(p.ksplit)]
+    assert edges[0][0] == 0 and edges[-1][1] == nkb
+    assert all(a < b for a, b in edges)
+    assert all(edges[i][1] == edges[i + 1][0] for i in range(p.ksplit - 1))
+    # one wave: never more blocks than the plan's two per SM, unless the
+    # strips x row tiles alone exceed it (then one split)
+    tiles = (n_out // p.bn) * -(-m // p.n)
+    assert (tiles * p.ksplit <= tqm.N_SMS * tqm.BLOCKS_PER_SM
+            or p.ksplit == 1)
+    # the ring is one the kernels are built with and two blocks fit an SM
+    assert p.stages in tqm.WGMMA_STAGES[p.n]
+    assert p.smem == tqm.smem_bytes(p.n, p.stages, packed4)
+    assert tqm.BLOCKS_PER_SM * (p.smem + 1024) <= tqm.SMEM_PER_SM
+    # scratch as the wrapper allocates it
+    assert p.scratch_shape(m, n_out) == (
+        (p.ksplit, m, n_out) if p.ksplit > 1 else None)
+
+
+def test_matmul_plan_main_path_shapes_and_refusals():
+    # 7B verify width: two blocks per SM at every projection
+    for n_in, n_out in [(4096, 4096), (4096, 11008), (11008, 4096)]:
+        p = tqm.matmul_plan(81, n_in, n_out, False)
+        assert (p.bn, p.n) == (128, 96)
+        assert 132 < (n_out // 128) * p.ksplit <= 264
+    # M 1 (every AR step) and the draft's M 10 are the narrow width with
+    # more splits: the thin draft's fc gets 32 x 8 blocks where a grid over
+    # strips alone had 32
+    p = tqm.matmul_plan(10, 8192, 1024, True)
+    assert (p.n, p.ksplit, p.chunk) == (16, 32, 4)
+    assert tqm.matmul_plan(1, 4096, 4096, True).ksplit == 8
+    # one 64-row block cannot split; M > 128 runs in row tiles of 128
+    assert tqm.matmul_plan(8, 64, 1056, False).ksplit == 1
+    assert tqm.matmul_plan(130, 4096, 4096, True).n == 128
+    # overrides are for tuning and must name a ring the kernels are built with
+    assert tqm.matmul_plan(81, 4096, 4096, False, 1, 4).ksplit == 4
+    with pytest.raises(ValueError, match="is built with"):
+        tqm.matmul_plan(81, 4096, 4096, False, 2, 8)
+    for m, n_in, n_out in [(0, 64, 32), (1, 96, 32), (1, 64, 24)]:
+        with pytest.raises(ValueError, match="matmul_plan needs"):
+            tqm.matmul_plan(m, n_in, n_out, False)
+
+
+def _split_sum(x: torch.Tensor, w: torch.Tensor, plan,
+              scale: torch.Tensor | None = None) -> torch.Tensor:
+    """What the wgmma kernels compute, in plain torch: one f32 partial per K
+    split of `plan` (x (..., In) times the bf16 operand w (In, Out)), the
+    partials added in ascending order, the int8 per-column scale if any, one
+    cast to x's dtype."""
+    step = plan.chunk * tq.NF4_BLOCK
+    total = None
+    for s in range(plan.ksplit):
+        k0, k1 = s * step, min((s + 1) * step, x.shape[-1])
+        part = torch.matmul(x[..., k0:k1].to(torch.float32),
+                            w[k0:k1].to(torch.float32))
+        total = part if total is None else total + part
+    if scale is not None:
+        total = total * scale.to(torch.float32)
+    return total.to(x.dtype)
+
+
+# (M, In, Out): every width, ragged strips, one block, a prime block count
+SPLIT_CASES = [(1, 4096, 1024), (10, 8192, 1024), (17, 832, 1056),
+               (81, 2368, 1088), (96, 64, 1056), (130, 2368, 256)]
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("m,n_in,n_out", SPLIT_CASES)
+def test_split_sum_by_the_plan_matches_plain(kind, m, n_in, n_out):
+    rng = np.random.default_rng(m + n_in)
+    x = torch.from_numpy(rng.standard_normal((1, m, n_in)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(
+        np.float32) * n_in ** -0.5)
+    plan = tqm.matmul_plan(m, n_in, n_out, kind != "int8")
+    if kind == "int8":
+        t = tq.quantize_int8(w)
+        got = _split_sum(x, t.q.to(torch.bfloat16), plan, t.scale)
+        want = tqm.int8_matmul_plain(x, t.q, t.scale)
+    else:
+        t = tq.quantize_nf4(w)
+        got = _split_sum(x, tqm._decode4_bf16(t.q, t.scale, True), plan)
+        want = tqm.nf4_matmul_plain(x, t.q, t.scale)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-2 * want.float().abs() + 1e-2).all()), err.max()
+    if plan.ksplit == 1:                  # one split: the plain sum itself
+        assert torch.equal(got, want)
+    # the order is fixed: the same bits again
+    again = _split_sum(x, (t.q.to(torch.bfloat16) if kind == "int8" else
+                              tqm._decode4_bf16(t.q, t.scale, True)), plan,
+                          t.scale if kind == "int8" else None)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", ["int8_matmul", "int8_matmul_strip",
+                                  "nf4_matmul", "nf4_matmul_strip"])
+def test_wgmma_and_strip_wrappers_refuse_and_run_plain_on_cpu(name):
+    fn = getattr(tqm, name)
+    int8 = name.startswith("int8")
+    x = torch.zeros((1, 2, 128))
+    if int8:
+        q, s = torch.zeros((128, 32), dtype=torch.int8), torch.zeros((32,))
+        bad_q, bad_s = q.to(torch.uint8), torch.zeros((1, 32))
+    else:
+        q, s = torch.zeros((64, 32), dtype=torch.uint8), torch.zeros((2, 32))
+        bad_q, bad_s = q.to(torch.int8), torch.zeros((32,))
+    with pytest.raises(TypeError):                       # container dtype
+        fn(x, bad_q, s)
+    with pytest.raises(TypeError):                       # f16 scale
+        fn(x, q, s.half())
+    with pytest.raises(ValueError, match="bad ranks"):
+        fn(x, q, bad_s)
+    with pytest.raises(ValueError, match="bad ranks"):
+        fn(x[0], q, s)
+    with pytest.raises(ValueError):                      # In mismatch
+        fn(torch.zeros((1, 2, 64)), q, s)
+    # on the CPU every wrapper is its plain version and launches nothing
+    before = fn.launches
+    plain = tqm.int8_matmul_plain if int8 else tqm.nf4_matmul_plain
+    xr = torch.from_numpy(_weights(9, (1, 2, 128)))
+    assert torch.equal(fn(xr, q, s), plain(xr, q, s))
+    assert fn.launches == before
+    # what the kernels need of a CUDA tensor is checked before any launch:
+    # a device mix and a dtype the kernel does not take raise
+    with pytest.raises(ValueError, match="share one device"):
+        tqm._check_launch(name, x, q, s)
+    with pytest.raises(ValueError, match="share one device"):
+        tqm._check_launch(name, x.to("meta"), q, s)
 
 
 def test_bridge_tells_nf4_from_int4_and_refuses_to_guess():

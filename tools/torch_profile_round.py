@@ -10,8 +10,9 @@ bench.py's d8/tau0.2 tree; default 7b int8), runs one warm-up request, then
 profiles one request of 64 prompt + 128 new tokens with torch.profiler
 (CPU + CUDA activities). Prints one JSON line: wall time, summed
 device-kernel time, the device's idle share of the wall time, rounds, and
-device time by kernel family (this port's six CUDA kernels; cuBLAS GEMMs
-(the f32 lm_head); sort/top-k; everything else). Needs a CUDA card.
+device time by kernel family (this port's six CUDA kernels, the split-K
+reduce pass of int8 / nf4 as `matmul_reduce`; cuBLAS GEMMs (the f32
+lm_head); sort/top-k; everything else). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def family(name: str) -> str:
     n = name.lower()
-    for key, fam in (("int8_matmul_kernel", "int8_matmul"),
-                     ("p4_matmul_kernel<true", "nf4_matmul"),
+    for key, fam in (("qmm_kernel<0", "int8_matmul"),
+                     ("qmm_kernel<1", "nf4_matmul"),
+                     ("qmm_reduce", "matmul_reduce"),
+                     ("int8_matmul_kernel", "int8_matmul_strip"),
+                     ("p4_matmul_kernel<true", "nf4_matmul_strip"),
                      ("p4_matmul_kernel<false", "int4_matmul"),
                      ("int4_splitk", "int4_matmul_smallm"),
                      ("tree_attention_kernel", "tree_attention"),
