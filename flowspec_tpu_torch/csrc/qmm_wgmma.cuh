@@ -500,15 +500,19 @@ cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
                        const void* code, void* partial, void* y, int M, int In,
                        int Out, int bn, int ksplit, int chunk,
                        cudaStream_t stream) {
-  // dynamic shared memory above 48 KB is an opt-in per kernel, made once
-  static bool allowed = false;
+  // dynamic shared memory above 48 KB is an opt-in per kernel and device,
+  // made once for each
+  static bool allowed[64] = {};
   constexpr int smem = QmmTile<FMT>::smem_bytes(N, STAGES);
-  if (!allowed) {
-    cudaError_t e = cudaFuncSetAttribute(
-        qmm_kernel<FMT, N, STAGES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64 || !allowed[dev]) {
+    e = cudaFuncSetAttribute(qmm_kernel<FMT, N, STAGES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return e;
-    allowed = true;
+    if (dev >= 0 && dev < 64) allowed[dev] = true;
   }
   dim3 grid(Out / bn, ksplit, (M + N - 1) / N);
   qmm_kernel<FMT, N, STAGES><<<grid, 128, smem, stream>>>(
