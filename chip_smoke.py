@@ -30,9 +30,12 @@ Phases, one JSON line each on stdout:
      kernel's launch count is set to 0 before a configuration runs and read
      after; a kernel of the configuration's path with no launch fails the
      run, and so does a first spec/AR divergence at a position whose AR
-     top-2 logit gap is >= 0.05. Each serve line carries `round_ms`: per
-     kernel, the sum over the shapes of one speculative round of launches x
-     measured ms, beside the same sum of bounds.
+     top-2 logit gap is >= 0.05. One prefill is counted on its own, so
+     the launches per round are the serve run's count less its prefills over
+     its rounds; they must equal what the code implies (305 / 41 / 9 at 7B).
+     Each serve line carries `round_ms`: per kernel, the sum over the shapes
+     of one speculative round of those launches x measured ms, beside the
+     same sum of bounds.
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Per-shape
 details go to chiprun_out/chip_smoke_kernels.jsonl. Any failure raises: no
 phase catches an error and still exits 0.
@@ -168,20 +171,13 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-FLUSH_BY_WRITE = False
-
-
 def flush_l2(buf) -> None:
     """Push everything out of the 50 MB L2 by reading `buf` (256 MB). The
     lines left behind are clean, as the previous layer's weights are on the
-    decode path; zeroing the buffer instead (FLUSH_BY_WRITE) leaves the L2
-    full of dirty lines, whose write-back then competes with the timed
-    kernel's reads."""
+    decode path; zeroing the buffer instead would leave the L2 full of dirty
+    lines, whose write-back then competes with the timed kernel's reads."""
     import torch
-    if FLUSH_BY_WRITE:
-        buf.zero_()
-    else:
-        buf.view(torch.int32).sum()
+    buf.view(torch.int32).sum()
 
 
 def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
@@ -517,15 +513,16 @@ def expected_per_round(eng) -> dict:
     return out
 
 
-def round_sums(eng, kernel_rows) -> dict:
+def round_sums(eng, kernel_rows, per_round) -> dict:
     """Per kernel, one speculative round of `eng` as the sum over its shapes
     of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
     "strip_ms" (kernels with a strip version)}}. A base verify pass runs the
     7 projections and one attention per layer at node_cap rows; the draft
     runs depth + 1 passes (the context pass, then one per tree level) of 9
     projections, one attention and one head top-k at top_k rows (the root's
-    head call has one row). The launches must add up to
-    `expected_per_round`; a shape without a measured row raises."""
+    head call has one row). The launches spread over the shapes here must
+    add up, kernel by kernel, to `per_round`, the launches per round counted
+    on the serve path; a shape without a measured row raises."""
     from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
     names = {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul",
              Int4Tensor: "int4_matmul"}
@@ -568,24 +565,48 @@ def round_sums(eng, kernel_rows) -> dict:
         if "strip_ms" in row:
             o["strip_ms"] = o.get("strip_ms", 0.0) + n * row["strip_ms"]
     counted = {k: o["launches"] for k, o in out.items()}
-    if counted != expected_per_round(eng):
-        raise AssertionError(f"round_sums counts {counted}, the code implies "
-                             f"{expected_per_round(eng)}")
+    if counted != {k: n for k, n in per_round.items() if n}:
+        raise AssertionError(f"round_sums spreads {counted} launches over "
+                             f"its shapes, the serve path counted "
+                             f"{per_round} a round")
     return out
+
+
+def launches_per_round(tag, launches, prefill, n_requests, rounds, expected):
+    """Launches per speculative round as the serve path counted them: the
+    run's count less one prefill a request, over its rounds. Raises unless
+    that is a whole number and equals `expected` for every kernel."""
+    per_round = {}
+    for n, total in launches.items():
+        in_rounds = total - n_requests * prefill[n]
+        if in_rounds % rounds or in_rounds // rounds != expected.get(n, 0):
+            raise AssertionError(
+                f"{tag}: {n} launched {total} times over {n_requests} "
+                f"prefills of {prefill[n]} and {rounds} rounds; expected "
+                f"{expected.get(n, 0)} a round")
+        per_round[n] = in_rounds // rounds
+    return per_round
 
 
 def serve_config(tag, dev, counters, kernel_rows):
     """Drive one configuration through SpecEngine.generate and generate_ar
     with the launch counts zeroed before and read after each, emit its
     serve and lossless lines, and return its launches {kernel: count} over
-    both and its `round_sums`. Raises if a kernel of its path never launched
-    or spec diverges from AR off a near-tie."""
+    both and its `round_sums`. One prefill is counted on its own first, so
+    that the serve run's count splits into prefills and rounds. Raises if a
+    kernel of its path never launched, if the launches per round are not the
+    expected ones, or if spec diverges from AR off a near-tie."""
     import torch
     model, quant, n_requests, new_tokens = CONFIGS[tag]
     suffix = "" if tag == "7b_int8" else "_" + tag
     eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
                                          new_tokens)
     torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    eng.prefill(eng.init_state(), prompts[0])    # every prompt has one length
+    torch.cuda.synchronize()
+    prefill = {n: fn.launches for n, fn in counters.items()}
     for fn in counters.values():
         fn.launches = 0
     spec_out, req_s, rounds, new = [], [], 0, 0
@@ -599,6 +620,8 @@ def serve_config(tag, dev, counters, kernel_rows):
         rounds += stats["rounds"]
         new += stats["new_tokens"]
     launches = {n: fn.launches for n, fn in counters.items()}
+    per_round = launches_per_round(tag, launches, prefill, len(prompts),
+                                   rounds, expected_per_round(eng))
     draft_kind = "int8" if quant == "mixed" else quant
     emit({"phase": "serve" + suffix,
           "model": f"llama_{model} {quant} (random, seeded)",
@@ -609,9 +632,9 @@ def serve_config(tag, dev, counters, kernel_rows):
           "accept_per_round": new / rounds, "tok_s": new / sum(req_s),
           "request_s": req_s, "param_build_s": params_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches,
-          "expected_launches_per_round": expected_per_round(eng),
-          "round_ms": (sums := round_sums(eng, kernel_rows))})
+          "launches": launches, "prefill_launches": prefill,
+          "launches_per_round": per_round,
+          "round_ms": (sums := round_sums(eng, kernel_rows, per_round))})
     missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: generate never launched {missing}")

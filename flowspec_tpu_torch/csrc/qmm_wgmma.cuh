@@ -35,8 +35,8 @@
 // The ring. Every thread issues 16-byte cp.async copies (x tile, weight tile,
 // scale row) into a ring of STAGES slots in dynamic shared memory, STAGES - 1
 // blocks ahead; each thread copies the same column of every tile, so a copy
-// costs one add. The plan picks the deepest ring of which two blocks fit an
-// SM. cp.async rather than TMA: a tensor map encoded wrongly leaves a thread
+// costs one add. Each width has one ring, the deepest of which two blocks fit
+// an SM. cp.async rather than TMA: a tensor map encoded wrongly leaves a thread
 // spinning on an mbarrier for ever, while a cp.async ring can only be wrong,
 // not hang; the depth, which is what the memory system sees, is the same.
 //
@@ -211,7 +211,8 @@ __device__ __forceinline__ uint32_t i8_pair_bf16(uint32_t lo, uint32_t hi) {
 
 // FMT: QMM_INT8 (q (In, Out) int8, scale (Out,) applied by the epilogue or
 // the reduce pass), QMM_NF4 / QMM_INT4 (q (In/2, Out) packed, scale (In/64,
-// Out) folded into the operand). N: rows of x a block covers (the wgmma
+// Out) folded into the operand). QMM_INT4 is a sketch for the int4 kernel's
+// redesign: nothing instantiates it, so it has never been compiled or run. N: rows of x a block covers (the wgmma
 // width). STAGES: ring slots; STAGES - 2 blocks are in flight behind the one
 // being decoded. Requires In % 64 == 0, Out % bn == 0, bn in {32, 64, 128},
 // 16-byte aligned x, q, scale, partial and y, blockDim.x == 128 and
@@ -365,8 +366,8 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     }
   };
 
-  // never read before the first product of each tile has overwritten it
-  // (scale-d 0 at block 0, step 0; a split is never empty)
+  // not initialised: the first product of each tile (block 0, step 0; a
+  // split is never empty) runs with scale-d 0 and overwrites it
   float acc[2][N / 2];
 
   // One step: the products of block kc go to the tensor cores from `cur`,
@@ -525,8 +526,8 @@ cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
 
 // One product by the plan (bn, n, ksplit, chunk, stages); `partial` is
 // (ksplit, M, Out) f32 scratch, unused when ksplit == 1. (n, stages) must be
-// one of the instantiated pairs below (`ops/quant_matmul.py WGMMA_STAGES`
-// lists the same). Returns the first CUDA error of its calls, or
+// one of the four instantiated pairs below, one ring per width
+// (`ops/quant_matmul.py WGMMA_STAGES` lists the same). Returns the first CUDA error of its calls, or
 // cudaErrorInvalidValue for a plan the kernel does not take.
 template <int FMT>
 int qmm_matmul(const void* x, const void* q, const void* scale,
@@ -542,11 +543,8 @@ int qmm_matmul(const void* x, const void* q, const void* scale,
   if (n == NN && stages == SS)                                               \
     e = qmm_launch<FMT, NN, SS>(x, q, scale, code, partial, y, M, In, Out,   \
                                 bn, ksplit, chunk, st);
-  FS_QMM_CASE(16, 4)
   FS_QMM_CASE(16, 6)
-  FS_QMM_CASE(64, 4)
   FS_QMM_CASE(64, 6)
-  FS_QMM_CASE(96, 4)
   FS_QMM_CASE(96, 5)
   FS_QMM_CASE(128, 4)
 #undef FS_QMM_CASE

@@ -45,8 +45,9 @@ N_SMS = 132                   # H100 SXM
 SMEM_PER_SM = 227 * 1024      # shared memory the blocks of one SM may hold
 BLOCKS_PER_SM = 2             # blocks the grid of a product aims for per SM
 WGMMA_WIDTHS = (16, 64, 96, 128)   # rows of x a block covers (instantiated)
-# ring slots instantiated per width; stages - 2 tiles are in flight
-WGMMA_STAGES = {16: (4, 6), 64: (4, 6), 96: (4, 5), 128: (4,)}
+# ring slots per width, the deepest of which two blocks fit an SM for both
+# formats (a ring of 4 measured like one of 6); stages - 2 tiles are in flight
+WGMMA_STAGES = {16: 6, 64: 6, 96: 5, 128: 4}
 NF4_LUT_BYTES = 8192          # the nf4 kernel's table of decoded byte pairs
 
 
@@ -79,35 +80,22 @@ def smem_bytes(n: int, stages: int, packed4: bool) -> int:
 
 
 @lru_cache(maxsize=None)
-def matmul_plan(m: int, n_in: int, n_out: int, packed4: bool,
-                blocks_per_sm: int | None = None,
-                stages: int | None = None) -> MatmulPlan:
+def matmul_plan(m: int, n_in: int, n_out: int, packed4: bool) -> MatmulPlan:
     """The plan for M = m rows. Strips of 128 columns (64 / 32 where Out is
-    ragged); the narrowest instantiated width >= M; as many K splits as bring
-    strips x splits x row tiles to `blocks_per_sm` = 2 blocks on each SM (one
-    wave, whatever the shape; measured best or within 5 % of it from M 1 to
-    81, `tools/torch_matmul_sweep.py --sweep`); the deepest instantiated ring
-    of which that many blocks fit into an SM's shared memory.
-    `blocks_per_sm` and `stages` override the rule (tuning)."""
+    ragged); the narrowest instantiated width >= M with its ring of
+    `WGMMA_STAGES`; as many K splits as bring strips x splits x row tiles to
+    BLOCKS_PER_SM = 2 blocks on each SM (one wave, whatever the shape;
+    measured best or within 5 % of it from M 1 to 81 against 1, 3, 4 and 6)."""
     if m < 1 or n_in % NF4_BLOCK or n_out % 32:
         raise ValueError(f"matmul_plan needs M >= 1, In % {NF4_BLOCK} == 0 "
                          f"and Out % 32 == 0, got M={m} In={n_in} "
                          f"Out={n_out}")
     bn = 128 if n_out % 128 == 0 else 64 if n_out % 64 == 0 else 32
     n = next((w for w in WGMMA_WIDTHS if w >= m), WGMMA_WIDTHS[-1])
-    if blocks_per_sm is None:
-        blocks_per_sm = BLOCKS_PER_SM
-    if stages is None:
-        room = SMEM_PER_SM // blocks_per_sm - 1024
-        fits = [s for s in WGMMA_STAGES[n]
-                if smem_bytes(n, s, packed4) <= room]
-        stages = max(fits) if fits else min(WGMMA_STAGES[n])
-    elif stages not in WGMMA_STAGES[n]:
-        raise ValueError(f"matmul_plan: width {n} is built with "
-                         f"{WGMMA_STAGES[n]} stages, not {stages}")
+    stages = WGMMA_STAGES[n]
     nkb = n_in // NF4_BLOCK
     tiles = (n_out // bn) * -(-m // n)
-    want = max(1, (N_SMS * blocks_per_sm) // tiles)
+    want = max(1, (N_SMS * BLOCKS_PER_SM) // tiles)
     chunk = -(-nkb // min(want, nkb))
     return MatmulPlan(bn=bn, n=n, ksplit=-(-nkb // chunk), chunk=chunk,
                       stages=stages, smem=smem_bytes(n, stages, packed4))
@@ -150,17 +138,16 @@ def _check_launch(name, x, q, scale):
                          "q and scale")
 
 
-def _launch_planned(wrapper, x, q, scale, packed4: bool, ptrs=(), plan=None):
-    """Launch the wgmma kernel named like `wrapper` by `matmul_plan` (or by
-    `plan`, for tuning) and count it. The C entry point takes (x, q, scale,
-    *ptrs, partial, y, M, In, Out, bn, n, ksplit, chunk, stages, stream)."""
+def _launch_planned(wrapper, x, q, scale, packed4: bool, ptrs=()):
+    """Launch the wgmma kernel named like `wrapper` by `matmul_plan` and
+    count it. The C entry point takes (x, q, scale, *ptrs, partial, y, M,
+    In, Out, bn, n, ksplit, chunk, stages, stream)."""
     name = wrapper.__name__
     _check_launch(name, x, q, scale)
     x = _build.aligned16(x)
     b, t, n_in = x.shape
     n_out = q.shape[1]
-    if plan is None:
-        plan = matmul_plan(b * t, n_in, n_out, packed4)
+    plan = matmul_plan(b * t, n_in, n_out, packed4)
     shape = plan.scratch_shape(b * t, n_out)
     partial = (torch.empty(shape, dtype=torch.float32, device=x.device)
                if shape else None)
@@ -178,14 +165,13 @@ def _launch_planned(wrapper, x, q, scale, packed4: bool, ptrs=(), plan=None):
     return y
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                plan: MatmulPlan | None = None) -> torch.Tensor:
-    """x (B, T, In) @ (q (In, Out) int8 * scale (Out,)) -> (B, T, Out).
-    `plan` replaces `matmul_plan`'s choice (tuning only)."""
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x (B, T, In) @ (q (In, Out) int8 * scale (Out,)) -> (B, T, Out)."""
     _check_int8("int8_matmul", x, q, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
-    return _launch_planned(int8_matmul, x, q, scale, packed4=False, plan=plan)
+    return _launch_planned(int8_matmul, x, q, scale, packed4=False)
 
 
 int8_matmul.launches = 0
@@ -303,15 +289,15 @@ def _nf4_code_on(device) -> torch.Tensor:
     return _nf4_code[device]
 
 
-def nf4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-               plan: MatmulPlan | None = None) -> torch.Tensor:
+def nf4_matmul(x: torch.Tensor, q: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
     """x (B, T, In) @ NF4(q (In/2, Out) packed u8, scale (In/64, Out))
-    -> (B, T, Out). `plan` replaces `matmul_plan`'s choice (tuning only)."""
+    -> (B, T, Out)."""
     _check_packed4("nf4_matmul", x, q, scale)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, q, scale)
     return _launch_planned(nf4_matmul, x, q, scale, packed4=True,
-                           ptrs=(_nf4_code_on(x.device),), plan=plan)
+                           ptrs=(_nf4_code_on(x.device),))
 
 
 nf4_matmul.launches = 0

@@ -132,27 +132,6 @@ def test_wgmma_matmul_equal_bits_and_agrees_with_strip(cuda, kind, m, n_in,
     assert torch.equal(got, again)        # fixed-order reduction, no atomics
 
 
-@pytest.mark.parametrize("kind", ["int8", "nf4"])
-def test_wgmma_matmul_takes_every_instantiated_ring(cuda, kind):
-    # the plan's overrides (tuning): every (width, stages) pair the kernels
-    # are built with, at one and at three blocks per SM
-    from flowspec_tpu_torch.ops.quant_matmul import WGMMA_STAGES
-    for n, rings in WGMMA_STAGES.items():
-        m = n - 3
-        x, q, s = (_int8(cuda, m, 2368, 1152) if kind == "int8"
-                   else _packed4(cuda, m, 2368, 1152, 1.0))
-        fn, plain = ((int8_matmul, int8_matmul_plain) if kind == "int8"
-                     else (nf4_matmul, nf4_matmul_plain))
-        want = plain(x, q, s)
-        for stages in rings:
-            for bps in (1, 3):
-                plan = matmul_plan(m, 2368, 1152, kind != "int8", bps, stages)
-                got = fn(x, q, s, plan=plan)
-                torch.cuda.synchronize()
-                ok, err = _close(got, want)
-                assert ok, (err, plan)
-
-
 # wide kernel: 13B wq at prefill and verify width, and ragged small shapes
 @pytest.mark.parametrize("m,n_in,n_out", [
     (33, 128, 96), (40, 256, 64), (64, 5120, 5120), (81, 5120, 5120),

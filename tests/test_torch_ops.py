@@ -11,6 +11,7 @@ least one live column: a fully masked row is garbage on every path.
 """
 
 import re
+import sys
 from pathlib import Path
 
 import jax
@@ -227,3 +228,26 @@ def test_kernel_build_keys_on_source_hash():
     for n in _build.KERNELS:
         assert (_build.CSRC / f"{n}.cu").exists()
         assert _build.lib_path(n).parent == _build.BUILD_DIR
+
+
+def test_smoke_run_splits_launches_into_prefills_and_rounds():
+    # the card script's accounting: a serve run's count less one prefill a
+    # request, over its rounds, must be the expected launches per round
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    expected = {"int8_matmul": 305, "tree_attention": 41, "head_topk": 9}
+    prefill = {"int8_matmul": 242, "tree_attention": 34, "head_topk": 0,
+               "nf4_matmul": 0}
+    counted = {"int8_matmul": 64 * 305 + 3 * 242,
+               "tree_attention": 64 * 41 + 3 * 34, "head_topk": 64 * 9,
+               "nf4_matmul": 0}
+    assert chip_smoke.launches_per_round(
+        "7b_int8", counted, prefill, 3, 64, expected) == {
+            "int8_matmul": 305, "tree_attention": 41, "head_topk": 9,
+            "nf4_matmul": 0}
+    for kernel, off in (("int8_matmul", 1), ("int8_matmul", 64),
+                        ("nf4_matmul", 64)):
+        with pytest.raises(AssertionError, match=kernel):
+            chip_smoke.launches_per_round(
+                "7b_int8", {**counted, kernel: counted[kernel] + off},
+                prefill, 3, 64, expected)

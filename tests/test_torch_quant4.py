@@ -275,8 +275,8 @@ def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
     tiles = (n_out // p.bn) * -(-m // p.n)
     assert (tiles * p.ksplit <= tqm.N_SMS * tqm.BLOCKS_PER_SM
             or p.ksplit == 1)
-    # the ring is one the kernels are built with and two blocks fit an SM
-    assert p.stages in tqm.WGMMA_STAGES[p.n]
+    # the ring is the one the width is built with and two blocks fit an SM
+    assert p.stages == tqm.WGMMA_STAGES[p.n]
     assert p.smem == tqm.smem_bytes(p.n, p.stages, packed4)
     assert tqm.BLOCKS_PER_SM * (p.smem + 1024) <= tqm.SMEM_PER_SM
     # scratch as the wrapper allocates it
@@ -299,10 +299,10 @@ def test_matmul_plan_main_path_shapes_and_refusals():
     # one 64-row block cannot split; M > 128 runs in row tiles of 128
     assert tqm.matmul_plan(8, 64, 1056, False).ksplit == 1
     assert tqm.matmul_plan(130, 4096, 4096, True).n == 128
-    # overrides are for tuning and must name a ring the kernels are built with
-    assert tqm.matmul_plan(81, 4096, 4096, False, 1, 4).ksplit == 4
-    with pytest.raises(ValueError, match="is built with"):
-        tqm.matmul_plan(81, 4096, 4096, False, 2, 8)
+    # one ring per width, for both formats
+    assert [tqm.matmul_plan(m, 4096, 4096, p4).stages
+            for m in (1, 64, 81, 128) for p4 in (False, True)] == [
+        6, 6, 6, 6, 5, 5, 4, 4]
     for m, n_in, n_out in [(0, 64, 32), (1, 96, 32), (1, 64, 24)]:
         with pytest.raises(ValueError, match="matmul_plan needs"):
             tqm.matmul_plan(m, n_in, n_out, False)

@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile_round.py [--model 7b|13b]
                                          [--quant int8|nf4|int4|mixed]
+                                         [--strip-turns]
 
 Builds the chip_smoke.py serving setup (random base of the given model and
 quantization kind from a seeded torch.Generator, the committed thin draft,
@@ -12,13 +13,22 @@ profiles one request of 64 prompt + 128 new tokens with torch.profiler
 device-kernel time, the device's idle share of the wall time, rounds, and
 device time by kernel family (this port's six CUDA kernels, the split-K
 reduce pass of int8 / nf4 as `matmul_reduce`; cuBLAS GEMMs (the f32
-lm_head); sort/top-k; everything else). Needs a CUDA card.
+lm_head); sort/top-k; everything else).
+
+`--strip-turns` instead serves chip_smoke.py's three requests four times
+without the profiler, in turns (new, strip, strip, new): "strip" routes the
+int8 and nf4 products of the serving path to the earlier strip kernels
+(`int8_matmul_strip`, `nf4_matmul_strip`) for the length of the turn. It
+prints tok/s and wall ms per round of each turn and of each side, so what
+the two-launch split-K wrappers cost or gain end to end is read inside one
+process. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -46,11 +56,52 @@ def family(name: str) -> str:
     return "other"
 
 
+def strip_turns(eng, prompts, new_tokens) -> dict:
+    """Serve `prompts` in turns new, strip, strip, new; per turn and per side
+    tok/s and wall ms per round (prefill included in the wall time)."""
+    import torch
+    from flowspec_tpu_torch.ops import quant_matmul as qm
+    new = {"int8_matmul": qm.int8_matmul, "nf4_matmul": qm.nf4_matmul}
+    strip = {"int8_matmul": qm.int8_matmul_strip,
+             "nf4_matmul": qm.nf4_matmul_strip}
+
+    def serve(route):
+        for name, fn in route.items():
+            setattr(qm, name, fn)
+        try:
+            t0 = time.perf_counter()
+            rounds = tokens = 0
+            for p in prompts:
+                _, stats = eng.generate(p, max_new_tokens=new_tokens,
+                                        eos_token_id=-1)
+                rounds += stats["rounds"]
+                tokens += stats["new_tokens"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for name, fn in new.items():
+                setattr(qm, name, fn)
+        return {"tok_s": tokens / wall, "rounds": rounds,
+                "wall_ms_per_round": wall * 1e3 / rounds}
+
+    for route in (new, strip):                       # warm-up of both
+        serve(route)
+    turns = [serve(r) for r in (new, strip, strip, new)]
+    sides = {"new": [turns[0], turns[3]], "strip": [turns[1], turns[2]]}
+    return {"turns": dict(zip(("new_1", "strip_1", "strip_2", "new_2"),
+                              turns)),
+            **{side: {k: statistics.mean(r[k] for r in rows)
+                      for k in ("tok_s", "wall_ms_per_round")}
+               for side, rows in sides.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="7b", choices=("7b", "13b"))
     ap.add_argument("--quant", default="int8",
                     choices=("int8", "nf4", "int4", "mixed"))
+    ap.add_argument("--strip-turns", action="store_true",
+                    help="serve with the new and the strip matmuls in turns")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -63,6 +114,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     eng, prompts, _ = cs.make_engine(dev, args.model, args.quant)
+    if args.strip_turns:
+        print(json.dumps({
+            "model": args.model, "quant": args.quant,
+            "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": cs.nvidia_smi(), "requests": len(prompts),
+            "new_tokens_each": cs.NEW_TOKENS,
+            **strip_turns(eng, prompts, cs.NEW_TOKENS)}))
+        return 0
     eng.generate(prompts[0], max_new_tokens=cs.NEW_TOKENS, eos_token_id=-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
