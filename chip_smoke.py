@@ -9,17 +9,21 @@ Phases, one JSON line each on stdout:
   2. build    the six CUDA kernels from csrc/ (one nvcc each, in parallel);
   3. kernels  each kernel against its plain PyTorch version at the shapes
               the three serve paths give it, with its time (CUDA events, L2
-              flushed before each launch of a weight-reading kernel), the
-              plain version's time, one PyTorch library call's time
-              (`library_ms`, a yardstick the port never calls; null for the
-              packed 4-bit products, which no single call computes; there
-              `bf16_matmul_ms` times `x @ w` on a pre-decoded bf16 weight,
-              which reads four times the bytes) and the bound (max of bytes
-              / 3.35 TB/s and operations / 989 TFLOP/s bf16). The split-K
-              wgmma kernels `int8_matmul` and `nf4_matmul` are also held
-              against their earlier strip versions (`strip_ms`, timed in
-              turns: new, strip, strip, new), must give equal bits on two
-              launches, and are checked at ragged shapes;
+              flushed before every timed launch, a few ms of device work
+              queued ahead of each loop), the plain version's time, one
+              PyTorch library call's time (`library_ms`, a yardstick the
+              port never calls: SDPA over the KV rows the attention kernel
+              reads; null for the packed 4-bit products, which no single
+              call computes; there `bf16_matmul_ms` times `x @ w` on a
+              pre-decoded bf16 weight, which reads four times the bytes)
+              and the bound (max of bytes / 3.35 TB/s and operations / 989
+              TFLOP/s bf16). The four redesigned kernels -- the split-K
+              wgmma `int8_matmul`, `nf4_matmul` and wide `int4_matmul`, and
+              the cluster-joined `tree_attention` -- are also held against
+              their earlier versions (`*_strip`, `tree_attention_simt`;
+              `old_ms`, timed in turns: new, old, old, new) and must give
+              equal bits on two launches; the three matmuls are checked at
+              ragged shapes too;
   4. serve / lossless             7B int8 base, int8 thin draft;
      serve_13b_mixed / lossless_13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
@@ -32,11 +36,14 @@ Phases, one JSON line each on stdout:
      run, and so does a first spec/AR divergence at a position whose AR
      top-2 logit gap is >= 0.05. One prefill is counted on its own, so
      the launches per round are the serve run's count less its prefills over
-     its rounds; they must equal what the code implies (305 / 41 / 9 at 7B).
-     Each serve line carries `round_ms`: per kernel, the sum over the shapes
-     of one speculative round of those launches x measured ms, beside the
-     same sum of bounds.
-Then the `kernels` line and, last, {"ok": true, "device": {...}}. Per-shape
+     its rounds; they must equal what the code implies (305 / 41 / 9 at 7B),
+     and the comparison-only entry points must not launch at all. Each
+     serve line carries `round_ms`: per kernel, the sum over the shapes of
+     one speculative round of those launches x measured ms, beside the same
+     sum of bounds and, for a redesigned kernel, of its old version's ms.
+Then the `kernels` line (each kernel of the path; a redesigned one carries
+its comparison-only old entry point under "old") and, last, {"ok": true,
+"device": {...}}. Per-shape
 details go to chiprun_out/chip_smoke_kernels.jsonl. Any failure raises: no
 phase catches an error and still exits 0.
 """
@@ -79,9 +86,9 @@ INT8_SHAPES = (
 BASE_7B = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
            ("w_down", 11008, 4096))
 # packed 4-bit shapes: nf4 on the 7B nf4 path (base at M 1 / 64 / 81, the
-# thin draft's five at M 9 / 10); int4 strip kernel on 13B attention at
-# prefill and verify width; int4 split-K kernel on 13B attention at M 1 / 9
-# / 32 and on the 7B w_down (half-In 5504 has no divisor that is a multiple
+# thin draft's five at M 9 / 10); int4 wgmma kernel on 13B attention at
+# prefill and verify width; int4 small-M split-K kernel on 13B attention at
+# M 1 / 9 / 32 and on the 7B w_down (half-In 5504 has no divisor that is a multiple
 # of 256, the shape the TPU kernel declines)
 NF4_SHAPES = (
     [(f"base_{w}_M{m}", m, i, o) for m in (1, 64, 81) for w, i, o in BASE_7B]
@@ -89,7 +96,7 @@ NF4_SHAPES = (
        for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
                        ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
                        ("w_out", 1024, 4096))])
-# ragged shapes for the two split-K wgmma kernels: Out a multiple of 32 but
+# ragged shapes for the three split-K wgmma kernels: Out a multiple of 32 but
 # not of 64 (1056) and of 64 but not of 128 (1088), In = 64 (one block), In /
 # 64 prime (13, 37: a split count that does not divide), M around every
 # instantiated width
@@ -102,14 +109,18 @@ INT4_SMALLM_SHAPES = [("13b_wq_M1", 1, 5120, 5120),
                       ("13b_wq_M9", 9, 5120, 5120),
                       ("13b_wq_M32", 32, 5120, 5120),
                       ("7b_w_down_M1", 1, 11008, 4096)]
-# attention: (name, nq, nkv, T, S, n_valid)
+# attention: (name, nq, nkv, T, S, n_valid); "late": a verify round past 256
+# live rows (prompt 64 + up to 128 committed + 81 tree rows), which the later
+# rounds of every request reach
 ATTN_SHAPES = [("verify_T81", 32, 32, 81, 512, 64 + 64 + 81),
+               ("verify_T81_late", 32, 32, 81, 512, 64 + 128 + 81),
                ("verify_T96", 32, 32, 96, 512, 64 + 64 + 96),
                ("prefill_T64", 32, 32, 64, 512, 64),
                ("ar_T1", 32, 32, 1, 512, 200),
                ("draft_ctx_T9", 8, 8, 9, 512, 150),
                ("beam_T10", 8, 8, 10, 512, 150 + 80),
                ("13b_verify_T81", 40, 40, 81, 512, 64 + 64 + 81),
+               ("13b_verify_T81_late", 40, 40, 81, 512, 64 + 128 + 81),
                ("13b_prefill_T64", 40, 40, 64, 512, 64),
                ("13b_ar_T1", 40, 40, 1, 512, 200)]
 # head top-k: (name, T, H)
@@ -126,6 +137,11 @@ REPLACES = {
     "int4_matmul": "flowspec_tpu/ops/quant_matmul.py:144",
     "int4_matmul_smallm": "flowspec_tpu/ops/quant_matmul.py:203",
 }
+# the earlier version each redesigned kernel is timed against: an entry
+# point of the same library, for comparison only
+OLD = {"int8_matmul": "int8_matmul_strip", "nf4_matmul": "nf4_matmul_strip",
+       "int4_matmul": "int4_matmul_strip",
+       "tree_attention": "tree_attention_simt"}
 # configurations served: (tag, model, quant, requests, new tokens), then the
 # kernels whose launch count must be > 0 on generate, and on generate_ar
 CONFIGS = {
@@ -180,23 +196,23 @@ def flush_l2(buf) -> None:
     buf.view(torch.int32).sum()
 
 
-def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events around each launch;
-    `flush` (a large buffer) is read before each (`flush_l2`) so weights come
-    from HBM, not L2, as they do on the decode path. A few milliseconds of device work
-    are queued first, so the host runs ahead of the device for the whole
-    loop and an event pair never spans the host's time to issue the call."""
+    `flush` (a large buffer) is read before each (`flush_l2`) so weights and
+    KV rows come from HBM, not L2, as they do on the decode path, where a
+    whole layer's weights pass between two calls. A few milliseconds of
+    device work are queued first, so the host runs ahead of the device for
+    the whole loop and an event pair never spans the host's time to issue
+    the call."""
     import torch
     for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    if flush is not None:
-        for _ in range(HEAD_START):
-            flush_l2(flush)
+    for _ in range(HEAD_START):
+        flush_l2(flush)
     for s, e in ev:
-        if flush is not None:
-            flush_l2(flush)
+        flush_l2(flush)
         s.record()
         fn()
         e.record()
@@ -220,15 +236,18 @@ def matmul_bound(kind: str, m: int, n_in: int, n_out: int):
     return bound_ms(n_bytes + m * (n_in + n_out) * 2, 2.0 * m * n_in * n_out)
 
 
-def _matmul_row(kernel, fn, strip, plain, x, q, s, shape, flush, library):
+def _matmul_row(kernel, fn, old, plain, x, q, s, shape, flush, library,
+                counter=None):
     """One dequant-matmul at one shape: against its plain version, and for a
-    kernel with an earlier strip version also against that, with equal bits
-    on two launches; timed when `flush` is given. Raises on a disagreement."""
+    redesigned kernel also against its old version, with equal bits on two
+    launches; timed when `flush` is given. `counter` is the wrapper whose
+    count `fn` raises (default `fn`). Raises on a disagreement."""
     import torch
     name, m, n_in, n_out = shape
-    before = fn.launches
+    counter = counter or fn
+    before = counter.launches
     got = fn(x, q, s)
-    if fn.launches != before + 1:
+    if counter.launches != before + 1:
         raise AssertionError(f"{kernel} did not launch at {name}")
     want = plain(x, q, s)
     torch.cuda.synchronize()
@@ -244,16 +263,16 @@ def _matmul_row(kernel, fn, strip, plain, x, q, s, shape, flush, library):
     row = {"kernel": kernel, "shape": name, "M": m, "In": n_in, "Out": n_out,
            "max_abs_err": float(err.max()), "tolerance": TOLERANCE, "ok": ok,
            "bound_ms": b, "bound_by": by}
-    if strip is not None:
-        ok_strip, err_strip = close(got, strip(x, q, s))
-        row["vs_strip_max_abs_err"] = float(err_strip.max())
+    if old is not None:
+        ok_old, err_old = close(got, old(x, q, s))
+        row["vs_old_max_abs_err"] = float(err_old.max())
         row["equal_bits"] = bool(torch.equal(got, fn(x, q, s)))
-        ok = row["ok"] = ok and ok_strip and row["equal_bits"]
+        ok = row["ok"] = ok and ok_old and row["equal_bits"]
     if flush is not None:
-        if strip is not None:
+        if old is not None:
             t = [time_ms(lambda: f(x, q, s), flush)
-                 for f in (fn, strip, strip, fn)]
-            row["ms"], row["strip_ms"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+                 for f in (fn, old, old, fn)]
+            row["ms"], row["old_ms"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
             row["runs_ms"] = t
         else:
             row["ms"] = time_ms(lambda: fn(x, q, s), flush)
@@ -281,7 +300,7 @@ def check_int8(dev, gen, flush, details):
             "int8_matmul", qm.int8_matmul, qm.int8_matmul_strip,
             qm.int8_matmul_plain, x, q, s, shape, flush if timed else None,
             lambda: (x @ q.to(torch.bfloat16)) * s)
-        row["plan"] = qm.matmul_plan(m, n_in, n_out, False)._asdict()
+        row["plan"] = qm.matmul_plan(m, n_in, n_out, "int8")._asdict()
         details.append(row)
         if timed:
             rows[name] = row
@@ -290,15 +309,18 @@ def check_int8(dev, gen, flush, details):
 
 def check_packed4(kernel, shapes, dev, gen, flush, details):
     """One of the packed 4-bit kernels (`nf4_matmul`, `int4_matmul`,
-    `int4_matmul_smallm`) at `shapes` against its plain version; nf4 also
-    against its strip version and at the ragged shapes."""
+    `int4_matmul_smallm`) at `shapes` against its plain version; the two
+    wgmma ones also against their strip versions and at the ragged shapes
+    (int4 through `int4_matmul_wide`, its wgmma kernel at any M)."""
     import torch
     from flowspec_tpu_torch.ops import quant_matmul as qm
     fn = getattr(qm, kernel)
     nf4 = kernel == "nf4_matmul"
+    fmt = {"nf4_matmul": "nf4", "int4_matmul": "int4"}.get(kernel)
     plain = qm.nf4_matmul_plain if nf4 else qm.int4_matmul_plain
+    old = getattr(qm, OLD[kernel]) if kernel in OLD else None
     rows = {}
-    for shape in list(shapes) + (RAGGED_SHAPES if nf4 else []):
+    for shape in list(shapes) + (RAGGED_SHAPES if fmt else []):
         name, m, n_in, n_out = shape
         x = torch.randn((1, m, n_in), generator=gen, device=dev).to(
             torch.bfloat16)
@@ -307,11 +329,12 @@ def check_packed4(kernel, shapes, dev, gen, flush, details):
         s = torch.full((n_in // 64, n_out),
                        n_in ** -0.5 / (1.0 if nf4 else 7.0), device=dev)
         timed = shape not in RAGGED_SHAPES
-        row = _matmul_row(kernel, fn, qm.nf4_matmul_strip if nf4 else None,
-                          plain, x, q, s, shape, flush if timed else None,
-                          None)
-        if nf4:
-            row["plan"] = qm.matmul_plan(m, n_in, n_out, True)._asdict()
+        call = (qm.int4_matmul_wide if kernel == "int4_matmul"
+                and m <= qm.SMALL_M else fn)
+        row = _matmul_row(kernel, call, old, plain, x, q, s, shape,
+                          flush if timed else None, None, counter=fn)
+        if fmt:
+            row["plan"] = qm.matmul_plan(m, n_in, n_out, fmt)._asdict()
         if timed:
             w_bf16 = qm._decode4_bf16(q, s, nf4)
             row["bf16_matmul_ms"] = time_ms(lambda: x @ w_bf16, flush,
@@ -329,50 +352,80 @@ def check_packed4(kernel, shapes, dev, gen, flush, details):
     return rows
 
 
-def check_attention(dev, gen, details):
+def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128):
+    """q, k, v (bf16) and the (T, S) f32 bias of one ATTN_SHAPES row:
+    context [0, n_valid - t) visible, a random tree mask (diagonal always
+    live) over the last t live rows, -1e9 past n_valid."""
+    import torch
+    q = torch.randn((1, nq, t, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((1, nkv, s_max, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((1, nkv, s_max, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ctx = n_valid - t
+    tree = (torch.rand((t, t), generator=gen, device=dev) < 0.3).tril()
+    tree |= torch.eye(t, dtype=torch.bool, device=dev)
+    bias = torch.full((t, s_max), -1e9, device=dev)
+    bias[:, :ctx] = 0.0
+    bias[:, ctx:n_valid] = torch.where(tree, 0.0, -1e9)
+    return q, k, v, bias
+
+
+def check_attention(dev, gen, flush, details):
+    """Tree attention at every ATTN_SHAPES row: the kernel against its plain
+    version and its old version (`tree_attention_simt`), equal bits on two
+    launches; new and old timed in turns (new, old, old, new), plain and
+    SDPA (over the KV rows the kernel reads, the same function) timed the
+    same way, all with the L2 flushed before each launch."""
     import torch
     import torch.nn.functional as F
     from flowspec_tpu_torch.ops.tree_attention import (
-        live_keys, tree_attention, tree_attention_plain)
+        attention_plan, kernel_keys, live_keys, tree_attention,
+        tree_attention_plain, tree_attention_simt)
     rows = {}
     d = 128
     for name, nq, nkv, t, s_max, n_valid in ATTN_SHAPES:
-        q = torch.randn((1, nq, t, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        k = torch.randn((1, nkv, s_max, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        v = torch.randn((1, nkv, s_max, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        # context [0, n_valid - t) visible, a random tree mask (diagonal
-        # always live) over the last t live rows, -1e9 past n_valid
-        ctx = n_valid - t
-        tree = (torch.rand((t, t), generator=gen, device=dev) < 0.3).tril()
-        tree |= torch.eye(t, dtype=torch.bool, device=dev)
-        bias = torch.full((t, s_max), -1e9, device=dev)
-        bias[:, :ctx] = 0.0
-        bias[:, ctx:n_valid] = torch.where(tree, 0.0, -1e9)
+        q, k, v, bias = attention_inputs(gen, dev, nq, nkv, t, s_max,
+                                         n_valid, d)
         n_keys = live_keys(s_max, n_valid)
+        n_read = kernel_keys(s_max, n_valid)
+        before = tree_attention.launches
         got = tree_attention(q, k, v, bias, n_valid)
+        again = tree_attention(q, k, v, bias, n_valid)
+        if tree_attention.launches != before + 2:
+            raise AssertionError(f"tree_attention did not launch at {name}")
+        old = tree_attention_simt(q, k, v, bias, n_valid)
         want = tree_attention_plain(q, k, v, bias, n_keys)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        ok = err <= 2e-2
+        err_old = float((got.float() - old.float()).abs().max())
+        equal = bool(torch.equal(got, again))
+        ok = err <= 2e-2 and err_old <= 2e-2 and equal
         b, by = bound_ms(
             2 * nkv * n_valid * d * 2 + 2 * nq * t * d * 2 + t * n_valid * 4,
             4.0 * nq * t * n_valid * d)
-        kr = k.repeat_interleave(nq // nkv, dim=1)
-        vr = v.repeat_interleave(nq // nkv, dim=1)
-        mask = bias.to(torch.bfloat16)
+        kr = k[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
+        vr = v[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
+        mask = bias[:, :n_read].to(torch.bfloat16).contiguous()
+        runs = [time_ms(lambda: f(q, k, v, bias, n_valid), flush)
+                for f in (tree_attention, tree_attention_simt,
+                          tree_attention_simt, tree_attention)]
         row = {"kernel": "tree_attention", "shape": name, "nq": nq,
                "nkv": nkv, "T": t, "S": s_max, "n_valid": n_valid,
-               "max_abs_err": err, "tolerance": "2e-2 abs (bf16 outputs)",
-               "ok": ok,
-               "ms": time_ms(lambda: tree_attention(q, k, v, bias, n_valid)),
+               "n_keys_read": n_read, "old_n_keys_read": n_keys,
+               "plan": attention_plan(nkv, nq // nkv, t, n_read)._asdict(),
+               "max_abs_err": err, "vs_old_max_abs_err": err_old,
+               "equal_bits": equal,
+               "tolerance": "2e-2 abs (bf16 outputs)", "ok": ok,
+               "ms": (runs[0] + runs[3]) / 2, "old_ms": (runs[1] + runs[2]) / 2,
+               "runs_ms": runs,
                "plain_ms": time_ms(
-                   lambda: tree_attention_plain(q, k, v, bias, n_keys)),
+                   lambda: tree_attention_plain(q, k, v, bias, n_keys), flush,
+                   iters=5),
                "library_ms": time_ms(
                    lambda: F.scaled_dot_product_attention(
-                       q, kr, vr, attn_mask=mask)),
+                       q, kr, vr, attn_mask=mask), flush, iters=10),
                "bound_ms": b, "bound_by": by}
         details.append(row)
         rows[name] = row
@@ -481,14 +534,20 @@ def make_engine(dev, model: str = "7b", quant: str = "int8",
 
 
 def launch_counts():
-    """The wrapper that carries each kernel's launch count."""
+    """The wrapper that carries each kernel's launch count, the
+    comparison-only entry points included (they must count 0 on a serve
+    path)."""
     from flowspec_tpu_torch.ops import quant_matmul as qm
+    from flowspec_tpu_torch.ops import tree_attention as ta
     from flowspec_tpu_torch.ops.head_topk import head_topk
-    from flowspec_tpu_torch.ops.tree_attention import tree_attention
-    return {"int8_matmul": qm.int8_matmul, "tree_attention": tree_attention,
+    return {"int8_matmul": qm.int8_matmul, "tree_attention": ta.tree_attention,
             "head_topk": head_topk, "nf4_matmul": qm.nf4_matmul,
             "int4_matmul": qm.int4_matmul,
-            "int4_matmul_smallm": qm.int4_matmul_smallm}
+            "int4_matmul_smallm": qm.int4_matmul_smallm,
+            "int8_matmul_strip": qm.int8_matmul_strip,
+            "nf4_matmul_strip": qm.nf4_matmul_strip,
+            "int4_matmul_strip": qm.int4_matmul_strip,
+            "tree_attention_simt": ta.tree_attention_simt}
 
 
 def expected_per_round(eng) -> dict:
@@ -516,7 +575,7 @@ def expected_per_round(eng) -> dict:
 def round_sums(eng, kernel_rows, per_round) -> dict:
     """Per kernel, one speculative round of `eng` as the sum over its shapes
     of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
-    "strip_ms" (kernels with a strip version)}}. A base verify pass runs the
+    "old_ms" (redesigned kernels: their old version's ms)}}. A base verify pass runs the
     7 projections and one attention per layer at node_cap rows; the draft
     runs depth + 1 passes (the context pass, then one per tree level) of 9
     projections, one attention and one head top-k at top_k rows (the root's
@@ -562,8 +621,8 @@ def round_sums(eng, kernel_rows, per_round) -> dict:
         o["launches"] += n
         o["ms"] += n * row["ms"]
         o["bound_ms"] += n * row["bound_ms"]
-        if "strip_ms" in row:
-            o["strip_ms"] = o.get("strip_ms", 0.0) + n * row["strip_ms"]
+        if "old_ms" in row:
+            o["old_ms"] = o.get("old_ms", 0.0) + n * row["old_ms"]
     counted = {k: o["launches"] for k, o in out.items()}
     if counted != {k: n for k, n in per_round.items() if n}:
         raise AssertionError(f"round_sums spreads {counted} launches over "
@@ -672,6 +731,22 @@ def serve_config(tag, dev, counters, kernel_rows):
     return {n: launches[n] + ar_launches[n] for n in counters}, sums
 
 
+def old_entry(kernel, rows, launches):
+    """The "old" record of a redesigned kernel's line in `kernels`: its
+    comparison-only entry point, its time at the kernel's main shape, its
+    largest deviation from the new kernel, and its launches on the serve
+    paths (0); None for a kernel without one."""
+    if kernel not in OLD:
+        return None
+    main = rows[MAIN[kernel]]
+    return {"name": OLD[kernel], "route": "cuda",
+            "source": f"flowspec_tpu_torch/csrc/{kernel}.cu",
+            "comparison_only": True, "launches": launches[OLD[kernel]],
+            "ms": main["old_ms"],
+            "max_abs_err_vs_new": max(r["vs_old_max_abs_err"]
+                                      for r in rows.values())}
+
+
 def top2_gap(eng, prefix) -> float:
     """The base model's top-2 logit gap after `prefix` (a fresh prefill)."""
     import torch
@@ -725,7 +800,7 @@ def main() -> int:
     details = []
     kernel_rows = {
         "int8_matmul": check_int8(dev, gen, flush, details),
-        "tree_attention": check_attention(dev, gen, details),
+        "tree_attention": check_attention(dev, gen, flush, details),
         "head_topk": check_head(dev, gen, flush, details),
         "nf4_matmul": check_packed4("nf4_matmul", NF4_SHAPES, dev, gen,
                                     flush, details),
@@ -751,7 +826,7 @@ def main() -> int:
                                                  kernel_rows)
         torch.cuda.empty_cache()
     launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in _build.KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"no serve path launched: {missing}")
 
@@ -767,11 +842,13 @@ def main() -> int:
          "bound_by": kernel_rows[n][MAIN[n]]["bound_by"],
          "library_ms": kernel_rows[n][MAIN[n]]["library_ms"],
          "shape": MAIN[n],
-         # the strip version's time in the same run (int8, nf4), else null
-         "earlier_ms": kernel_rows[n][MAIN[n]].get("strip_ms"),
          "launches_by_config": {t: c[n] for t, c in by_config.items()},
-         # per configuration: one round's launches x ms, bounds, strip ms
-         "round_ms": {t: v[n] for t, v in sums.items() if n in v}}
+         # per configuration: one round's launches x ms, bounds, old ms
+         "round_ms": {t: v[n] for t, v in sums.items() if n in v},
+         # a redesigned kernel's earlier version, an entry point of the same
+         # library for comparison only (0 launches on every serve path),
+         # timed in turns with it in this run
+         "old": old_entry(n, kernel_rows[n], launches)}
         for n in _build.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

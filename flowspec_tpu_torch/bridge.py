@@ -8,6 +8,11 @@ weight is a dict {"kind", "q", "scale"} with kind "int8", "nf4" or "int4":
 the two packed 4-bit containers have the same fields, dtypes and shapes, so
 the caller, who knows the JAX class, names the kind. This module imports no
 JAX: the tests do the JAX -> numpy step.
+
+Every function builds on the engine's device: `cuda` unless the caller
+names another (`device="cpu"` for the plain PyTorch versions of the
+kernels); without a card the default raises (`runtime/engine.py
+resolve_device`).
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ from flowspec_tpu_torch.draft.eagle import EagleParams
 from flowspec_tpu_torch.models.kv_cache import KVCache
 from flowspec_tpu_torch.models.llama import LlamaLayerParams, LlamaParams
 from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+from flowspec_tpu_torch.runtime.engine import resolve_device
 
 CONTAINERS = {"int8": Int8Tensor, "nf4": NF4Tensor, "int4": Int4Tensor}
 
 
-def tensor(a, device="cpu") -> torch.Tensor:
+def tensor(a, device=None) -> torch.Tensor:
     """numpy (incl. ml_dtypes bfloat16) -> torch on `device`, always a copy:
     the port updates caches in place, and arrays from JAX are read-only."""
+    device = resolve_device(device)
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(
@@ -33,7 +40,7 @@ def tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def weight(w, device="cpu"):
+def weight(w, device=None):
     """A plain array, or a {"kind", "q", "scale"} dict -> its container. A
     dict without "kind" is taken as int8 only if q is int8; a kind-less
     uint8 q could be nf4 or int4 and is refused (never guessed from values).
@@ -55,11 +62,13 @@ def weight(w, device="cpu"):
                          f"{sorted(CONTAINERS)}")
     if q.dtype != (np.int8 if kind == "int8" else np.uint8):
         raise TypeError(f"bridge: {kind} container with {q.dtype} q")
+    device = resolve_device(device)
     return CONTAINERS[kind](q=tensor(q, device),
                             scale=tensor(w["scale"], device))
 
 
-def llama_params(d: dict, device="cpu") -> LlamaParams:
+def llama_params(d: dict, device=None) -> LlamaParams:
+    device = resolve_device(device)
     lp = d["layers"]
     layers = LlamaLayerParams(**{
         f: weight(lp.get(f), device)
@@ -70,10 +79,12 @@ def llama_params(d: dict, device="cpu") -> LlamaParams:
                        lm_head=tensor(d["lm_head"], device))
 
 
-def eagle_params(d: dict, device="cpu") -> EagleParams:
+def eagle_params(d: dict, device=None) -> EagleParams:
+    device = resolve_device(device)
     return EagleParams(**{k: weight(v, device) for k, v in d.items()})
 
 
-def kv_cache(d: dict, device="cpu") -> KVCache:
+def kv_cache(d: dict, device=None) -> KVCache:
+    device = resolve_device(device)
     return KVCache(k=tensor(d["k"], device), v=tensor(d["v"], device),
                    length=int(d["length"]))

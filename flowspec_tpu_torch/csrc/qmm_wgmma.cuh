@@ -1,6 +1,6 @@
 // Skeleton of the weight-only dequant-matmuls redesigned for Hopper
-// (int8_matmul.cu, nf4_matmul.cu): split-K over the whole card, a deep
-// cp.async ring in dynamic shared memory, and warpgroup tensor-core products
+// (int8_matmul.cu, nf4_matmul.cu, int4_matmul.cu): split-K over the whole
+// card, a deep cp.async ring in dynamic shared memory, and warpgroup tensor-core products
 // (`wgmma`) on the transposed problem with the weight as the register operand.
 //
 //   partial[split][m][n] = sum over the split's 64-row blocks of x[m][k] * w[k][n]
@@ -16,8 +16,9 @@
 // so 81 rows cost 96 and one row costs 16, and puts the weight where `wgmma`
 // accepts registers: int8 -> bf16 (exact), or packed byte -> two codes
 // -> one bf16 multiply by the block scale (the operand of `decode_pair` in
-// packed4_mma.cuh, bit for bit), happens in registers and goes straight to
-// the tensor cores. x is the shared-memory operand: a tile is N rows of 64 k
+// packed4_mma.cuh, bit for bit; nf4 looks the pair up in a table, int4 builds
+// it with integer ops, `i4_pair_bf16`), happens in registers and goes straight
+// to the tensor cores. x is the shared-memory operand: a tile is N rows of 64 k
 // (128 bytes), which is x's own row-major order ("K-major"), stored with the
 // 128-byte swizzle the descriptor names.
 //
@@ -209,10 +210,28 @@ __device__ __forceinline__ uint32_t i8_pair_bf16(uint32_t lo, uint32_t hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Byte j of `w` (an int4 pair: high nibble row k, low nibble row k+1) times
+// the column's bf16 block scale s2 -> bf16x2, row k in the low half: the
+// operand of `decode_pair<false>` bit for bit, without its two int -> bf16
+// conversions. One prmt puts the high nibble (from w >> 4) in the low half
+// and the low nibble in the high half; the mask keeps the two nibbles n and
+// the or makes each half the bf16 value 128 + n (0x4300 | n: exponent 2^7,
+// mantissa step 1). Subtracting (136, 136) leaves n - 8 exactly, and one
+// `__hmul2` by the scale rounds once, as `decode_pair` does.
+__device__ __forceinline__ uint32_t i4_pair_bf16(uint32_t w, int j,
+                                                 __nv_bfloat162 s2) {
+  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+  const uint32_t p = (__byte_perm(w >> 4, w, sel) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t c136 = 0x43084308u;
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p),
+                             *reinterpret_cast<const __nv_bfloat162*>(&c136));
+  v = __hmul2(v, s2);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // FMT: QMM_INT8 (q (In, Out) int8, scale (Out,) applied by the epilogue or
 // the reduce pass), QMM_NF4 / QMM_INT4 (q (In/2, Out) packed, scale (In/64,
-// Out) folded into the operand). QMM_INT4 is a sketch for the int4 kernel's
-// redesign: nothing instantiates it, so it has never been compiled or run. N: rows of x a block covers (the wgmma
+// Out) folded into the operand). N: rows of x a block covers (the wgmma
 // width). STAGES: ring slots; STAGES - 2 blocks are in flight behind the one
 // being decoded. Requires In % 64 == 0, Out % bn == 0, bn in {32, 64, 128},
 // 16-byte aligned x, q, scale, partial and y, blockDim.x == 128 and
@@ -340,16 +359,15 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
       }
       // byte j of a word: column 4g + j, i.e. tile j / 2, register j % 2
       // (+ 2 for the packed row four further on); the operand is
-      // `decode_pair`'s, bit for bit: (code[hi], code[lo]) * (s, s) in bf16
+      // `decode_pair`'s, bit for bit: (value(hi), value(lo)) * (s, s) in bf16
       auto pair = [&](uint32_t w, int j) -> uint32_t {
-        const uint32_t b = (w >> (8 * j)) & 0xFF;
         if constexpr (FMT == QMM_NF4) {
-          const uint32_t v = lutl[b << 3];
+          const uint32_t v = lutl[((w >> (8 * j)) & 0xFF) << 3];
           __nv_bfloat162 r =
               __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v), s2[j]);
           return *reinterpret_cast<uint32_t*>(&r);
         } else {
-          return decode_pair<false>(static_cast<uint8_t>(b), s2[j], nullptr);
+          return i4_pair_bf16(w, j, s2[j]);
         }
       };
 #pragma unroll

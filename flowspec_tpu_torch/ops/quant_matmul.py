@@ -16,11 +16,12 @@ the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The three
 kernels compute this one function and differ only in the order of the f32
 sum; `int4_matmul` sends calls of at most 32 rows to the split-K kernel.
 
-`int8_matmul` and `nf4_matmul` run the split-K `wgmma` kernels
-(`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan` gives for the shape: column
-strips x K splits over the whole card, f32 partials added in ascending
-order, so the bits are the same on every launch. `int8_matmul_strip` and
-`nf4_matmul_strip` are the earlier one-strip-per-block kernels, kept for
+`int8_matmul`, `nf4_matmul` and `int4_matmul` (above 32 rows) run the
+split-K `wgmma` kernels (`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan`
+gives for the shape and format: column strips x K splits over the whole
+card, f32 partials added in ascending order, so the bits are the same on
+every launch. `int8_matmul_strip`, `nf4_matmul_strip` and
+`int4_matmul_strip` are the earlier one-strip-per-block kernels, kept for
 comparison only: nothing on the serving path calls them.
 
 On a CUDA tensor every wrapper launches its kernel (bf16 activations) or
@@ -49,10 +50,11 @@ WGMMA_WIDTHS = (16, 64, 96, 128)   # rows of x a block covers (instantiated)
 # formats (a ring of 4 measured like one of 6); stages - 2 tiles are in flight
 WGMMA_STAGES = {16: 6, 64: 6, 96: 5, 128: 4}
 NF4_LUT_BYTES = 8192          # the nf4 kernel's table of decoded byte pairs
+FORMATS = ("int8", "nf4", "int4")
 
 
 class MatmulPlan(NamedTuple):
-    """How `int8_matmul` / `nf4_matmul` cut one product (M, In) x (In, Out):
+    """How the wgmma kernels (int8, nf4, int4) cut one product (M, In) x (In, Out):
     `bn` columns a block, `n` rows of x a block (the wgmma width; M > 128
     runs ceil(M/128) row tiles), `ksplit` K splits of `chunk` 64-row blocks
     each (the last may be shorter, none is empty), a ring of `stages` tiles
@@ -70,18 +72,21 @@ class MatmulPlan(NamedTuple):
         return (self.ksplit, m, n_out) if self.ksplit > 1 else None
 
 
-def smem_bytes(n: int, stages: int, packed4: bool) -> int:
-    """Dynamic shared memory of one block: `stages` x (the x tile of n rows
-    of 64 bf16 + the weight tile of 64 contraction rows x 128 columns: int8
-    8 KB, packed 4-bit 4 KB and one 512-byte scale row), the nf4 table, and
-    1 KB to align the first tile."""
-    per_stage = n * 128 + (4096 + 512 if packed4 else 8192)
-    return stages * per_stage + (NF4_LUT_BYTES if packed4 else 0) + 1024
+def smem_bytes(n: int, stages: int, fmt: str) -> int:
+    """Dynamic shared memory of one block for format `fmt`: `stages` x (the
+    x tile of n rows of 64 bf16 + the weight tile of 64 contraction rows x
+    128 columns: int8 8 KB, packed 4-bit 4 KB and one 512-byte scale row),
+    the nf4 table (int4 decodes without one), and 1 KB to align the first
+    tile (`QmmTile<FMT>::smem_bytes` in csrc/qmm_wgmma.cuh)."""
+    if fmt not in FORMATS:
+        raise ValueError(f"format {fmt!r} not in {FORMATS}")
+    per_stage = n * 128 + (8192 if fmt == "int8" else 4096 + 512)
+    return stages * per_stage + (NF4_LUT_BYTES if fmt == "nf4" else 0) + 1024
 
 
 @lru_cache(maxsize=None)
-def matmul_plan(m: int, n_in: int, n_out: int, packed4: bool) -> MatmulPlan:
-    """The plan for M = m rows. Strips of 128 columns (64 / 32 where Out is
+def matmul_plan(m: int, n_in: int, n_out: int, fmt: str) -> MatmulPlan:
+    """The plan for M = m rows of format `fmt`. Strips of 128 columns (64 / 32 where Out is
     ragged); the narrowest instantiated width >= M with its ring of
     `WGMMA_STAGES`; as many K splits as bring strips x splits x row tiles to
     BLOCKS_PER_SM = 2 blocks on each SM (one wave, whatever the shape;
@@ -98,7 +103,7 @@ def matmul_plan(m: int, n_in: int, n_out: int, packed4: bool) -> MatmulPlan:
     want = max(1, (N_SMS * BLOCKS_PER_SM) // tiles)
     chunk = -(-nkb // min(want, nkb))
     return MatmulPlan(bn=bn, n=n, ksplit=-(-nkb // chunk), chunk=chunk,
-                      stages=stages, smem=smem_bytes(n, stages, packed4))
+                      stages=stages, smem=smem_bytes(n, stages, fmt))
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -138,16 +143,16 @@ def _check_launch(name, x, q, scale):
                          "q and scale")
 
 
-def _launch_planned(wrapper, x, q, scale, packed4: bool, ptrs=()):
-    """Launch the wgmma kernel named like `wrapper` by `matmul_plan` and
-    count it. The C entry point takes (x, q, scale, *ptrs, partial, y, M,
+def _launch_planned(wrapper, x, q, scale, fmt: str, ptrs=()):
+    """Launch the wgmma kernel named like `wrapper` by `matmul_plan` for
+    format `fmt` and count it. The C entry point takes (x, q, scale, *ptrs, partial, y, M,
     In, Out, bn, n, ksplit, chunk, stages, stream)."""
     name = wrapper.__name__
     _check_launch(name, x, q, scale)
     x = _build.aligned16(x)
     b, t, n_in = x.shape
     n_out = q.shape[1]
-    plan = matmul_plan(b * t, n_in, n_out, packed4)
+    plan = matmul_plan(b * t, n_in, n_out, fmt)
     shape = plan.scratch_shape(b * t, n_out)
     partial = (torch.empty(shape, dtype=torch.float32, device=x.device)
                if shape else None)
@@ -171,7 +176,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     _check_int8("int8_matmul", x, q, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
-    return _launch_planned(int8_matmul, x, q, scale, packed4=False)
+    return _launch_planned(int8_matmul, x, q, scale, "int8")
 
 
 int8_matmul.launches = 0
@@ -296,7 +301,7 @@ def nf4_matmul(x: torch.Tensor, q: torch.Tensor,
     _check_packed4("nf4_matmul", x, q, scale)
     if x.device.type == "cpu":
         return nf4_matmul_plain(x, q, scale)
-    return _launch_planned(nf4_matmul, x, q, scale, packed4=True,
+    return _launch_planned(nf4_matmul, x, q, scale, "nf4",
                            ptrs=(_nf4_code_on(x.device),))
 
 
@@ -320,18 +325,42 @@ nf4_matmul_strip.launches = 0
 def int4_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x (B, T, In) @ Int4(q (In/2, Out) packed u8, scale (In/64, Out))
-    -> (B, T, Out). Calls of at most SMALL_M rows go to the split-K kernel
-    (`int4_matmul_smallm`), wider ones to the strip kernel; `launches`
-    counts the strip kernel only."""
+    -> (B, T, Out). Calls of at most SMALL_M rows go to the small-M
+    split-K kernel (`int4_matmul_smallm`), wider ones to the wgmma kernel;
+    `launches` counts the wgmma kernel only."""
     _check_packed4("int4_matmul", x, q, scale)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q, scale)
     if x.shape[0] * x.shape[1] <= SMALL_M:
         return int4_matmul_smallm(x, q, scale)
-    return _launch4(int4_matmul, x, q, scale)
+    return int4_matmul_wide(x, q, scale)
 
 
 int4_matmul.launches = 0
+
+
+def int4_matmul_wide(x: torch.Tensor, q: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """The wgmma kernel `int4_matmul` takes above SMALL_M rows, at any M
+    (the card checks hold it to its plain version at small M too); its
+    launches count as `int4_matmul`'s."""
+    _check_packed4("int4_matmul", x, q, scale)
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q, scale)
+    return _launch_planned(int4_matmul, x, q, scale, "int4")
+
+
+def int4_matmul_strip(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """The same product through the earlier strip kernel (one block per 32
+    or 64 columns, no split-K). For comparison only."""
+    _check_packed4("int4_matmul_strip", x, q, scale)
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q, scale)
+    return _launch4(int4_matmul_strip, x, q, scale, lib="int4_matmul")
+
+
+int4_matmul_strip.launches = 0
 
 
 def split_k(n_in: int, n_out: int) -> int:

@@ -4,29 +4,94 @@ version.
 Port of `flowspec_tpu/ops/tree_attention.py:31 _attn_kernel` / `:65
 tree_attention`, which also takes over the XLA length-aware path
 (`flowspec_tpu/models/llama.py:128 _attention_blocked`): given `n_valid`,
-the live KV rows, only the first ceil(n_valid / 256) blocks of 256 rows are
-read. Columns at or past n_valid must carry a -1e9 bias (every caller's
-bias does), so the rows skipped would have contributed exactly 0.
+the live KV rows, the plain version reads the first ceil(n_valid / 256)
+blocks of 256 rows and the kernel the first ceil(n_valid / 64) tiles of 64.
+Columns at or past n_valid must carry a -1e9 bias (every caller's bias
+does), so the rows skipped would have contributed exactly 0.
 
-On a CUDA tensor the wrapper launches `csrc/tree_attention.cu` (bf16) or
-raises; on a CPU tensor it runs `tree_attention_plain`.
+On a CUDA tensor `tree_attention` launches `csrc/tree_attention.cu` (bf16)
+by `attention_plan`: key splits of 64-key tiles, the splits of one (KV head,
+row tile) a thread-block cluster that joins them in shared memory.
+`tree_attention_simt` is the earlier kernel of the same library (one block
+per KV head and 32 query rows, CUDA cores), kept for comparison only:
+nothing on the serving path calls it. On a CPU tensor both run
+`tree_attention_plain`.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
 from flowspec_tpu_torch.ops import _build
 
 KV_BLOCK = 256
+KEY_TILE = 64        # keys a tile of the kernel
+MAX_SPLITS = 8       # blocks of one thread-block cluster (portable limit)
+MAX_WARPS = 6        # warps a block, 16 query rows each
+TILE_WARPS = 3       # warps a block while the grid stays one wave
+WAVE_BLOCKS = 360    # blocks of TILE_WARPS that run as one wave on an H100
 
 
 def live_keys(s_max: int, n_valid: int | None) -> int:
-    """KV rows read for `n_valid` live rows: whole 256-row blocks, at most
-    the allocation."""
+    """KV rows the plain version (and the earlier kernel) reads for
+    `n_valid` live rows: whole 256-row blocks, at most the allocation."""
     if n_valid is None:
         return s_max
     return min(s_max, -(-int(n_valid) // KV_BLOCK) * KV_BLOCK)
+
+
+def kernel_keys(s_max: int, n_valid: int | None) -> int:
+    """KV rows the kernel reads for `n_valid` live rows: whole 64-key tiles
+    (at least one), at most the allocation."""
+    if n_valid is None:
+        return s_max
+    return min(s_max, max(1, -(-int(n_valid) // KEY_TILE)) * KEY_TILE)
+
+
+class AttentionPlan(NamedTuple):
+    """How the kernel cuts one call: `warps` warps a block (16 query rows
+    each) over `row_tiles` tiles of a KV head's G*T rows; the `n_keys` keys
+    in `splits` runs of `tiles_per_split` 64-key tiles (the last may be
+    shorter, none is empty), the splits of one (head, row tile) one cluster;
+    `blocks` in all."""
+    warps: int
+    row_tiles: int
+    splits: int
+    tiles_per_split: int
+    n_keys: int
+    blocks: int
+
+
+@lru_cache(maxsize=None)
+def attention_plan(nkv: int, g: int, t: int, n_keys: int) -> AttentionPlan:
+    """One split per 64-key tile up to MAX_SPLITS (4 splits at 256 keys, 8 at
+    512), past that the fewest tiles a split that keep to MAX_SPLITS (a
+    split of one tile measured faster than two at every main-path shape).
+    Row tiles of at most TILE_WARPS x 16 rows, as even as the 16-row steps
+    allow (81 rows: two tiles of three warps, not 64 + 17); if that grid
+    would pass WAVE_BLOCKS (three such blocks an SM, on the ~120 SMs that
+    clusters of 4-5 blocks reach), tiles of up to MAX_WARPS instead, so the
+    grid stays one wave (the 13B late verify: 200 blocks of six warps where
+    400 of three would run as two waves; `tools/torch_attention_profile.py`
+    times the variants)."""
+    if nkv < 1 or g < 1 or t < 1 or n_keys < KEY_TILE or n_keys % KEY_TILE:
+        raise ValueError(f"attention_plan needs nkv, G, T >= 1 and n_keys a "
+                         f"positive multiple of {KEY_TILE}, got nkv={nkv} "
+                         f"G={g} T={t} n_keys={n_keys}")
+    tiles = n_keys // KEY_TILE
+    per = -(-tiles // MAX_SPLITS)
+    splits = -(-tiles // per)
+    m16 = -(-(g * t) // 16)
+    row_tiles = -(-m16 // TILE_WARPS)
+    if nkv * row_tiles * splits > WAVE_BLOCKS:
+        row_tiles = -(-m16 // MAX_WARPS)
+    warps = -(-m16 // row_tiles)
+    return AttentionPlan(warps=warps, row_tiles=row_tiles, splits=splits,
+                         tiles_per_split=per, n_keys=n_keys,
+                         blocks=nkv * row_tiles * splits)
 
 
 def tree_attention_plain(q, k_cache, v_cache, bias, n_keys: int):
@@ -46,51 +111,81 @@ def tree_attention_plain(q, k_cache, v_cache, bias, n_keys: int):
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
+def _check(name, q, k_cache, v_cache, bias):
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
+    b, nq, t, d = q.shape
+    _, nkv, s_max, dk = k_cache.shape
+    if b != 1 or k_cache.shape[0] != 1 or dk != d or nq % nkv:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)}")
+    if tuple(bias.shape) != (t, s_max) or bias.dtype != torch.float32:
+        raise ValueError(f"{name}: bias must be ({t}, {s_max}) f32, "
+                         f"got {tuple(bias.shape)} {bias.dtype}")
+
+
 def tree_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, bias: torch.Tensor,
                    n_valid: int | None = None) -> torch.Tensor:
     """q (1, nq, T, D); k/v_cache (1, nkv, S, D); bias (T, S) f32 additive;
     n_valid: live KV rows (None = all S). Returns (1, nq, T, D)."""
-    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"tree_attention: bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
-    b, nq, t, d = q.shape
-    _, nkv, s_max, dk = k_cache.shape
-    if b != 1 or k_cache.shape[0] != 1 or dk != d or nq % nkv:
-        raise ValueError(f"tree_attention: bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k_cache.shape)}")
-    if tuple(bias.shape) != (t, s_max) or bias.dtype != torch.float32:
-        raise ValueError(f"tree_attention: bias must be ({t}, {s_max}) f32, "
-                         f"got {tuple(bias.shape)} {bias.dtype}")
-    n_keys = live_keys(s_max, n_valid)
+    _check("tree_attention", q, k_cache, v_cache, bias)
+    s_max = k_cache.shape[2]
+    if q.device.type == "cpu":
+        return tree_attention_plain(q, k_cache, v_cache, bias,
+                                    live_keys(s_max, n_valid))
+    _, nq, t, _ = q.shape
+    nkv = k_cache.shape[1]
+    plan = attention_plan(nkv, nq // nkv, t, kernel_keys(s_max, n_valid))
+    return _launch(tree_attention, q, k_cache, v_cache, bias, plan.n_keys,
+                   (plan.warps, plan.splits, plan.tiles_per_split))
+
+
+tree_attention.launches = 0
+
+
+def tree_attention_simt(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, bias: torch.Tensor,
+                        n_valid: int | None = None) -> torch.Tensor:
+    """The same function through the earlier kernel (CUDA cores, one block
+    per KV head and 32 query rows, whole 256-row blocks). For comparison
+    only."""
+    _check("tree_attention_simt", q, k_cache, v_cache, bias)
+    n_keys = live_keys(k_cache.shape[2], n_valid)
     if q.device.type == "cpu":
         return tree_attention_plain(q, k_cache, v_cache, bias, n_keys)
-    return _launch(q, k_cache, v_cache, bias, n_keys)
+    return _launch(tree_attention_simt, q, k_cache, v_cache, bias, n_keys,
+                   (), lib="tree_attention")
 
 
-def _launch(q, k_cache, v_cache, bias, n_keys):
+tree_attention_simt.launches = 0
+
+
+def _launch(wrapper, q, k_cache, v_cache, bias, n_keys, plan_ints, lib=None):
+    """Launch the kernel named like `wrapper` and count it. The C entry
+    point takes (q, k, v, bias, out, nkv, G, T, S, D, n_keys, *plan_ints,
+    scale, stream); anything the kernel does not take raises here."""
+    name = wrapper.__name__
     _, nq, t, d = q.shape
     _, nkv, s_max, _ = k_cache.shape
     if not all(x.is_cuda and x.device == q.device
                for x in (k_cache, v_cache, bias)):
-        raise ValueError("tree_attention: inputs must share one CUDA device")
+        raise ValueError(f"{name}: inputs must share one CUDA device")
     if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
             or v_cache.dtype != torch.bfloat16:
-        raise TypeError("tree_attention kernel takes bf16 q/k/v")
+        raise TypeError(f"{name} kernel takes bf16 q/k/v")
     if d not in (64, 128) or s_max % KV_BLOCK:
-        raise ValueError(f"tree_attention kernel needs D in (64, 128) and "
+        raise ValueError(f"{name} kernel needs D in (64, 128) and "
                          f"S % {KV_BLOCK} == 0, got D={d} S={s_max}")
     q, k_cache, v_cache, bias = (_build.aligned16(x)
                                  for x in (q, k_cache, v_cache, bias))
     out = torch.empty_like(q)
-    fn = _build.bind("tree_attention", 5, 6, 1)
+    fn = _build.bind(name, 5, 6 + len(plan_ints), 1, lib=lib)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), nkv, nq // nkv, t, s_max, d,
-                 n_keys, d ** -0.5, _build.stream_ptr(q.device))
-    _build.check(err, "tree_attention")
-    tree_attention.launches += 1
+                 n_keys, *plan_ints, d ** -0.5, _build.stream_ptr(q.device))
+    _build.check(err, name)
+    wrapper.launches += 1
     return out
-
-
-tree_attention.launches = 0

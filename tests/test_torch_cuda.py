@@ -11,8 +11,10 @@ tests). On a machine with a card and the CUDA toolkit:
 use.) Tolerances: int8, nf4, int4 and attention outputs are bf16, compared
 at one bf16 rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head
 log-probs are f32 sums of H terms, compared at 1e-3. The split-K kernels
-(int8, nf4, small-M int4) must give equal bits on every launch (no atomics);
-int8 and nf4 are also held against their earlier strip kernels.
+(int8, nf4, int4, small-M int4) and the cluster-joined tree attention must
+give equal bits on every launch (no atomics); the redesigned kernels (int8,
+nf4, int4 wide, tree attention) are also held against their earlier
+versions (`*_strip`, `tree_attention_simt`), whose launches count apart.
 """
 
 import pytest
@@ -22,11 +24,12 @@ from flowspec_tpu_torch.ops.head_topk import (
     head_logits, head_topk, head_topk_int8, head_topk_plain)
 from flowspec_tpu_torch.ops.quant import Int8Tensor
 from flowspec_tpu_torch.ops.quant_matmul import (
-    int4_matmul, int4_matmul_plain, int4_matmul_smallm, int8_matmul,
-    int8_matmul_plain, int8_matmul_strip, matmul_plan, nf4_matmul,
-    nf4_matmul_plain, nf4_matmul_strip)
+    int4_matmul, int4_matmul_plain, int4_matmul_smallm, int4_matmul_strip,
+    int4_matmul_wide, int8_matmul, int8_matmul_plain, int8_matmul_strip,
+    matmul_plan, nf4_matmul, nf4_matmul_plain, nf4_matmul_strip)
 from flowspec_tpu_torch.ops.tree_attention import (
-    live_keys, tree_attention, tree_attention_plain)
+    attention_plan, kernel_keys, live_keys, tree_attention,
+    tree_attention_plain, tree_attention_simt)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,24 +112,33 @@ def _int8(gen, m, n_in, n_out):
     return x, q, s
 
 
-@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("kind", ["int8", "nf4", "int4"])
 @pytest.mark.parametrize("m,n_in,n_out", RAGGED + [
-    (1, 4096, 4096), (10, 8192, 1024), (64, 4096, 11008), (81, 11008, 4096)])
+    (1, 4096, 4096), (10, 8192, 1024), (64, 4096, 11008), (81, 11008, 4096),
+    (64, 5120, 5120), (81, 5120, 5120)])
 def test_wgmma_matmul_equal_bits_and_agrees_with_strip(cuda, kind, m, n_in,
                                                        n_out):
+    counter = None
     if kind == "int8":
         x, q, s = _int8(cuda, m, n_in, n_out)
         new, strip, plain = int8_matmul, int8_matmul_strip, int8_matmul_plain
-    else:
+    elif kind == "nf4":
         x, q, s = _packed4(cuda, m, n_in, n_out, 1.0)
         new, strip, plain = nf4_matmul, nf4_matmul_strip, nf4_matmul_plain
-    before = new.launches, strip.launches
+    else:     # the wgmma kernel at every M (int4_matmul's own path: M > 32)
+        x, q, s = _packed4(cuda, m, n_in, n_out, 1 / 7)
+        new, strip, plain = int4_matmul_wide, int4_matmul_strip, \
+            int4_matmul_plain
+        counter = int4_matmul
+    counter = counter or new
+    before = counter.launches, strip.launches
     got, again, old = new(x, q, s), new(x, q, s), strip(x, q, s)
     want = plain(x, q, s)
     torch.cuda.synchronize()
-    assert (new.launches, strip.launches) == (before[0] + 2, before[1] + 1)
+    assert (counter.launches, strip.launches) == (before[0] + 2,
+                                                  before[1] + 1)
     ok, err = _close(got, want)
-    assert ok, (err, matmul_plan(m, n_in, n_out, kind != "int8"))
+    assert ok, (err, matmul_plan(m, n_in, n_out, kind))
     ok, err = _close(got, old)
     assert ok, err
     assert torch.equal(got, again)        # fixed-order reduction, no atomics
@@ -195,6 +207,32 @@ def test_tree_attention_matches_plain(cuda, g, t, d, n_valid):
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
 
 
+# the redesigned kernel against the plain version and the earlier kernel:
+# GQA groups, both head dims, n_valid on both sides of 256 (the late verify
+# rounds), a cache of 2560 rows (several 64-key tiles a split)
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,n_valid,s_max", [
+    (1, 200, 512), (10, 230, 512), (81, 209, 512), (81, 256, 512),
+    (81, 273, 512), (96, 512, 512), (17, 1100, 2560)])
+def test_tree_attention_new_vs_plain_vs_simt_equal_bits(cuda, g, d, t,
+                                                        n_valid, s_max):
+    nkv = 4
+    q, k, v, bias = _attn(cuda, nkv * g, nkv, t, s_max, d, n_valid)
+    before = tree_attention.launches, tree_attention_simt.launches
+    got = tree_attention(q, k, v, bias, n_valid)
+    again = tree_attention(q, k, v, bias, n_valid)
+    old = tree_attention_simt(q, k, v, bias, n_valid)
+    want = tree_attention_plain(q, k, v, bias, live_keys(s_max, n_valid))
+    torch.cuda.synchronize()
+    assert (tree_attention.launches, tree_attention_simt.launches) == (
+        before[0] + 2, before[1] + 1)
+    plan = attention_plan(nkv, g, t, kernel_keys(s_max, n_valid))
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2, plan
+    assert float((got.float() - old.float()).abs().max()) <= 2e-2, plan
+    assert torch.equal(got, again)        # the cluster joins in fixed order
+
+
 @pytest.mark.parametrize("t,h,v,k", [(1, 4096, 32000, 10), (10, 4096, 32000, 10),
                                      (17, 256, 2048, 5), (40, 128, 1024, 16)])
 def test_head_topk_matches_plain(cuda, t, h, v, k):
@@ -245,8 +283,12 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         int8_matmul(x.bfloat16(), q[:, :24].contiguous(), s[:24])
     qa = torch.zeros((1, 2, 3, 96), dtype=torch.bfloat16, device="cuda")
     kv = torch.zeros((1, 2, 256, 96), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError):                         # D = 96
-        tree_attention(qa, kv, kv, torch.zeros((3, 256), device="cuda"))
+    for fn in (tree_attention, tree_attention_simt):
+        with pytest.raises(ValueError):                     # D = 96
+            fn(qa, kv, kv, torch.zeros((3, 256), device="cuda"))
+        with pytest.raises(TypeError):                      # f32 q
+            fn(qa[..., :64].float().contiguous(), kv[..., :64].contiguous(),
+               kv[..., :64].contiguous(), torch.zeros((3, 256), device="cuda"))
     with pytest.raises(TypeError):
         head_topk_int8(x[0], q, s, 4)
     q4 = torch.zeros((32, 32), dtype=torch.uint8, device="cuda")
@@ -257,8 +299,11 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         int8_matmul(x.bfloat16(), q.cpu(), s)
     with pytest.raises(ValueError):                         # misaligned scale
         int8_matmul(x.bfloat16(), q, torch.ones((33,), device="cuda")[1:])
-    before = int8_matmul.launches, nf4_matmul.launches
-    for fn in (nf4_matmul, nf4_matmul_strip, int4_matmul, int4_matmul_smallm):
+    counters = (int8_matmul, nf4_matmul, int4_matmul, int4_matmul_strip,
+                tree_attention, tree_attention_simt)
+    before = [c.launches for c in counters]
+    for fn in (nf4_matmul, nf4_matmul_strip, int4_matmul, int4_matmul_smallm,
+               int4_matmul_wide, int4_matmul_strip):
         with pytest.raises(TypeError):                      # f32 x
             fn(x, q4, s4)
         with pytest.raises(ValueError):                     # Out % 32 != 0
@@ -268,4 +313,4 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         int4_matmul_smallm(torch.zeros((1, 40, 64), dtype=torch.bfloat16,
                                        device="cuda"), q4, s4)
     # a refusal launches nothing, neither the kernel nor a stand-in for it
-    assert (int8_matmul.launches, nf4_matmul.launches) == before
+    assert [c.launches for c in counters] == before

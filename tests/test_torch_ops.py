@@ -31,7 +31,10 @@ from flowspec_tpu_torch.ops.head_topk import head_topk, head_topk_plain
 from flowspec_tpu_torch.ops.quant import (
     Int8Tensor, dequantize, qmatmul, quantize_int8)
 from flowspec_tpu_torch.ops.quant_matmul import int8_matmul
-from flowspec_tpu_torch.ops.tree_attention import live_keys, tree_attention
+from flowspec_tpu_torch.ops.tree_attention import (
+    KEY_TILE, MAX_SPLITS, MAX_WARPS, TILE_WARPS, WAVE_BLOCKS, attention_plan,
+    kernel_keys, live_keys, tree_attention, tree_attention_plain,
+    tree_attention_simt)
 from tests.torch_bridge_util import np_of
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -150,6 +153,144 @@ def test_tree_attention_rejects_bad_bias():
     kv = torch.zeros(1, 2, 256, 64)
     with pytest.raises(ValueError):
         tree_attention(q, kv, kv, torch.zeros(3, 128))
+
+
+# (nkv, G, T, n_valid, S): the serve paths' shapes (7B / 13B verify, prefill
+# chunk, AR step, thin draft context and beam level, late verify rounds past
+# 256 live rows), GQA groups, ragged n_valid around tile and split edges,
+# and caches longer than 8 tiles a split
+PLAN_CASES = ([(32, 1, 81, 209, 512), (32, 1, 96, 224, 512),
+               (32, 1, 64, 64, 512), (32, 1, 1, 200, 512),
+               (8, 1, 9, 150, 512), (8, 1, 10, 230, 512),
+               (40, 1, 81, 273, 512), (32, 1, 81, 273, 512),
+               (40, 1, 1, 200, 512)]
+              + [(4, g, t, nv, 512) for g in (1, 4) for t in (1, 10, 33)
+                 for nv in (1, 63, 64, 65, 256, 257, 511, 512)]
+              + [(2, 2, 17, nv, 2560) for nv in (513, 600, 1100, 2560)])
+
+
+@pytest.mark.parametrize("nkv,g,t,n_valid,s_max", PLAN_CASES)
+def test_attention_plan_covers_every_key_once(nkv, g, t, n_valid, s_max):
+    n_keys = kernel_keys(s_max, n_valid)
+    assert n_keys % KEY_TILE == 0 and n_valid <= n_keys <= s_max
+    assert n_keys - n_valid < KEY_TILE          # only the last tile ragged
+    p = attention_plan(nkv, g, t, n_keys)
+    assert p.n_keys == n_keys and 1 <= p.splits <= MAX_SPLITS
+    tiles = n_keys // KEY_TILE
+    edges = [(i * p.tiles_per_split, min((i + 1) * p.tiles_per_split, tiles))
+             for i in range(p.splits)]
+    keys = [k for a, b in edges for k in range(a * KEY_TILE, b * KEY_TILE)]
+    assert keys == list(range(n_keys))          # each key once, in order
+    assert all(a < b for a, b in edges)         # no empty split
+    # rows: every one of the KV head's G*T rows in exactly one row tile,
+    # at most MAX_WARPS warps of 16 rows a block and no all-empty row tile;
+    # blocks of more than TILE_WARPS only where the grid would pass a wave
+    rows = g * t
+    assert 1 <= p.warps <= MAX_WARPS
+    assert (p.row_tiles - 1) * 16 * p.warps < rows <= p.row_tiles * 16 * p.warps
+    assert p.blocks == nkv * p.row_tiles * p.splits
+    assert p.warps <= TILE_WARPS or (
+        nkv * -(-rows // (16 * TILE_WARPS)) * p.splits > WAVE_BLOCKS)
+    if tiles <= MAX_SPLITS:
+        assert p.splits == tiles and p.tiles_per_split == 1
+
+
+def test_attention_plan_main_path_grids_and_refusals():
+    # 7B verify: 2 row tiles x 4 splits x 32 heads; the thin draft's 8 heads
+    # at 150-230 live rows: 3-4 splits (the earlier kernel ran 96 / 8 blocks)
+    p = attention_plan(32, 1, 81, kernel_keys(512, 209))
+    assert (p.warps, p.row_tiles, p.splits, p.blocks) == (3, 2, 4, 256)
+    assert attention_plan(32, 1, 1, 256).blocks == 128
+    assert attention_plan(8, 1, 10, kernel_keys(512, 230)).blocks == 32
+    # 13B late verify: 400 blocks of 3 warps would run in two waves
+    assert attention_plan(40, 1, 81, kernel_keys(512, 273))[:3] == (6, 1, 5)
+    assert attention_plan(32, 1, 81, kernel_keys(512, 273)).blocks == 320
+    assert attention_plan(32, 1, 64, 64)[:3] == (2, 2, 1)
+    assert attention_plan(32, 1, 96, 512).splits == 8
+    assert kernel_keys(512, None) == 512 and kernel_keys(512, 0) == 64
+    for bad in [(0, 1, 1, 64), (1, 1, 1, 0), (1, 1, 1, 96), (1, 0, 1, 64)]:
+        with pytest.raises(ValueError, match="attention_plan needs"):
+            attention_plan(*bad)
+
+
+def _split_combine(q, k, v, bias, n_valid):
+    """What csrc/tree_attention.cu computes, in plain torch on the CPU: per
+    split of `attention_plan`, an online softmax over its 64-key tiles (f32
+    scores, P rounded to q's dtype before PV, l from the f32 P, f32 acc);
+    then the splits joined in ascending order, acc / max(l, 1e-30), one
+    cast."""
+    nq, t, d = q.shape[1:]
+    nkv, s_max = k.shape[1:3]
+    g = nq // nkv
+    plan = attention_plan(nkv, g, t, kernel_keys(s_max, n_valid))
+    qg = q[0].float().reshape(nkv, g * t, d)
+    bias_g = bias.float().repeat(g, 1)            # row r -> bias[r % T]
+    tiles = plan.n_keys // KEY_TILE
+    parts = []
+    for sp in range(plan.splits):
+        m = torch.full((nkv, g * t), float("-inf"))
+        l = torch.zeros((nkv, g * t))
+        acc = torch.zeros((nkv, g * t, d))
+        for tile in range(sp * plan.tiles_per_split,
+                          min((sp + 1) * plan.tiles_per_split, tiles)):
+            ks = slice(tile * KEY_TILE, (tile + 1) * KEY_TILE)
+            sc = (qg @ k[0, :, ks].float().transpose(-1, -2) * d ** -0.5
+                  + bias_g[:, ks])
+            m_new = torch.maximum(m, sc.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p.to(q.dtype).float() @ \
+                v[0, :, ks].float()
+            m = m_new
+        parts.append((m, l, acc))
+    mmax = torch.stack([m for m, _, _ in parts]).max(0).values
+    den = torch.zeros_like(mmax)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - mmax)
+        den = den + l * w
+        num = num + acc * w[..., None]
+    out = (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out.reshape(1, nq, t, d)
+
+
+@pytest.mark.parametrize("g,t,d,ctx_end,s", [
+    (1, 81, 128, 128, 512), (4, 10, 64, 300, 512), (1, 1, 128, 199, 512),
+    (2, 17, 64, 900, 1024)])
+def test_split_combine_matches_plain_and_pallas(g, t, d, ctx_end, s):
+    nkv = 2
+    q, k, v, bias = _attn_case(g + t + d, nkv * g, nkv, t, s, d, ctx_end)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_tree_attention(qb, kb, vb, jnp.asarray(bias),
+                                           block_s=256), np.float32)
+    tq_, tk, tv = (_bf16(np.asarray(a, np.float32)) for a in (qb, kb, vb))
+    tb = torch.from_numpy(bias)
+    n_valid = ctx_end + t
+    got = _split_combine(tq_, tk, tv, tb, n_valid)
+    plain = tree_attention_plain(tq_, tk, tv, tb, live_keys(s, n_valid))
+    np.testing.assert_allclose(np_of(got), want, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(np_of(got), np_of(plain), rtol=0, atol=2e-2)
+    # the kernel reads fewer rows than the plain version where n_valid
+    # stops short of a 256-row block
+    assert kernel_keys(s, n_valid) <= live_keys(s, n_valid)
+
+
+def test_tree_attention_simt_runs_plain_on_cpu_and_refuses():
+    q, k, v, bias = _attn_case(5, 4, 2, 10, 512, 64, 100)
+    tq_, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    before = tree_attention_simt.launches, tree_attention.launches
+    got = tree_attention_simt(tq_, tk, tv, tb, n_valid=110)
+    assert torch.equal(got, tree_attention_plain(tq_, tk, tv, tb, 256))
+    assert torch.equal(got, tree_attention(tq_, tk, tv, tb, n_valid=110))
+    assert (tree_attention_simt.launches, tree_attention.launches) == before
+    with pytest.raises(ValueError, match="bias must be"):
+        tree_attention_simt(tq_, tk, tv, tb[:, :256])
+    with pytest.raises(ValueError, match="bad shapes"):
+        tree_attention_simt(tq_[0], tk, tv, tb)
+    with pytest.raises(ValueError, match="bad shapes"):   # nq % nkv
+        tree_attention_simt(tq_[:, :3], tk, tv, tb)
 
 
 # ---- fused head top-k ------------------------------------------------------

@@ -19,15 +19,17 @@
 (c) `qmatmul` dispatch, the wrappers' refusals and the bridge's refusal to
     guess the kind of a uint8 container;
 (d) the split plan of the split-K wgmma kernels (`matmul_plan`, shared by
-    int8 and nf4) over every (M, In, Out) the wrappers accept, with
+    int8, nf4 and int4) over every (M, In, Out) the wrappers accept, with
     hypothesis: the splits tile [0, In/64) exactly and none is empty, the
     strip width divides Out, the width covers M (or M runs in 128-row
     tiles), the ring fits an SM, the scratch has the shape the wrapper
     allocates; and `_split_sum`, a torch emulation of "one f32 partial per
     split, added in ascending order, scale, one cast" driven by that plan,
-    against `int8_matmul_plain` / `nf4_matmul_plain` at the card's tolerance
-    (|err| <= 1e-2*|plain| + 1e-2: one bf16 ulp of an f32 sum taken in
-    another order).
+    against `int8_matmul_plain` / `nf4_matmul_plain` / `int4_matmul_plain`
+    at the card's tolerance (|err| <= 1e-2*|plain| + 1e-2: one bf16 ulp of
+    an f32 sum taken in another order); and the int4 kernel's table-free
+    decode (`i4_pair_bf16`: the bf16 value 128 + n, minus 136, times the
+    scale) against `decode_pair`'s operand, bit for bit.
 Inputs come from numpy with a seed.
 """
 
@@ -58,7 +60,7 @@ def _weights(seed, shape):
 
 
 def _port(jt):
-    return bridge.weight(to_numpy_dict(jt))
+    return bridge.weight(to_numpy_dict(jt), device="cpu")
 
 
 def _x(seed, m, n_in, dtype):
@@ -253,11 +255,11 @@ def test_split_k_covers_every_block_with_no_empty_split():
 
 @settings(max_examples=300, deadline=None)
 @given(m=st.integers(1, 700), nkb=st.integers(1, 256),
-       out32=st.integers(1, 448), packed4=st.booleans())
+       out32=st.integers(1, 448), fmt=st.sampled_from(tqm.FORMATS))
 def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
-                                                              packed4):
+                                                              fmt):
     n_in, n_out = nkb * 64, out32 * 32
-    p = tqm.matmul_plan(m, n_in, n_out, packed4)
+    p = tqm.matmul_plan(m, n_in, n_out, fmt)
     # strips: the widest of 128 / 64 / 32 that divides Out
     assert p.bn in (128, 64, 32) and n_out % p.bn == 0
     assert p.bn == 128 or n_out % (2 * p.bn) != 0
@@ -277,7 +279,7 @@ def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
             or p.ksplit == 1)
     # the ring is the one the width is built with and two blocks fit an SM
     assert p.stages == tqm.WGMMA_STAGES[p.n]
-    assert p.smem == tqm.smem_bytes(p.n, p.stages, packed4)
+    assert p.smem == tqm.smem_bytes(p.n, p.stages, fmt)
     assert tqm.BLOCKS_PER_SM * (p.smem + 1024) <= tqm.SMEM_PER_SM
     # scratch as the wrapper allocates it
     assert p.scratch_shape(m, n_out) == (
@@ -287,25 +289,27 @@ def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
 def test_matmul_plan_main_path_shapes_and_refusals():
     # 7B verify width: two blocks per SM at every projection
     for n_in, n_out in [(4096, 4096), (4096, 11008), (11008, 4096)]:
-        p = tqm.matmul_plan(81, n_in, n_out, False)
+        p = tqm.matmul_plan(81, n_in, n_out, "int8")
         assert (p.bn, p.n) == (128, 96)
         assert 132 < (n_out // 128) * p.ksplit <= 264
     # M 1 (every AR step) and the draft's M 10 are the narrow width with
     # more splits: the thin draft's fc gets 32 x 8 blocks where a grid over
     # strips alone had 32
-    p = tqm.matmul_plan(10, 8192, 1024, True)
+    p = tqm.matmul_plan(10, 8192, 1024, "nf4")
     assert (p.n, p.ksplit, p.chunk) == (16, 32, 4)
-    assert tqm.matmul_plan(1, 4096, 4096, True).ksplit == 8
+    assert tqm.matmul_plan(1, 4096, 4096, "nf4").ksplit == 8
     # one 64-row block cannot split; M > 128 runs in row tiles of 128
-    assert tqm.matmul_plan(8, 64, 1056, False).ksplit == 1
-    assert tqm.matmul_plan(130, 4096, 4096, True).n == 128
-    # one ring per width, for both formats
-    assert [tqm.matmul_plan(m, 4096, 4096, p4).stages
-            for m in (1, 64, 81, 128) for p4 in (False, True)] == [
-        6, 6, 6, 6, 5, 5, 4, 4]
+    assert tqm.matmul_plan(8, 64, 1056, "int8").ksplit == 1
+    assert tqm.matmul_plan(130, 4096, 4096, "nf4").n == 128
+    # one ring per width, for every format
+    assert [tqm.matmul_plan(m, 4096, 4096, f).stages
+            for m in (1, 64, 81, 128) for f in tqm.FORMATS] == [
+        6, 6, 6, 6, 6, 6, 5, 5, 5, 4, 4, 4]
     for m, n_in, n_out in [(0, 64, 32), (1, 96, 32), (1, 64, 24)]:
         with pytest.raises(ValueError, match="matmul_plan needs"):
-            tqm.matmul_plan(m, n_in, n_out, False)
+            tqm.matmul_plan(m, n_in, n_out, "int8")
+    with pytest.raises(ValueError, match="format"):
+        tqm.matmul_plan(1, 64, 32, "fp4")
 
 
 def _split_sum(x: torch.Tensor, w: torch.Tensor, plan,
@@ -331,7 +335,7 @@ SPLIT_CASES = [(1, 4096, 1024), (10, 8192, 1024), (17, 832, 1056),
                (81, 2368, 1088), (96, 64, 1056), (130, 2368, 256)]
 
 
-@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("kind", ["int8", "nf4", "int4"])
 @pytest.mark.parametrize("m,n_in,n_out", SPLIT_CASES)
 def test_split_sum_by_the_plan_matches_plain(kind, m, n_in, n_out):
     rng = np.random.default_rng(m + n_in)
@@ -339,15 +343,16 @@ def test_split_sum_by_the_plan_matches_plain(kind, m, n_in, n_out):
         np.float32)).to(torch.bfloat16)
     w = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(
         np.float32) * n_in ** -0.5)
-    plan = tqm.matmul_plan(m, n_in, n_out, kind != "int8")
+    plan = tqm.matmul_plan(m, n_in, n_out, kind)
+    nf4 = kind == "nf4"
     if kind == "int8":
         t = tq.quantize_int8(w)
         got = _split_sum(x, t.q.to(torch.bfloat16), plan, t.scale)
         want = tqm.int8_matmul_plain(x, t.q, t.scale)
     else:
-        t = tq.quantize_nf4(w)
-        got = _split_sum(x, tqm._decode4_bf16(t.q, t.scale, True), plan)
-        want = tqm.nf4_matmul_plain(x, t.q, t.scale)
+        t = (tq.quantize_nf4 if nf4 else tq.quantize_int4)(w)
+        got = _split_sum(x, tqm._decode4_bf16(t.q, t.scale, nf4), plan)
+        want = PLAIN[kind](x, t.q, t.scale)
     assert got.dtype == want.dtype == torch.bfloat16
     err = (got.float() - want.float()).abs()
     assert bool((err <= 1e-2 * want.float().abs() + 1e-2).all()), err.max()
@@ -355,13 +360,14 @@ def test_split_sum_by_the_plan_matches_plain(kind, m, n_in, n_out):
         assert torch.equal(got, want)
     # the order is fixed: the same bits again
     again = _split_sum(x, (t.q.to(torch.bfloat16) if kind == "int8" else
-                              tqm._decode4_bf16(t.q, t.scale, True)), plan,
+                              tqm._decode4_bf16(t.q, t.scale, nf4)), plan,
                           t.scale if kind == "int8" else None)
     assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("name", ["int8_matmul", "int8_matmul_strip",
-                                  "nf4_matmul", "nf4_matmul_strip"])
+                                  "nf4_matmul", "nf4_matmul_strip",
+                                  "int4_matmul_wide", "int4_matmul_strip"])
 def test_wgmma_and_strip_wrappers_refuse_and_run_plain_on_cpu(name):
     fn = getattr(tqm, name)
     int8 = name.startswith("int8")
@@ -383,11 +389,12 @@ def test_wgmma_and_strip_wrappers_refuse_and_run_plain_on_cpu(name):
     with pytest.raises(ValueError):                      # In mismatch
         fn(torch.zeros((1, 2, 64)), q, s)
     # on the CPU every wrapper is its plain version and launches nothing
-    before = fn.launches
-    plain = tqm.int8_matmul_plain if int8 else tqm.nf4_matmul_plain
+    counter = tqm.int4_matmul if name == "int4_matmul_wide" else fn
+    before = counter.launches
+    plain = {"int8": tqm.int8_matmul_plain, **PLAIN}[name.split("_")[0]]
     xr = torch.from_numpy(_weights(9, (1, 2, 128)))
     assert torch.equal(fn(xr, q, s), plain(xr, q, s))
-    assert fn.launches == before
+    assert counter.launches == before
     # what the kernels need of a CUDA tensor is checked before any launch:
     # a device mix and a dtype the kernel does not take raise
     with pytest.raises(ValueError, match="share one device"):
@@ -402,7 +409,7 @@ def test_bridge_tells_nf4_from_int4_and_refuses_to_guess():
                      (jq.quantize_int4, tq.Int4Tensor),
                      (jq.quantize_int8, tq.Int8Tensor)):
         d = to_numpy_dict(jfn(w))
-        got = bridge.weight(d)
+        got = bridge.weight(d, device="cpu")
         assert type(got) is cls
         np.testing.assert_array_equal(got.q.numpy(), d["q"])
     d = to_numpy_dict(jq.quantize_nf4(w))
@@ -413,5 +420,66 @@ def test_bridge_tells_nf4_from_int4_and_refuses_to_guess():
     with pytest.raises(TypeError):
         bridge.weight({**d, "kind": "int8"})
     i8 = to_numpy_dict(jq.quantize_int8(w))
-    assert type(bridge.weight({"q": i8["q"], "scale": i8["scale"]})) \
+    assert type(bridge.weight({"q": i8["q"], "scale": i8["scale"]},
+                              device="cpu")) \
         is tq.Int8Tensor
+
+
+def test_matmul_plan_int4_tiles_k_like_nf4_without_the_table():
+    # the 13B attention projections at verify and prefill width, ragged
+    # strips and a prime block count: the same cut as nf4, 8 KB less
+    for m, n_in, n_out in [(81, 5120, 5120), (64, 5120, 5120),
+                           (33, 2368, 1088), (96, 832, 1056),
+                           (130, 4096, 4096), (1, 64, 32)]:
+        p4, pn = (tqm.matmul_plan(m, n_in, n_out, f) for f in ("int4", "nf4"))
+        assert p4._replace(smem=0) == pn._replace(smem=0)
+        assert p4.smem == pn.smem - tqm.NF4_LUT_BYTES == pn.smem - 8192
+        nkb = n_in // 64
+        edges = [(i * p4.chunk, min((i + 1) * p4.chunk, nkb))
+                 for i in range(p4.ksplit)]
+        assert edges[0][0] == 0 and edges[-1][1] == nkb
+        assert all(a < b for a, b in edges)
+        assert all(edges[i][1] == edges[i + 1][0]
+                   for i in range(p4.ksplit - 1))
+    with pytest.raises(ValueError, match="format"):
+        tqm.smem_bytes(96, 5, "fp4")
+
+
+def test_int4_decode_without_a_table_is_decode_pairs_operand():
+    # every byte at scales that round differently in bf16: (128 + n) - 136
+    # is n - 8 exactly, and one bf16 multiply rounds as decode_pair's does
+    b = torch.arange(256, dtype=torch.int32)
+    hi, lo = b >> 4, b & 15
+    as_bf16 = lambda n: (n | 0x4300).to(torch.int16).view(torch.bfloat16)
+    c136 = torch.tensor(0x4308, dtype=torch.int16).view(torch.bfloat16)
+    assert float(c136) == 136.0
+    for sc in (1.0, 0.0123, 3.3e-3, 7.77, 1e-30):
+        s = torch.tensor(sc).to(torch.bfloat16)
+        for nib in (hi, lo):
+            got = (as_bf16(nib) - c136) * s
+            want = (nib - 8).to(torch.bfloat16) * s
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # and the operand is the plain version's decode
+    q = b.to(torch.uint8).reshape(128, 2).repeat(1, 16)        # (128, 32)
+    scale = torch.full((4, 32), 0.0123)
+    w = tqm._decode4_bf16(q, scale, nf4=False)
+    s = torch.tensor(0.0123).to(torch.bfloat16)
+    np.testing.assert_array_equal(
+        w[0::2, :2].float().numpy(),
+        ((as_bf16(hi) - c136) * s).reshape(128, 2).float().numpy())
+
+
+def test_bridge_builds_on_the_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.tensor(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.weight(to_numpy_dict(jq.quantize_int8(jnp.ones((64, 32)))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.kv_cache({"k": a, "v": a, "length": 1})
+    t = bridge.tensor(a, device="cpu")
+    assert t.device.type == "cpu" and torch.equal(t, torch.from_numpy(a))
+    w = bridge.weight(to_numpy_dict(jq.quantize_int8(jnp.ones((64, 32)))),
+                      device="cpu")
+    assert type(w) is tq.Int8Tensor and w.q.device.type == "cpu"

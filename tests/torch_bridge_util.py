@@ -29,15 +29,15 @@ def to_numpy_dict(x):
 
 
 def port_llama(params):
-    return bridge.llama_params(to_numpy_dict(params))
+    return bridge.llama_params(to_numpy_dict(params), device="cpu")
 
 
 def port_eagle(draft):
-    return bridge.eagle_params(to_numpy_dict(draft))
+    return bridge.eagle_params(to_numpy_dict(draft), device="cpu")
 
 
 def port_cache(cache):
-    return bridge.kv_cache(to_numpy_dict(cache))
+    return bridge.kv_cache(to_numpy_dict(cache), device="cpu")
 
 
 def np_of(t: torch.Tensor) -> np.ndarray:

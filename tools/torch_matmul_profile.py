@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """The split-K wgmma dequant-matmuls under torch.profiler, on one card.
 
-    python3 tools/torch_matmul_profile.py [--sass] [--kernels int8,nf4]
+    python3 tools/torch_matmul_profile.py [--sass] [--kernels int8,nf4,int4]
 
 What chip_smoke.py's event timing cannot separate: at each base and draft
-shape of the 7B paths, the device times of the main kernel and of the reduce
+shape of the 7B paths (int4: the 13B attention projections at M 64 / 81),
+the device times of the main kernel and of the reduce
 pass and the gap between them (the reduce pass is a dependent launch that
 starts early and waits), and the timing floor, i.e. what one tiny elementwise
 launch reads when it is timed like a kernel. The L2 is flushed before every
 launch. `--sass` also dumps `cuobjdump -sass` of both libraries. One JSON
 line per row on stdout and in chiprun_out/matmul_profile.jsonl; the ptxas
-report goes to chiprun_out/ptxas_matmul.log. Builds the two kernels only
+report goes to ptxas_matmul.log beside it. Builds the named kernels only
 (seconds). Needs a CUDA card.
 """
 
@@ -45,7 +46,7 @@ def operands(kind, m, n_in, n_out, dev, gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass", action="store_true",
-                    help="dump cuobjdump -sass of both libraries")
+                    help="dump cuobjdump -sass of the libraries")
     ap.add_argument("--kernels", default="int8,nf4")
     args = ap.parse_args()
     import torch
@@ -92,11 +93,13 @@ def main() -> int:
     emit({"floor_ms": cs.time_ms(lambda: tiny.add_(1.0), flush),
           "what": "one tiny elementwise launch, timed like a kernel"})
     fns = {"int8": (qm.int8_matmul, cs.INT8_SHAPES),
-           "nf4": (qm.nf4_matmul, cs.NF4_SHAPES)}
+           "nf4": (qm.nf4_matmul, cs.NF4_SHAPES),
+           "int4": (qm.int4_matmul, cs.INT4_SHAPES)}
     for kind in kinds:
         fn, shapes = fns[kind]
         for name, m, n_in, n_out in shapes:
-            if not name.startswith(("base_", "draft_")) or m in (9, 96):
+            if kind != "int4" and (not name.startswith(("base_", "draft_"))
+                                   or m in (9, 96)):
                 continue
             x, q, s = operands(kind, m, n_in, n_out, dev, gen)
             fn(x, q, s)
@@ -112,8 +115,7 @@ def main() -> int:
             main_ev = [e for e in ev if "qmm_kernel" in e.name]
             red = [e for e in ev if "qmm_reduce" in e.name]
             row = {"profile": kind, "shape": name,
-                   "plan": qm.matmul_plan(m, n_in, n_out,
-                                          kind != "int8")._asdict(),
+                   "plan": qm.matmul_plan(m, n_in, n_out, kind)._asdict(),
                    "main_us": [e.time_range.elapsed_us() for e in main_ev]}
             if red:
                 row["reduce_us"] = [e.time_range.elapsed_us() for e in red]

@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile_round.py [--model 7b|13b]
                                          [--quant int8|nf4|int4|mixed]
-                                         [--strip-turns]
+                                         [--old-turns]
 
 Builds the chip_smoke.py serving setup (random base of the given model and
 quantization kind from a seeded torch.Generator, the committed thin draft,
@@ -12,16 +12,17 @@ profiles one request of 64 prompt + 128 new tokens with torch.profiler
 (CPU + CUDA activities). Prints one JSON line: wall time, summed
 device-kernel time, the device's idle share of the wall time, rounds, and
 device time by kernel family (this port's six CUDA kernels, the split-K
-reduce pass of int8 / nf4 as `matmul_reduce`; cuBLAS GEMMs (the f32
+reduce pass of int8 / nf4 / int4 as `matmul_reduce`; cuBLAS GEMMs (the f32
 lm_head); sort/top-k; everything else).
 
-`--strip-turns` instead serves chip_smoke.py's three requests four times
-without the profiler, in turns (new, strip, strip, new): "strip" routes the
-int8 and nf4 products of the serving path to the earlier strip kernels
-(`int8_matmul_strip`, `nf4_matmul_strip`) for the length of the turn. It
-prints tok/s and wall ms per round of each turn and of each side, so what
-the two-launch split-K wrappers cost or gain end to end is read inside one
-process. Needs a CUDA card.
+`--old-turns` instead serves chip_smoke.py's three requests four times
+without the profiler, in turns (new, old, old, new): "old" routes the
+products and the attention of the serving path to the earlier versions of
+the four redesigned kernels (`int8_matmul_strip`, `nf4_matmul_strip`,
+`int4_matmul_strip` above 32 rows, `tree_attention_simt`) for the length of
+the turn. It prints tok/s and wall ms per round of each turn and of each
+side, so what the redesigned kernels and their wrappers cost or gain end to
+end is read inside one process. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -40,12 +41,14 @@ def family(name: str) -> str:
     n = name.lower()
     for key, fam in (("qmm_kernel<0", "int8_matmul"),
                      ("qmm_kernel<1", "nf4_matmul"),
+                     ("qmm_kernel<2", "int4_matmul"),
                      ("qmm_reduce", "matmul_reduce"),
                      ("int8_matmul_kernel", "int8_matmul_strip"),
                      ("p4_matmul_kernel<true", "nf4_matmul_strip"),
-                     ("p4_matmul_kernel<false", "int4_matmul"),
+                     ("p4_matmul_kernel<false", "int4_matmul_strip"),
                      ("int4_splitk", "int4_matmul_smallm"),
-                     ("tree_attention_kernel", "tree_attention"),
+                     ("tree_attention_simt", "tree_attention_simt"),
+                     ("tree_attention_mma", "tree_attention"),
                      ("head_partial_kernel", "head_topk"),
                      ("head_merge_kernel", "head_topk"),
                      ("gemm", "cublas_gemm"), ("sm90_xmma", "cublas_gemm"),
@@ -56,18 +59,31 @@ def family(name: str) -> str:
     return "other"
 
 
-def strip_turns(eng, prompts, new_tokens) -> dict:
-    """Serve `prompts` in turns new, strip, strip, new; per turn and per side
+def old_turns(eng, prompts, new_tokens) -> dict:
+    """Serve `prompts` in turns new, old, old, new; per turn and per side
     tok/s and wall ms per round (prefill included in the wall time)."""
     import torch
+    from flowspec_tpu_torch.models import llama
     from flowspec_tpu_torch.ops import quant_matmul as qm
-    new = {"int8_matmul": qm.int8_matmul, "nf4_matmul": qm.nf4_matmul}
-    strip = {"int8_matmul": qm.int8_matmul_strip,
-             "nf4_matmul": qm.nf4_matmul_strip}
+    from flowspec_tpu_torch.ops import tree_attention as ta
+
+    def int4_old(x, q, s):           # the small-M kernel stays below 33 rows
+        if x.shape[0] * x.shape[1] <= qm.SMALL_M:
+            return qm.int4_matmul_smallm(x, q, s)
+        return qm.int4_matmul_strip(x, q, s)
+
+    new = {(qm, "int8_matmul"): qm.int8_matmul,
+           (qm, "nf4_matmul"): qm.nf4_matmul,
+           (qm, "int4_matmul"): qm.int4_matmul,
+           (llama, "tree_attention"): ta.tree_attention}
+    old = {(qm, "int8_matmul"): qm.int8_matmul_strip,
+           (qm, "nf4_matmul"): qm.nf4_matmul_strip,
+           (qm, "int4_matmul"): int4_old,
+           (llama, "tree_attention"): ta.tree_attention_simt}
 
     def serve(route):
-        for name, fn in route.items():
-            setattr(qm, name, fn)
+        for (mod, name), fn in route.items():
+            setattr(mod, name, fn)
         try:
             t0 = time.perf_counter()
             rounds = tokens = 0
@@ -79,16 +95,16 @@ def strip_turns(eng, prompts, new_tokens) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            for name, fn in new.items():
-                setattr(qm, name, fn)
+            for (mod, name), fn in new.items():
+                setattr(mod, name, fn)
         return {"tok_s": tokens / wall, "rounds": rounds,
                 "wall_ms_per_round": wall * 1e3 / rounds}
 
-    for route in (new, strip):                       # warm-up of both
+    for route in (new, old):                         # warm-up of both
         serve(route)
-    turns = [serve(r) for r in (new, strip, strip, new)]
-    sides = {"new": [turns[0], turns[3]], "strip": [turns[1], turns[2]]}
-    return {"turns": dict(zip(("new_1", "strip_1", "strip_2", "new_2"),
+    turns = [serve(r) for r in (new, old, old, new)]
+    sides = {"new": [turns[0], turns[3]], "old": [turns[1], turns[2]]}
+    return {"turns": dict(zip(("new_1", "old_1", "old_2", "new_2"),
                               turns)),
             **{side: {k: statistics.mean(r[k] for r in rows)
                       for k in ("tok_s", "wall_ms_per_round")}
@@ -100,8 +116,8 @@ def main() -> int:
     ap.add_argument("--model", default="7b", choices=("7b", "13b"))
     ap.add_argument("--quant", default="int8",
                     choices=("int8", "nf4", "int4", "mixed"))
-    ap.add_argument("--strip-turns", action="store_true",
-                    help="serve with the new and the strip matmuls in turns")
+    ap.add_argument("--old-turns", action="store_true",
+                    help="serve with the new and the old kernels in turns")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -114,13 +130,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     eng, prompts, _ = cs.make_engine(dev, args.model, args.quant)
-    if args.strip_turns:
+    if args.old_turns:
         print(json.dumps({
             "model": args.model, "quant": args.quant,
             "device": torch.cuda.get_device_name(0),
             "nvidia_smi": cs.nvidia_smi(), "requests": len(prompts),
             "new_tokens_each": cs.NEW_TOKENS,
-            **strip_turns(eng, prompts, cs.NEW_TOKENS)}))
+            **old_turns(eng, prompts, cs.NEW_TOKENS)}))
         return 0
     eng.generate(prompts[0], max_new_tokens=cs.NEW_TOKENS, eos_token_id=-1)
     torch.cuda.synchronize()
