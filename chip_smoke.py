@@ -15,15 +15,19 @@ Phases, one JSON line each on stdout:
               port never calls: SDPA over the KV rows the attention kernel
               reads; null for the packed 4-bit products, which no single
               call computes; there `bf16_matmul_ms` times `x @ w` on a
-              pre-decoded bf16 weight, which reads four times the bytes)
-              and the bound (max of bytes / 3.35 TB/s and operations / 989
-              TFLOP/s bf16). The four redesigned kernels -- the split-K
-              wgmma `int8_matmul`, `nf4_matmul` and wide `int4_matmul`, and
-              the cluster-joined `tree_attention` -- are also held against
-              their earlier versions (`*_strip`, `tree_attention_simt`;
+              pre-decoded bf16 weight, which reads four times the bytes; the
+              head has both: `topk∘log_softmax` on a bf16 copy made per call
+              and `bf16_matmul_ms` on one made once) and the bound (max of
+              bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16). All six
+              kernels are redesigns: the split-K wgmma `int8_matmul`,
+              `nf4_matmul`, `int4_matmul` and `int4_matmul_smallm`, the
+              cluster-joined `tree_attention` and the wgmma `head_topk`. Each
+              is also held against its earlier version (`*_strip`,
+              `int4_matmul_splitk`, `tree_attention_simt`, `head_topk_strip`;
               `old_ms`, timed in turns: new, old, old, new) and must give
-              equal bits on two launches; the three matmuls are checked at
-              ragged shapes too;
+              equal bits on two launches; the three wide matmuls are checked
+              at ragged shapes, the head at T 16 / 17, V 2176, k 1, k 32 and
+              two ties (inside one 128-column strip and across strips);
   4. serve / lossless             7B int8 base, int8 thin draft;
      serve_13b_mixed / lossless_13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
@@ -40,9 +44,12 @@ Phases, one JSON line each on stdout:
      and the comparison-only entry points must not launch at all. Each
      serve line carries `round_ms`: per kernel, the sum over the shapes of
      one speculative round of those launches x measured ms, beside the same
-     sum of bounds and, for a redesigned kernel, of its old version's ms.
-Then the `kernels` line (each kernel of the path; a redesigned one carries
-its comparison-only old entry point under "old") and, last, {"ok": true,
+     sum of bounds and of its old version's ms. The AR run's launches less
+     its prefills, over its steps, must equal one base pass at M 1 (160
+     `int4_matmul_smallm` a 13B-mixed step); each lossless line carries the
+     same sums for one AR step as `ar_step_ms`.
+Then the `kernels` line (each kernel of the path, with its comparison-only
+old entry point under "old") and, last, {"ok": true,
 "device": {...}}. Per-shape
 details go to chiprun_out/chip_smoke_kernels.jsonl. Any failure raises: no
 phase catches an error and still exits 0.
@@ -87,9 +94,9 @@ BASE_7B = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
            ("w_down", 11008, 4096))
 # packed 4-bit shapes: nf4 on the 7B nf4 path (base at M 1 / 64 / 81, the
 # thin draft's five at M 9 / 10); int4 wgmma kernel on 13B attention at
-# prefill and verify width; int4 small-M split-K kernel on 13B attention at
-# M 1 / 9 / 32 and on the 7B w_down (half-In 5504 has no divisor that is a multiple
-# of 256, the shape the TPU kernel declines)
+# prefill and verify width; int4 small-M entry on 13B attention at M 1 / 9 /
+# 32 and on the 7B w_down (half-In 5504 has no divisor that is a multiple of
+# 256, the shape the TPU kernel declines)
 NF4_SHAPES = (
     [(f"base_{w}_M{m}", m, i, o) for m in (1, 64, 81) for w, i, o in BASE_7B]
     + [(f"draft_{w}_M{m}", m, i, o) for m in (9, 10)
@@ -123,9 +130,14 @@ ATTN_SHAPES = [("verify_T81", 32, 32, 81, 512, 64 + 64 + 81),
                ("13b_verify_T81_late", 40, 40, 81, 512, 64 + 128 + 81),
                ("13b_prefill_T64", 40, 40, 64, 512, 64),
                ("13b_ar_T1", 40, 40, 1, 512, 200)]
-# head top-k: (name, T, H)
+# head top-k: (name, T, H), V 32000, k 10; then untimed checks (name, T, H,
+# V, k): the width boundary, 17 strips, k 1, and k 32 (64 KB of keys a row:
+# the merge reads them from device memory instead of staging them)
 HEAD_SHAPES = [("root_T1", 1, 4096), ("beam_T10", 10, 4096),
                ("13b_root_T1", 1, 5120), ("13b_beam_T10", 10, 5120)]
+HEAD_CHECKS = [("T16", 16, 4096, 32000, 10), ("T17", 17, 4096, 32000, 10),
+               ("V2176", 10, 4096, 2176, 10), ("k1", 10, 4096, 32000, 1),
+               ("k32", 4, 4096, 32000, 32)]
 MAIN = {"int8_matmul": "base_w_gate_M81", "tree_attention": "verify_T81",
         "head_topk": "beam_T10", "nf4_matmul": "base_w_gate_M81",
         "int4_matmul": "13b_wq_M81", "int4_matmul_smallm": "13b_wq_M1"}
@@ -141,7 +153,10 @@ REPLACES = {
 # point of the same library, for comparison only
 OLD = {"int8_matmul": "int8_matmul_strip", "nf4_matmul": "nf4_matmul_strip",
        "int4_matmul": "int4_matmul_strip",
-       "tree_attention": "tree_attention_simt"}
+       "tree_attention": "tree_attention_simt",
+       "head_topk": "head_topk_strip",
+       "int4_matmul_smallm": "int4_matmul_splitk"}
+BASE_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # configurations served: (tag, model, quant, requests, new tokens), then the
 # kernels whose launch count must be > 0 on generate, and on generate_ar
 CONFIGS = {
@@ -309,18 +324,19 @@ def check_int8(dev, gen, flush, details):
 
 def check_packed4(kernel, shapes, dev, gen, flush, details):
     """One of the packed 4-bit kernels (`nf4_matmul`, `int4_matmul`,
-    `int4_matmul_smallm`) at `shapes` against its plain version; the two
-    wgmma ones also against their strip versions and at the ragged shapes
-    (int4 through `int4_matmul_wide`, its wgmma kernel at any M)."""
+    `int4_matmul_smallm`) at `shapes` against its plain version and its old
+    version; the two wide ones also at the ragged shapes (int4 through
+    `int4_matmul_wide`, its wgmma kernel at any M)."""
     import torch
     from flowspec_tpu_torch.ops import quant_matmul as qm
     fn = getattr(qm, kernel)
     nf4 = kernel == "nf4_matmul"
-    fmt = {"nf4_matmul": "nf4", "int4_matmul": "int4"}.get(kernel)
+    fmt = "nf4" if nf4 else "int4"
     plain = qm.nf4_matmul_plain if nf4 else qm.int4_matmul_plain
-    old = getattr(qm, OLD[kernel]) if kernel in OLD else None
+    old = getattr(qm, OLD[kernel])
+    ragged = RAGGED_SHAPES if kernel != "int4_matmul_smallm" else []
     rows = {}
-    for shape in list(shapes) + (RAGGED_SHAPES if fmt else []):
+    for shape in list(shapes) + ragged:
         name, m, n_in, n_out = shape
         x = torch.randn((1, m, n_in), generator=gen, device=dev).to(
             torch.bfloat16)
@@ -333,19 +349,13 @@ def check_packed4(kernel, shapes, dev, gen, flush, details):
                 and m <= qm.SMALL_M else fn)
         row = _matmul_row(kernel, call, old, plain, x, q, s, shape,
                           flush if timed else None, None, counter=fn)
-        if fmt:
-            row["plan"] = qm.matmul_plan(m, n_in, n_out, fmt)._asdict()
+        row["plan"] = qm.matmul_plan(m, n_in, n_out, fmt)._asdict()
+        if kernel == "int4_matmul_smallm":
+            row["old_ksplit"] = qm.split_k(n_in, n_out)
         if timed:
             w_bf16 = qm._decode4_bf16(q, s, nf4)
             row["bf16_matmul_ms"] = time_ms(lambda: x @ w_bf16, flush,
                                             iters=10)
-        if kernel == "int4_matmul_smallm":
-            row["ksplit"] = qm.split_k(n_in, n_out)
-            row["equal_bits"] = row["ok"] = bool(
-                torch.equal(fn(x, q, s), fn(x, q, s)))
-            if not row["ok"]:
-                raise AssertionError(f"{kernel}: two launches differ at "
-                                     f"{name}: {row}")
         details.append(row)
         if timed:
             rows[name] = row
@@ -434,63 +444,117 @@ def check_attention(dev, gen, flush, details):
     return rows
 
 
-def check_head(dev, gen, flush, details):
+def _head_row(name, x, q, s, k, flush):
+    """Head top-k at one shape: the kernel against its plain version (the
+    log-probs, and the plain log-probs of the kernel's tokens) and against
+    its old version, equal bits on two launches; timed in turns with the old
+    version, beside plain and two PyTorch yardsticks, when `flush` is
+    given. Raises on a disagreement."""
     import torch
     from flowspec_tpu_torch.ops.head_topk import (
-        head_logits, head_topk_int8, head_topk_plain)
+        head_logits, head_topk, head_topk_int8, head_topk_plain,
+        head_topk_strip)
     from flowspec_tpu_torch.ops.quant import Int8Tensor
-    v, k = 32000, 10
-    rows = {}
-    h = None
-    for name, t, h_new in HEAD_SHAPES:
-        if h_new != h:
-            h = h_new
-            q = torch.randint(-127, 128, (h, v), generator=gen,
-                              device=dev).to(torch.int8)
-            s = torch.full((v,), h ** -0.5 / 127.0, device=dev)
+    t, h = x.shape
+    v = q.shape[1]
+    before = head_topk.launches, head_topk_strip.launches
+    lp, tok = head_topk_int8(x, q, s, k)
+    lp2, tok2 = head_topk_int8(x, q, s, k)
+    old_lp, _ = head_topk_strip(x, q, s, k)
+    want_lp, _ = head_topk_plain(x, q, s, k)
+    torch.cuda.synchronize()
+    if (head_topk.launches, head_topk_strip.launches) != (before[0] + 2,
+                                                          before[1] + 1):
+        raise AssertionError(f"head_topk did not launch at {name}")
+    # tokens agree where the plain log-probs of the kernel's tokens are the
+    # plain top-k values (a kernel pick differing only at an f32
+    # summation-order near-tie is still a correct top-k)
+    logits = head_logits(x, Int8Tensor(q=q, scale=s))
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    lp_of_tok = (logits.gather(1, tok.long()) - lse)
+    err = float(max((lp - want_lp).abs().max(),
+                    (lp_of_tok - want_lp).abs().max()))
+    err_old = float((lp - old_lp).abs().max())
+    equal = bool(torch.equal(lp, lp2) and torch.equal(tok, tok2))
+    ok = (err <= 1e-3 and err_old <= 1e-3 and equal
+          and bool((tok[:, :-1] != tok[:, 1:]).all()))
+    b, by = bound_ms(h * v + v * 4 + t * h * 2 + t * k * 8, 2.0 * t * h * v)
+    row = {"kernel": "head_topk", "shape": name, "T": t, "H": h, "V": v,
+           "k": k, "max_abs_err": err, "vs_old_max_abs_err": err_old,
+           "equal_bits": equal,
+           "tolerance": "1e-3 abs on log-probs (f32 sums of H terms)",
+           "ok": ok, "bound_ms": b, "bound_by": by}
+    if flush is not None:
+        runs = [time_ms(lambda: f(x, q, s, k), flush)
+                for f in (head_topk_int8, head_topk_strip, head_topk_strip,
+                          head_topk_int8)]
+        w_bf16 = q.to(torch.bfloat16)
+        row.update({
+            "ms": (runs[0] + runs[3]) / 2, "old_ms": (runs[1] + runs[2]) / 2,
+            "runs_ms": runs,
+            "plain_ms": time_ms(lambda: head_topk_plain(x, q, s, k), flush,
+                                iters=5),
+            "library_ms": time_ms(lambda: torch.topk(torch.log_softmax(
+                (x @ q.to(torch.bfloat16)).float() * s, dim=-1), k), flush,
+                iters=10),
+            "bf16_matmul_ms": time_ms(lambda: torch.topk(torch.log_softmax(
+                (x @ w_bf16).float() * s, dim=-1), k), flush, iters=10)})
+    if not ok:
+        raise AssertionError(f"head_topk disagrees at {name}: {row}")
+    return row
+
+
+def _head_tie(x, q, s, dup):
+    """Column `dup` made a copy of row 0's best column: the two equal
+    logits must come out lowest token first, as the plain version has
+    them, from the kernel and from its old version."""
+    import torch
+    from flowspec_tpu_torch.ops.head_topk import (
+        head_logits, head_topk_int8, head_topk_plain, head_topk_strip)
+    from flowspec_tpu_torch.ops.quant import Int8Tensor
+    best = int(head_logits(x, Int8Tensor(q=q, scale=s))[0].argmax())
+    dup = dup(best)
+    q[:, dup] = q[:, best]
+    s[dup] = s[best]
+    want = sorted([best, dup])
+    for fn in (head_topk_int8, head_topk_strip):
+        _, tok = fn(x, q, s, 10)
+        _, want_tok = head_topk_plain(x, q, s, 10)
+        torch.cuda.synchronize()
+        if not torch.equal(tok, want_tok) or tok[0, :2].tolist() != want:
+            raise AssertionError(f"{fn.__name__} tie order: {tok} vs "
+                                 f"{want_tok}, want {want} first")
+    return {"best": best, "dup": dup}
+
+
+def check_head(dev, gen, flush, details):
+    """Head top-k at every HEAD_SHAPES row (timed) and HEAD_CHECKS row
+    (untimed), then the two ties."""
+    import torch
+
+    def operands(t, h, v):
+        q = torch.randint(-127, 128, (h, v), generator=gen,
+                          device=dev).to(torch.int8)
+        s = torch.full((v,), h ** -0.5 / 127.0, device=dev)
         x = (torch.randn((t, h), generator=gen, device=dev) * 5.0).to(
             torch.bfloat16)
-        lp, tok = head_topk_int8(x, q, s, k)
-        want_lp, want_tok = head_topk_plain(x, q, s, k)
-        torch.cuda.synchronize()
-        # tokens agree where the plain log-probs of the kernel's tokens are
-        # the plain top-k values (a kernel pick differing only at an f32
-        # summation-order near-tie is still a correct top-k)
-        logits = head_logits(x, Int8Tensor(q=q, scale=s))
-        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-        lp_of_tok = (logits.gather(1, tok.long()) - lse)
-        err = float(max((lp - want_lp).abs().max(),
-                        (lp_of_tok - want_lp).abs().max()))
-        ok = err <= 1e-3 and bool((tok[:, :-1] != tok[:, 1:]).all())
-        b, by = bound_ms(h * v + v * 4 + t * h * 2 + t * k * 8,
-                         2.0 * t * h * v)
-        row = {"kernel": "head_topk", "shape": name, "T": t, "H": h, "V": v,
-               "k": k, "max_abs_err": err,
-               "tolerance": "1e-3 abs on log-probs (f32 sums of H terms)",
-               "ok": ok,
-               "ms": time_ms(lambda: head_topk_int8(x, q, s, k), flush),
-               "plain_ms": time_ms(lambda: head_topk_plain(x, q, s, k), flush,
-                                   iters=5),
-               "library_ms": time_ms(lambda: torch.topk(torch.log_softmax(
-                   (x @ q.to(torch.bfloat16)).float() * s, dim=-1), k), flush,
-                   iters=10),
-               "bound_ms": b, "bound_by": by}
-        details.append(row)
-        rows[name] = row
-        if not ok:
-            raise AssertionError(f"head_topk disagrees at {name}: {row}")
-    # the tie case: the best column of a row copied into the last column;
-    # the two equal logits must come out lowest token first
-    x = torch.randn((1, h), generator=gen, device=dev).to(torch.bfloat16)
-    best = int(head_logits(x, Int8Tensor(q=q, scale=s))[0].argmax())
-    q[:, v - 1] = q[:, best]
-    s[v - 1] = s[best]
-    _, tok = head_topk_int8(x, q, s, k)
-    _, want_tok = head_topk_plain(x, q, s, k)
-    torch.cuda.synchronize()
-    if not torch.equal(tok, want_tok) or tok[0, :2].tolist() != [best, v - 1]:
-        raise AssertionError(f"head_topk tie order: {tok} vs {want_tok}, "
-                             f"want [{best}, {v - 1}] first")
+        return x, q, s
+
+    rows = {}
+    for name, t, h in HEAD_SHAPES:
+        x, q, s = operands(t, h, 32000)
+        rows[name] = _head_row(name, x, q, s, 10, flush)
+        details.append(rows[name])
+    for name, t, h, v, k in HEAD_CHECKS:
+        x, q, s = operands(t, h, v)
+        details.append(_head_row(name, x, q, s, k, None))
+    ties = {"inside_strip": _head_tie(
+                *operands(1, 4096, 32000),
+                lambda b: b - b % 128 + (b % 128 + 37) % 128),
+            "across_strips": _head_tie(
+                *operands(1, 4096, 32000), lambda b: (b + 128 * 97) % 32000)}
+    details.append({"kernel": "head_topk", "shape": "ties", **ties,
+                    "ok": True})
     return rows
 
 
@@ -539,7 +603,7 @@ def launch_counts():
     path)."""
     from flowspec_tpu_torch.ops import quant_matmul as qm
     from flowspec_tpu_torch.ops import tree_attention as ta
-    from flowspec_tpu_torch.ops.head_topk import head_topk
+    from flowspec_tpu_torch.ops.head_topk import head_topk, head_topk_strip
     return {"int8_matmul": qm.int8_matmul, "tree_attention": ta.tree_attention,
             "head_topk": head_topk, "nf4_matmul": qm.nf4_matmul,
             "int4_matmul": qm.int4_matmul,
@@ -547,74 +611,45 @@ def launch_counts():
             "int8_matmul_strip": qm.int8_matmul_strip,
             "nf4_matmul_strip": qm.nf4_matmul_strip,
             "int4_matmul_strip": qm.int4_matmul_strip,
-            "tree_attention_simt": ta.tree_attention_simt}
+            "tree_attention_simt": ta.tree_attention_simt,
+            "head_topk_strip": head_topk_strip,
+            "int4_matmul_splitk": qm.int4_matmul_splitk}
+
+
+def _matmul_kernel(w, m):
+    """The kernel a product of weight `w` at M = m launches (None for a
+    plain weight)."""
+    from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+    from flowspec_tpu_torch.ops.quant_matmul import SMALL_M
+    if type(w) is Int4Tensor:
+        return "int4_matmul_smallm" if m <= SMALL_M else "int4_matmul"
+    return {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul"}.get(type(w))
 
 
 def expected_per_round(eng) -> dict:
     """Launches per speculative round that the code implies: a base verify
-    pass (7 projections and one attention per layer), the draft context and
-    one pass per tree level (9 projections and one attention each, one head
-    top-k per level)."""
-    from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
-    names = {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul",
-             Int4Tensor: "int4_matmul"}
+    pass (7 projections and one attention per layer, node_cap rows), the
+    draft context and one pass per tree level (9 projections and one
+    attention each at top_k rows, one head top-k per level)."""
+    tree = eng.cfg.tree
     n_layers = eng.cfg.model.num_hidden_layers
-    passes = eng.cfg.tree.depth + 1
+    passes = tree.depth + 1
     out = {"tree_attention": n_layers + passes, "head_topk": passes}
-    lp = eng.params.layers
-    for w, n in ([(getattr(lp, f), n_layers) for f in
-                  ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
-                 + [(getattr(eng.draft, f), passes) for f in
-                    ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-                     "w_down", "w_out")]):      # w_out: None unless thin
-        if type(w) in names:            # plain weights launch no kernel
-            out[names[type(w)]] = out.get(names[type(w)], 0) + n
+    for w, m, n in ([(getattr(eng.params.layers, f), tree.node_cap, n_layers)
+                     for f in BASE_PROJ]
+                    + [(getattr(eng.draft, f), tree.top_k, passes) for f in
+                       ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up",
+                        "w_down", "w_out")]):     # w_out: None unless thin
+        kernel = _matmul_kernel(w, m)   # plain weights launch no kernel
+        if kernel is not None:
+            out[kernel] = out.get(kernel, 0) + n
     return out
 
 
-def round_sums(eng, kernel_rows, per_round) -> dict:
-    """Per kernel, one speculative round of `eng` as the sum over its shapes
-    of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
-    "old_ms" (redesigned kernels: their old version's ms)}}. A base verify pass runs the
-    7 projections and one attention per layer at node_cap rows; the draft
-    runs depth + 1 passes (the context pass, then one per tree level) of 9
-    projections, one attention and one head top-k at top_k rows (the root's
-    head call has one row). The launches spread over the shapes here must
-    add up, kernel by kernel, to `per_round`, the launches per round counted
-    on the serve path; a shape without a measured row raises."""
-    from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
-    names = {Int8Tensor: "int8_matmul", NF4Tensor: "nf4_matmul",
-             Int4Tensor: "int4_matmul"}
-    tree, mc = eng.cfg.tree, eng.cfg.model
-    n_layers, depth = mc.num_hidden_layers, tree.depth
-    items = []                                   # (kernel, row, launches)
-
-    def matmul(w, m, launches):
-        if type(w) not in names:                 # plain weights: no kernel
-            return
-        kernel = names[type(w)]
-        n_in = w.q.shape[-2] * (1 if kernel == "int8_matmul" else 2)
-        key = (m, n_in, w.q.shape[-1])
-        for row in kernel_rows[kernel].values():
-            if (row["M"], row["In"], row["Out"]) == key:
-                items.append((kernel, row, launches))
-                return
-        raise AssertionError(f"round_sums: no measured {kernel} row at "
-                             f"(M, In, Out) = {key}")
-
-    for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-        matmul(getattr(eng.params.layers, f), tree.node_cap, n_layers)
-    for f in ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-              "w_out"):
-        matmul(getattr(eng.draft, f), tree.top_k, depth + 1)
-    pre = "" if mc.hidden_size == 4096 else "13b_"
-    attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
-    items += [("tree_attention", attn[f"{pre}verify_T{tree.node_cap}"],
-               n_layers),
-              ("tree_attention", attn["draft_ctx_T9"], 1),
-              ("tree_attention", attn[f"beam_T{tree.top_k}"], depth),
-              ("head_topk", head[f"{pre}root_T1"], 1),
-              ("head_topk", head[f"{pre}beam_T{tree.top_k}"], depth)]
+def _sums(items, per_unit, what) -> dict:
+    """{kernel: {"launches", "ms", "bound_ms", "old_ms"}} over `items`
+    (kernel, measured row, launches); the launches must add up, kernel by
+    kernel, to `per_unit`, as the serve path counted them."""
     out = {}
     for kernel, row, n in items:
         o = out.setdefault(kernel, {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
@@ -624,11 +659,81 @@ def round_sums(eng, kernel_rows, per_round) -> dict:
         if "old_ms" in row:
             o["old_ms"] = o.get("old_ms", 0.0) + n * row["old_ms"]
     counted = {k: o["launches"] for k, o in out.items()}
-    if counted != {k: n for k, n in per_round.items() if n}:
-        raise AssertionError(f"round_sums spreads {counted} launches over "
-                             f"its shapes, the serve path counted "
-                             f"{per_round} a round")
+    if counted != {k: n for k, n in per_unit.items() if n}:
+        raise AssertionError(f"{what} spreads {counted} launches over its "
+                             f"shapes, the serve path counted {per_unit}")
     return out
+
+
+def _matmul_items(kernel_rows, items, w, m, launches):
+    """Append (kernel, row, launches) for weight `w` at M = m; a plain
+    weight launches nothing; a shape without a measured row raises."""
+    kernel = _matmul_kernel(w, m)
+    if kernel is None:
+        return
+    n_in = w.q.shape[-2] * (1 if kernel == "int8_matmul" else 2)
+    key = (m, n_in, w.q.shape[-1])
+    for row in kernel_rows[kernel].values():
+        if (row["M"], row["In"], row["Out"]) == key:
+            items.append((kernel, row, launches))
+            return
+    raise AssertionError(f"no measured {kernel} row at (M, In, Out) = {key}")
+
+
+def round_sums(eng, kernel_rows, per_round) -> dict:
+    """Per kernel, one speculative round of `eng` as the sum over its shapes
+    of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
+    "old_ms" (its old version's ms)}}. A base verify pass runs the 7
+    projections and one attention per layer at node_cap rows; the draft
+    runs depth + 1 passes (the context pass, then one per tree level) of 9
+    projections, one attention and one head top-k at top_k rows (the root's
+    head call has one row). The launches spread over the shapes here must
+    add up, kernel by kernel, to `per_round`, the launches per round counted
+    on the serve path; a shape without a measured row raises."""
+    tree, mc = eng.cfg.tree, eng.cfg.model
+    n_layers, depth = mc.num_hidden_layers, tree.depth
+    items = []                                   # (kernel, row, launches)
+    for f in BASE_PROJ:
+        _matmul_items(kernel_rows, items, getattr(eng.params.layers, f),
+                      tree.node_cap, n_layers)
+    for f in ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+              "w_out"):
+        _matmul_items(kernel_rows, items, getattr(eng.draft, f), tree.top_k,
+                      depth + 1)
+    pre = "" if mc.hidden_size == 4096 else "13b_"
+    attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
+    items += [("tree_attention", attn[f"{pre}verify_T{tree.node_cap}"],
+               n_layers),
+              ("tree_attention", attn["draft_ctx_T9"], 1),
+              ("tree_attention", attn[f"beam_T{tree.top_k}"], depth),
+              ("head_topk", head[f"{pre}root_T1"], 1),
+              ("head_topk", head[f"{pre}beam_T{tree.top_k}"], depth)]
+    return _sums(items, per_round, "round_sums")
+
+
+def expected_per_ar_step(eng) -> dict:
+    """Launches per autoregressive step that the code implies: one base pass
+    at M 1 (7 projections and one attention per layer)."""
+    n_layers = eng.cfg.model.num_hidden_layers
+    out = {"tree_attention": n_layers}
+    for f in BASE_PROJ:
+        kernel = _matmul_kernel(getattr(eng.params.layers, f), 1)
+        if kernel is not None:
+            out[kernel] = out.get(kernel, 0) + n_layers
+    return out
+
+
+def ar_step_sums(eng, kernel_rows, per_step) -> dict:
+    """`round_sums` for one autoregressive step: the base pass at M 1."""
+    mc = eng.cfg.model
+    items = []
+    for f in BASE_PROJ:
+        _matmul_items(kernel_rows, items, getattr(eng.params.layers, f), 1,
+                      mc.num_hidden_layers)
+    pre = "" if mc.hidden_size == 4096 else "13b_"
+    items.append(("tree_attention", kernel_rows["tree_attention"][
+        f"{pre}ar_T1"], mc.num_hidden_layers))
+    return _sums(items, per_step, "ar_step_sums")
 
 
 def launches_per_round(tag, launches, prefill, n_requests, rounds, expected):
@@ -709,6 +814,10 @@ def serve_config(tag, dev, counters, kernel_rows):
         ar_s.append(time.perf_counter() - t0)
         ar_out.append(ar[PROMPT_LEN:])
     ar_launches = {n: fn.launches for n, fn in counters.items()}
+    # generate_ar runs one base step per new token, after its prefill
+    per_step = launches_per_round(tag + " AR", ar_launches, prefill,
+                                  len(prompts), len(prompts) * new_tokens,
+                                  expected_per_ar_step(eng))
     matches, faults = [], []
     for p, spec, ar in zip(prompts, spec_out, ar_out):
         same = [a == b for a, b in zip(spec, ar)]
@@ -720,7 +829,9 @@ def serve_config(tag, dev, counters, kernel_rows):
     emit({"phase": "lossless" + suffix, "match_fraction": matches,
           "first_divergences": faults, "ar_tok_s": new / sum(ar_s),
           "ar_request_s": ar_s, "near_tie_gap": NEAR_TIE_GAP,
-          "ar_launches": ar_launches})
+          "ar_launches": ar_launches, "ar_launches_per_step": per_step,
+          "ar_step_ms": (ar_sums := ar_step_sums(eng, kernel_rows,
+                                                 per_step))})
     missing = [n for n in ON_AR[tag] if ar_launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: generate_ar never launched {missing}")
@@ -728,7 +839,8 @@ def serve_config(tag, dev, counters, kernel_rows):
     if real:
         raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
                              f"{real}")
-    return {n: launches[n] + ar_launches[n] for n in counters}, sums
+    return ({n: launches[n] + ar_launches[n] for n in counters}, sums,
+            ar_sums)
 
 
 def old_entry(kernel, rows, launches):
@@ -820,10 +932,10 @@ def main() -> int:
 
     # 4. the three configurations through the entry points, one at a time
     counters = launch_counts()
-    by_config, sums = {}, {}
+    by_config, sums, ar_sums = {}, {}, {}
     for tag in CONFIGS:
-        by_config[tag], sums[tag] = serve_config(tag, dev, counters,
-                                                 kernel_rows)
+        by_config[tag], sums[tag], ar_sums[tag] = serve_config(
+            tag, dev, counters, kernel_rows)
         torch.cuda.empty_cache()
     launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
     missing = [n for n in _build.KERNELS if launches[n] == 0]
@@ -845,6 +957,7 @@ def main() -> int:
          "launches_by_config": {t: c[n] for t, c in by_config.items()},
          # per configuration: one round's launches x ms, bounds, old ms
          "round_ms": {t: v[n] for t, v in sums.items() if n in v},
+         "ar_step_ms": {t: v[n] for t, v in ar_sums.items() if n in v},
          # a redesigned kernel's earlier version, an entry point of the same
          # library for comparison only (0 launches on every serve path),
          # timed in turns with it in this run

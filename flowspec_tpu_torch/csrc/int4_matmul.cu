@@ -24,8 +24,8 @@
 // multiplies by the block scale once -- the operand of `decode_pair<false>`
 // bit for bit at about four instructions a byte instead of ten. Int4 keeps
 // no table in shared memory (QmmTile<QMM_INT4>::LUT_BYTES is 0). Calls with
-// M <= 32 go to the split-K kernel in int4_matmul_smallm.cu instead (the
-// Python wrapper dispatches).
+// M <= 32 run the same instantiation from int4_matmul_smallm.cu, under that
+// library's entry point and launch count (the Python wrapper dispatches).
 //
 // The earlier design stays as `int4_matmul_strip`, for timing one against
 // the other in one run: one block per 64 output columns looping over all of

@@ -1,26 +1,37 @@
-// Linear int4 weight-only dequant-matmul for Hopper (sm_90a), the small-M
-// split-K kernel (M <= 32: autoregressive steps, draft chunks, short tails).
+// Linear int4 weight-only dequant-matmul for Hopper (sm_90a) at small M
+// (M <= 32: autoregressive steps, draft chunks, short tails).
 //
-// Replaces the TPU kernel flowspec_tpu/ops/quant_matmul.py:_int4_kfull_kernel
-// (called from :256 _int4_matmul_kfull, dispatched by :295 int4_matmul for
-// B*T <= 32). Same function as int4_matmul.cu: y = bf16( sum_f32 x * w ),
-// w = bf16( bf16(nibble - 8) * bf16(scale) ); only the order of the f32 sum
-// differs.
+// Replaces the TPU kernel flowspec_tpu/ops/quant_matmul.py:203
+// _int4_kfull_kernel (called from :256 _int4_matmul_kfull, dispatched by :295
+// int4_matmul for B*T <= 32). Same function as int4_matmul.cu: y = bf16(
+// sum_f32 x * w ), w = bf16( bf16(nibble - 8) * bf16(scale) ); only the order
+// of the f32 sum differs.
 //
-// Bound on the H100: device-memory bytes (at M = 1 two operations per
-// weight, four per packed byte). What the TPU kernel does with a grid over K
-// and an accumulator carried from step to step -- full-width contiguous
-// weight slabs -- is here a grid over (column strip, K split): at M <= 32 a
-// grid over columns alone gives 40 to 160 blocks of which each streams a
-// thin strip, and most of the 132 SMs' memory pipes sit idle. Splitting K
-// puts ~4 blocks on every SM, each reading whole 128-byte rows of its strip.
+// Bound on the H100: device-memory bytes. At M = 1 the product does two
+// operations per weight, four per packed byte: a 13B wq (5120 x 5120) reads
+// 13.1 MB of packed weights and 1.6 MB of scales, 4.4 us at 3.35 TB/s. What
+// the TPU kernel does with a grid over K and an accumulator carried from step
+// to step is here a grid over (column strip, K split): at M <= 32 a grid over
+// columns alone gives 40 to 160 blocks and most of the 132 SMs' memory pipes
+// sit idle.
 //
-// Blocks cannot carry a sum between them, and float atomics would make the
-// result depend on the order blocks finish. So pass 1 writes each split's
-// f32 partial (ksplit, M, Out) and pass 2 adds the splits in ascending
-// order and casts to bf16 once: the same bits on every launch.
+// Design (`int4_matmul_smallm`): the `QMM_INT4` instantiation of the
+// dequant-matmul skeleton (qmm_wgmma.cuh), the kernel int4_matmul.cu runs
+// above 32 rows, cut by `ops/quant_matmul.py matmul_plan`: width 16 up to 16
+// rows and 64 for 17-32, 128-column strips x K splits to two blocks an SM,
+// a 6-stage cp.async ring of the packed tile, its scale row and the x tile,
+// the table-free decode `i4_pair_bf16` in registers straight into `wgmma`,
+// and f32 partials added in ascending order by a reduce pass launched as a
+// programmatic dependent (no atomics: equal bits on every launch).
+//
+// The earlier design stays as `int4_matmul_splitk`, for timing one against
+// the other in one run: the same split-K grid (~4 blocks an SM, `split_k`) on
+// packed4_mma.cuh's main loop (mma.sync, B fragments from single-byte shared
+// loads and a 16-entry table decode), its reduce pass a plain second launch.
+// Nothing on the serving path calls it.
 
 #include "packed4_mma.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -101,13 +112,28 @@ void launch_nt(const void* x, const void* q, const void* scale, void* partial,
 
 }  // namespace
 
-// x (M, In) bf16 with M <= 32, q (In/2, Out) uint8, scale (In/64, Out) f32,
-// partial (ksplit, M, Out) f32 scratch -> y (M, Out) bf16. Split s sums the
-// 64-row blocks [s*chunk, (s+1)*chunk) with chunk = ceil(In/64 / ksplit).
-// Needs In % 64 == 0, Out % 32 == 0, ksplit >= 1 and 16-byte aligned x, q,
-// scale and partial (the Python wrapper checks). Returns cudaGetLastError()
-// after the two launches.
+// x (M, In) bf16 with M <= 32, q (In/2, Out) uint8, scale (In/64, Out) f32
+// -> y (M, Out) bf16 by the plan (bn, n, ksplit, chunk, stages) of
+// `ops/quant_matmul.py matmul_plan`; partial is (ksplit, M, Out) f32 scratch,
+// unused when ksplit == 1. Needs In % 64 == 0, Out % bn == 0 and 16-byte
+// aligned x, q, scale, partial and y (the Python wrapper checks). Returns the
+// first CUDA error.
 extern "C" int int4_matmul_smallm(const void* x, const void* q,
+                                  const void* scale, void* partial, void* y,
+                                  int M, int In, int Out, int bn, int n,
+                                  int ksplit, int chunk, int stages,
+                                  void* stream) {
+  return fs::qmm_matmul<fs::QMM_INT4>(x, q, scale, nullptr, partial, y, M,
+                                      In, Out, bn, n, ksplit, chunk, stages,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The earlier split-K kernel: the same operands, partial (ksplit, M, Out) f32
+// scratch. Split s sums the 64-row blocks [s*chunk, (s+1)*chunk) with chunk =
+// ceil(In/64 / ksplit). Needs In % 64 == 0, Out % 32 == 0, ksplit >= 1 and
+// 16-byte aligned x, q, scale and partial. Returns cudaGetLastError() after
+// the two launches.
+extern "C" int int4_matmul_splitk(const void* x, const void* q,
                                   const void* scale, void* partial, void* y,
                                   int M, int In, int Out, int ksplit,
                                   void* stream) {

@@ -1,4 +1,5 @@
-// Shared main loop of the int8 weight-only kernels (int8_matmul.cu,
+// Shared main loop of the earlier int8 kernels, kept for comparison only
+// (`int8_matmul_strip` in int8_matmul.cu, `head_topk_strip` in
 // head_topk.cu): acc += x[m0:m0+16*MT, :] @ bf16(q[:, n0:n0+32*NT]) with
 // bf16 tensor-core mma.sync (m16n8k16) and f32 accumulation.
 //

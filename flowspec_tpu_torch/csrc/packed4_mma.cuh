@@ -1,5 +1,6 @@
-// Shared main loop of the packed 4-bit weight-only kernels (nf4_matmul.cu,
-// int4_matmul.cu, int4_matmul_smallm.cu):
+// Shared main loop of the earlier packed 4-bit weight-only kernels, kept for
+// comparison only (`nf4_matmul_strip` in nf4_matmul.cu, `int4_matmul_strip`
+// in int4_matmul.cu, `int4_matmul_splitk` in int4_matmul_smallm.cu):
 //   acc += x[m0:m0+16*MT, k] @ w[k, n0:n0+32*NT]   for k in 64-row blocks
 //                                                   [kb0, kb1)
 // with w decoded on the fly from the packed bytes, bf16 tensor-core mma.sync

@@ -1,6 +1,7 @@
 // Skeleton of the weight-only dequant-matmuls redesigned for Hopper
-// (int8_matmul.cu, nf4_matmul.cu, int4_matmul.cu): split-K over the whole
-// card, a deep cp.async ring in dynamic shared memory, and warpgroup tensor-core products
+// (int8_matmul.cu, nf4_matmul.cu, int4_matmul.cu, int4_matmul_smallm.cu) and
+// of the fused head top-k (head_topk.cu): split-K over the whole card, a deep
+// cp.async ring in dynamic shared memory, and warpgroup tensor-core products
 // (`wgmma`) on the transposed problem with the weight as the register operand.
 //
 //   partial[split][m][n] = sum over the split's 64-row blocks of x[m][k] * w[k][n]
@@ -52,6 +53,10 @@
 // programmatic dependent launch: it is set up while the main grid runs and
 // waits for all of it (`griddepcontrol.wait`) before it reads. With one
 // split the main kernel writes bf16 itself.
+//
+// The main loop (`qmm_mainloop`) is a device function of its own, so that a
+// kernel with another epilogue runs the same loop: `qmm_kernel` writes the
+// product, head_topk.cu's kernel the per-strip softmax partials and top-k.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -229,39 +234,40 @@ __device__ __forceinline__ uint32_t i4_pair_bf16(uint32_t w, int j,
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// FMT: QMM_INT8 (q (In, Out) int8, scale (Out,) applied by the epilogue or
-// the reduce pass), QMM_NF4 / QMM_INT4 (q (In/2, Out) packed, scale (In/64,
-// Out) folded into the operand). N: rows of x a block covers (the wgmma
-// width). STAGES: ring slots; STAGES - 2 blocks are in flight behind the one
-// being decoded. Requires In % 64 == 0, Out % bn == 0, bn in {32, 64, 128},
-// 16-byte aligned x, q, scale, partial and y, blockDim.x == 128 and
-// QmmTile<FMT>::smem_bytes(N, STAGES) of dynamic shared memory. gridDim.y > 1
-// writes f32 partials (gridDim.y, M, Out); gridDim.y == 1 writes y (M, Out)
-// bf16.
+// The first 1024-byte aligned byte of a kernel's dynamic shared memory (the
+// x tiles need it); pointers stay derived from the shared array so that loads
+// compile to shared-memory loads.
+__device__ __forceinline__ uint8_t* smem_align1024(uint8_t* raw) {
+  return raw + ((1024u - (static_cast<uint32_t>(__cvta_generic_to_shared(raw)) &
+                          1023u)) & 1023u);
+}
+
+// The main loop of every kernel on this skeleton: acc = the block's f32 sum
+// over the 64-row blocks [kb0, kb0 + nk) of x rows [m0, m0 + N) times the
+// weight columns [n0, n0 + bn), in the transposed layout the epilogues read
+// (register 4c+i of tile t: x row 8c + 2*t4 + (i&1), column
+// 32w + 4g + 2t + (i>>1)). Rows past M read as zeros. FMT: QMM_INT8 (q (In,
+// Out) int8, its per-column scale left to the caller), QMM_NF4 / QMM_INT4 (q
+// (In/2, Out) packed, scale (In/64, Out) folded into the operand). N: rows of
+// x a block covers (the wgmma width). STAGES: ring slots at `sx` (1024-byte
+// aligned, QmmTile<FMT>::smem_bytes(N, STAGES) - 1024 bytes); STAGES - 2
+// blocks are in flight behind the one being decoded. Needs nk >= 1, In % 64
+// == 0, bn in {32, 64, 128}, 16-byte aligned x, q and scale, and
+// blockDim.x == 128. On return every copy and product has ended; the ring is
+// free once the block has passed a barrier.
 template <int FMT, int N, int STAGES>
-__global__ void __launch_bounds__(128)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-           const float* __restrict__ scale,
-           const __nv_bfloat16* __restrict__ code, float* __restrict__ partial,
-           __nv_bfloat16* __restrict__ y, int M, int In, int Out, int bn,
-           int chunk) {
+__device__ __forceinline__ void qmm_mainloop(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+    const float* __restrict__ scale, const __nv_bfloat16* __restrict__ code,
+    uint8_t* sx, int M, int In, int Out, int bn, int n0, int m0, int kb0,
+    int nk, float (&acc)[2][N / 2]) {
   using T = QmmTile<FMT>;
-  extern __shared__ __align__(16) uint8_t qmm_smem_raw[];
-  // the first x tile 1024-byte aligned; pointers stay derived from the
-  // shared array so that loads compile to shared-memory loads
-  uint8_t* sx = qmm_smem_raw +
-      ((1024u - (static_cast<uint32_t>(__cvta_generic_to_shared(qmm_smem_raw)) &
-                 1023u)) & 1023u);
   uint8_t* sw = sx + STAGES * (N * 128);
   uint8_t* ss = sw + STAGES * T::W_BYTES;
   uint32_t* lut = reinterpret_cast<uint32_t*>(ss + STAGES * T::S_BYTES);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * bn, m0 = blockIdx.z * N;
-  const int nkb = In / BK;
-  const int kb0 = min(static_cast<int>(blockIdx.y) * chunk, nkb);
-  const int nk = min(kb0 + chunk, nkb) - kb0;
 
   // A thread copies the same 16-byte column (lc) of rows lr, lr+16, ... of
   // every tile, so sources and destinations are one base plus a constant
@@ -300,8 +306,8 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     if (s < nk) load(s, kb0 + s);
     cp_async_commit();
   }
-  // the reduce pass may be set up while this grid runs; it waits for the
-  // whole grid before it reads a partial
+  // the dependent pass (reduce, head merge) may be set up while this grid
+  // runs; it waits for the whole grid before it reads a partial
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   // nf4: both codes of a packed byte in one lookup. lut[b][r] holds
@@ -384,9 +390,8 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     }
   };
 
-  // not initialised: the first product of each tile (block 0, step 0; a
-  // split is never empty) runs with scale-d 0 and overwrites it
-  float acc[2][N / 2];
+  // `acc` is not initialised: the first product of each tile (block 0,
+  // step 0; a split is never empty) runs with scale-d 0 and overwrites it.
 
   // One step: the products of block kc go to the tensor cores from `cur`,
   // and while they run block kc+1 is awaited and decoded into `nxt`. Two
@@ -429,6 +434,31 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
+}
+
+// The dequant-matmul: y = x @ w (x (M, In) bf16) by the plan's split. Needs
+// what `qmm_mainloop` needs, Out % bn == 0, 16-byte aligned partial and y,
+// and QmmTile<FMT>::smem_bytes(N, STAGES) of dynamic shared memory.
+// gridDim.y > 1 writes f32 partials (gridDim.y, M, Out); gridDim.y == 1
+// writes y (M, Out) bf16 (int8: times the per-column scale).
+template <int FMT, int N, int STAGES>
+__global__ void __launch_bounds__(128)
+qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+           const float* __restrict__ scale,
+           const __nv_bfloat16* __restrict__ code, float* __restrict__ partial,
+           __nv_bfloat16* __restrict__ y, int M, int In, int Out, int bn,
+           int chunk) {
+  extern __shared__ __align__(16) uint8_t qmm_smem_raw[];
+  const int nkb = In / BK;
+  const int kb0 = min(static_cast<int>(blockIdx.y) * chunk, nkb);
+  const int n0 = blockIdx.x * bn, m0 = blockIdx.z * N;
+  float acc[2][N / 2];
+  qmm_mainloop<FMT, N, STAGES>(x, q, scale, code, smem_align1024(qmm_smem_raw),
+                               M, In, Out, bn, n0, m0, kb0,
+                               min(kb0 + chunk, nkb) - kb0, acc);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
   // Epilogue. Accumulator register 4c+i of tile t: x row 8c + 2*t4 + (i&1),
   // column 32w + 4g + 2t + (i>>1); for one x row the lane holds four
@@ -514,25 +544,59 @@ qmm_reduce_kernel(const float* __restrict__ partial,
   reinterpret_cast<uint2*>(y)[i] = v;
 }
 
-template <int FMT, int N, int STAGES>
-cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
-                       const void* code, void* partial, void* y, int M, int In,
-                       int Out, int bn, int ksplit, int chunk,
-                       cudaStream_t stream) {
-  // dynamic shared memory above 48 KB is an opt-in per kernel and device,
-  // made once for each
-  static bool allowed[64] = {};
-  constexpr int smem = QmmTile<FMT>::smem_bytes(N, STAGES);
+// The host side has internal linkage (an unnamed namespace): each library
+// that includes this header instantiates its own kernels and must make its
+// own shared-memory opt-in for them. A `static` in a template of external
+// linkage is one object for the whole process (STB_GNU_UNIQUE), whichever
+// library set it; two libraries built with the same instantiation would
+// share one flag, and the second would launch without its opt-in.
+namespace {
+
+// Dynamic shared memory above 48 KB is an opt-in per kernel and device,
+// made once for each: `allowed` is the kernel's own set of flags.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, bool (&allowed)[64]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64 || !allowed[dev]) {
-    e = cudaFuncSetAttribute(qmm_kernel<FMT, N, STAGES>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return e;
     if (dev >= 0 && dev < 64) allowed[dev] = true;
   }
+  return cudaSuccess;
+}
+
+// Launch `kernel` (with `smem` bytes of dynamic shared memory) as a
+// programmatic dependent of the kernel before it on `st`: its blocks may be
+// set up while that grid runs, and its `griddepcontrol.wait` orders the data.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                             size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+template <int FMT, int N, int STAGES>
+cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
+                       const void* code, void* partial, void* y, int M, int In,
+                       int Out, int bn, int ksplit, int chunk,
+                       cudaStream_t stream) {
+  static bool allowed[64] = {};
+  constexpr int smem = QmmTile<FMT>::smem_bytes(N, STAGES);
+  cudaError_t e = allow_smem(qmm_kernel<FMT, N, STAGES>, smem, allowed);
+  if (e != cudaSuccess) return e;
   dim3 grid(Out / bn, ksplit, (M + N - 1) / N);
   qmm_kernel<FMT, N, STAGES><<<grid, 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
@@ -545,8 +609,9 @@ cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
 // One product by the plan (bn, n, ksplit, chunk, stages); `partial` is
 // (ksplit, M, Out) f32 scratch, unused when ksplit == 1. (n, stages) must be
 // one of the four instantiated pairs below, one ring per width
-// (`ops/quant_matmul.py WGMMA_STAGES` lists the same). Returns the first CUDA error of its calls, or
-// cudaErrorInvalidValue for a plan the kernel does not take.
+// (`ops/quant_matmul.py WGMMA_STAGES` lists the same). Returns the first CUDA
+// error of its calls, or cudaErrorInvalidValue for a plan the kernel does not
+// take.
 template <int FMT>
 int qmm_matmul(const void* x, const void* q, const void* scale,
                const void* code, void* partial, void* y, int M, int In,
@@ -569,23 +634,15 @@ int qmm_matmul(const void* x, const void* q, const void* scale,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (ksplit > 1) {
     const int n_quads = M * (Out / 4);
-    // programmatic dependent launch: the reduce grid's launch overlaps the
-    // main grid's tail; its `griddepcontrol.wait` orders the data
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((n_quads + 255) / 256);
-    cfg.blockDim = dim3(256);
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(
-        &cfg, qmm_reduce_kernel, static_cast<const float*>(partial),
+    // the reduce grid's launch overlaps the main grid's tail
+    e = launch_dependent(
+        qmm_reduce_kernel, dim3((n_quads + 255) / 256), dim3(256), 0, st,
+        static_cast<const float*>(partial),
         FMT == QMM_INT8 ? static_cast<const float*>(scale) : nullptr,
         static_cast<__nv_bfloat16*>(y), n_quads, ksplit, Out);
   }
   return static_cast<int>(e);
 }
 
+}  // namespace
 }  // namespace fs

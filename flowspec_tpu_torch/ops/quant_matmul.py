@@ -12,16 +12,19 @@ scale (In/64, Out) f32 one value per 64 rows per column. The operand is
 decoded **in bf16**, as the TPU kernels do:
 `w = bf16(bf16(value) * bf16(scale))` with value = nibble - 8 (int4) or
 `NF4_CODE[nibble]` (nf4), then `y = cast(sum_f32 x * w)`. This differs from
-the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The three
+the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The
 kernels compute this one function and differ only in the order of the f32
-sum; `int4_matmul` sends calls of at most 32 rows to the split-K kernel.
+sum.
 
-`int8_matmul`, `nf4_matmul` and `int4_matmul` (above 32 rows) run the
-split-K `wgmma` kernels (`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan`
-gives for the shape and format: column strips x K splits over the whole
-card, f32 partials added in ascending order, so the bits are the same on
-every launch. `int8_matmul_strip`, `nf4_matmul_strip` and
-`int4_matmul_strip` are the earlier one-strip-per-block kernels, kept for
+`int8_matmul`, `nf4_matmul` and `int4_matmul` run the split-K `wgmma`
+kernels (`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan` gives for the shape
+and format: column strips x K splits over the whole card, f32 partials added
+in ascending order, so the bits are the same on every launch. `int4_matmul`
+sends calls of at most 32 rows (`SMALL_M`, the JAX package's cut) to
+`int4_matmul_smallm`, the same `wgmma` kernel built in the small-M library
+and counted apart. `int8_matmul_strip`, `nf4_matmul_strip` and
+`int4_matmul_strip` (the earlier one-strip-per-block kernels) and
+`int4_matmul_splitk` (the earlier small-M `mma.sync` kernel) are kept for
 comparison only: nothing on the serving path calls them.
 
 On a CUDA tensor every wrapper launches its kernel (bf16 activations) or
@@ -38,8 +41,8 @@ import torch
 from flowspec_tpu_torch.ops import _build
 from flowspec_tpu_torch.ops.quant import NF4_BLOCK, NF4_CODE, unpack_nf4
 
-SMALL_M = 32            # int4 calls of at most this many rows use split-K
-SPLITK_BLOCKS = 4 * 132  # blocks the split-K grid aims for (4 per SM)
+SMALL_M = 32            # int4 calls of at most this many rows: small-M entry
+SPLITK_BLOCKS = 4 * 132  # blocks the earlier small-M grid aims for (4 per SM)
 
 # ---- the split plan of the wgmma kernels (csrc/qmm_wgmma.cuh) --------------
 N_SMS = 132                   # H100 SXM
@@ -325,9 +328,9 @@ nf4_matmul_strip.launches = 0
 def int4_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x (B, T, In) @ Int4(q (In/2, Out) packed u8, scale (In/64, Out))
-    -> (B, T, Out). Calls of at most SMALL_M rows go to the small-M
-    split-K kernel (`int4_matmul_smallm`), wider ones to the wgmma kernel;
-    `launches` counts the wgmma kernel only."""
+    -> (B, T, Out). Calls of at most SMALL_M rows go to
+    `int4_matmul_smallm`, wider ones to `int4_matmul_wide`: the same wgmma
+    kernel in two libraries; `launches` counts the wide calls only."""
     _check_packed4("int4_matmul", x, q, scale)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q, scale)
@@ -363,10 +366,31 @@ def int4_matmul_strip(x: torch.Tensor, q: torch.Tensor,
 int4_matmul_strip.launches = 0
 
 
+def _check_small_m(name, x):
+    rows = x.shape[0] * x.shape[1]
+    if rows > SMALL_M:
+        raise ValueError(f"{name} takes at most {SMALL_M} rows, got {rows}")
+
+
+def int4_matmul_smallm(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """The same product for B*T <= SMALL_M rows: the wgmma kernel by
+    `matmul_plan` (width 16 up to 16 rows, 64 for 17-32), built in the
+    small-M library and counted here."""
+    _check_packed4("int4_matmul_smallm", x, q, scale)
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q, scale)
+    _check_small_m("int4_matmul_smallm", x)
+    return _launch_planned(int4_matmul_smallm, x, q, scale, "int4")
+
+
+int4_matmul_smallm.launches = 0
+
+
 def split_k(n_in: int, n_out: int) -> int:
-    """How many K splits the small-M kernel runs: enough that column strips
-    (128 columns where Out allows) x splits reach SPLITK_BLOCKS, every split
-    a whole number of 64-row blocks and none empty."""
+    """How many K splits the earlier small-M kernel runs: enough that column
+    strips (128 columns where Out allows) x splits reach SPLITK_BLOCKS, every
+    split a whole number of 64-row blocks and none empty."""
     if n_in % NF4_BLOCK or n_out % 32:
         raise ValueError(f"split_k needs In % {NF4_BLOCK} == 0 and "
                          f"Out % 32 == 0, got In={n_in} Out={n_out}")
@@ -377,23 +401,21 @@ def split_k(n_in: int, n_out: int) -> int:
     return -(-nkb // chunk)
 
 
-def int4_matmul_smallm(x: torch.Tensor, q: torch.Tensor,
+def int4_matmul_splitk(x: torch.Tensor, q: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-    """The same product for B*T <= SMALL_M rows through the split-K kernel:
-    f32 partials per split, added in ascending order by a second pass (no
-    atomics: equal bits on every launch)."""
-    _check_packed4("int4_matmul_smallm", x, q, scale)
+    """The same product for B*T <= SMALL_M rows through the earlier split-K
+    kernel (mma.sync; f32 partials per split added in ascending order by a
+    second pass: equal bits on every launch). For comparison only."""
+    _check_packed4("int4_matmul_splitk", x, q, scale)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q, scale)
+    _check_small_m("int4_matmul_splitk", x)
     rows, n_out = x.shape[0] * x.shape[1], q.shape[1]
-    if rows > SMALL_M:
-        raise ValueError(f"int4_matmul_smallm takes at most {SMALL_M} rows, "
-                         f"got {rows}")
     ksplit = split_k(x.shape[2], n_out)
     partial = torch.empty((ksplit, rows, n_out), dtype=torch.float32,
                           device=x.device)
-    return _launch4(int4_matmul_smallm, x, q, scale, ptrs=(partial,),
-                    ints=(ksplit,))
+    return _launch4(int4_matmul_splitk, x, q, scale, ptrs=(partial,),
+                    ints=(ksplit,), lib="int4_matmul_smallm")
 
 
-int4_matmul_smallm.launches = 0
+int4_matmul_splitk.launches = 0

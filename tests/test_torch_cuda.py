@@ -11,22 +11,24 @@ tests). On a machine with a card and the CUDA toolkit:
 use.) Tolerances: int8, nf4, int4 and attention outputs are bf16, compared
 at one bf16 rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head
 log-probs are f32 sums of H terms, compared at 1e-3. The split-K kernels
-(int8, nf4, int4, small-M int4) and the cluster-joined tree attention must
-give equal bits on every launch (no atomics); the redesigned kernels (int8,
-nf4, int4 wide, tree attention) are also held against their earlier
-versions (`*_strip`, `tree_attention_simt`), whose launches count apart.
+(int8, nf4, int4, small-M int4), the head top-k and the cluster-joined tree
+attention must give equal bits on every launch (no atomics); all six are
+also held against their earlier versions (`*_strip`, `int4_matmul_splitk`,
+`tree_attention_simt`, `head_topk_strip`), whose launches count apart.
 """
 
 import pytest
 import torch
 
 from flowspec_tpu_torch.ops.head_topk import (
-    head_logits, head_topk, head_topk_int8, head_topk_plain)
+    head_logits, head_plan, head_topk, head_topk_int8, head_topk_plain,
+    head_topk_strip)
 from flowspec_tpu_torch.ops.quant import Int8Tensor
 from flowspec_tpu_torch.ops.quant_matmul import (
-    int4_matmul, int4_matmul_plain, int4_matmul_smallm, int4_matmul_strip,
-    int4_matmul_wide, int8_matmul, int8_matmul_plain, int8_matmul_strip,
-    matmul_plan, nf4_matmul, nf4_matmul_plain, nf4_matmul_strip)
+    int4_matmul, int4_matmul_plain, int4_matmul_smallm, int4_matmul_splitk,
+    int4_matmul_strip, int4_matmul_wide, int8_matmul, int8_matmul_plain,
+    int8_matmul_strip, matmul_plan, nf4_matmul, nf4_matmul_plain,
+    nf4_matmul_strip)
 from flowspec_tpu_torch.ops.tree_attention import (
     attention_plan, kernel_keys, live_keys, tree_attention,
     tree_attention_plain, tree_attention_simt)
@@ -160,24 +162,61 @@ def test_int4_matmul_wide_matches_plain(cuda, m, n_in, n_out):
     assert ok, err
 
 
-# split-K kernel: 13B wq, the 7B w_down whose half-In has no divisor that is
-# a multiple of 256, strips of 32 / 64 / 128 columns, a single 64-row block
+# small-M entry: 13B wq, the 7B w_down whose half-In has no divisor that is
+# a multiple of 256, strips of 32 / 64 / 128 columns, a single 64-row block,
+# both widths (16 up to 16 rows, 64 above); against the plain version and the
+# earlier split-K kernel
 @pytest.mark.parametrize("m,n_in,n_out", [
     (1, 64, 32), (5, 128, 96), (17, 256, 64), (1, 5120, 5120),
-    (9, 5120, 5120), (32, 5120, 5120), (1, 11008, 4096), (10, 10240, 1280)])
+    (9, 5120, 5120), (16, 5120, 5120), (17, 5120, 5120), (32, 5120, 5120),
+    (1, 11008, 4096), (10, 10240, 1280)])
 def test_int4_matmul_smallm_matches_plain_with_equal_bits(cuda, m, n_in,
                                                           n_out):
     x, q, s = _packed4(cuda, m, n_in, n_out, 1 / 7)
-    before = int4_matmul.launches, int4_matmul_smallm.launches
+    counters = (int4_matmul, int4_matmul_smallm, int4_matmul_splitk)
+    before = [c.launches for c in counters]
     got = int4_matmul(x, q, s)            # dispatches on M <= 32
     again = int4_matmul_smallm(x, q, s)
+    old = int4_matmul_splitk(x, q, s)
     want = int4_matmul_plain(x, q, s)
     torch.cuda.synchronize()
-    assert (int4_matmul.launches, int4_matmul_smallm.launches) == (
-        before[0], before[1] + 2)
+    assert [c.launches for c in counters] == [before[0], before[1] + 2,
+                                              before[2] + 1]
     ok, err = _close(got, want)
+    assert ok, (err, matmul_plan(m, n_in, n_out, "int4"))
+    ok, err = _close(got, old)
     assert ok, err
     assert torch.equal(got, again)        # fixed-order reduction
+
+
+def test_two_libraries_with_one_instantiation_each_opt_in(cuda):
+    # the width-64 int4 kernel (77 KB of dynamic shared memory) is built in
+    # the wide and in the small-M library; each must make its own opt-in,
+    # whichever launches first
+    x, q, s = _packed4(cuda, 17, 256, 128, 1 / 7)
+    want = int4_matmul_plain(x, q, s)
+    for fn in (int4_matmul_wide, int4_matmul_smallm, int4_matmul_wide):
+        ok, err = _close(fn(x, q, s), want)
+        assert ok, err
+
+
+def test_small_m_int4_counts_under_smallm_and_old_entries_stay_at_zero(cuda):
+    olds = (int4_matmul_strip, int4_matmul_splitk, int8_matmul_strip,
+            nf4_matmul_strip, head_topk_strip, tree_attention_simt)
+    before = [c.launches for c in olds]
+    n = int4_matmul.launches, int4_matmul_smallm.launches
+    for m in (1, 9, 16, 17, 32, 33):
+        x, q, s = _packed4(cuda, m, 256, 128, 1 / 7)
+        int4_matmul(x, q, s)
+    x = torch.randn((10, 256), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    head_topk(x, Int8Tensor(q=torch.ones((256, 1024), dtype=torch.int8,
+                                         device="cuda"),
+                            scale=torch.ones((1024,), device="cuda")), 4)
+    torch.cuda.synchronize()
+    assert (int4_matmul.launches, int4_matmul_smallm.launches) == (
+        n[0] + 1, n[1] + 5)
+    assert [c.launches for c in olds] == before
 
 
 def _attn(gen, nq, nkv, t, s_max, d, n_valid):
@@ -233,27 +272,47 @@ def test_tree_attention_new_vs_plain_vs_simt_equal_bits(cuda, g, d, t,
     assert torch.equal(got, again)        # the cluster joins in fixed order
 
 
-@pytest.mark.parametrize("t,h,v,k", [(1, 4096, 32000, 10), (10, 4096, 32000, 10),
-                                     (17, 256, 2048, 5), (40, 128, 1024, 16)])
-def test_head_topk_matches_plain(cuda, t, h, v, k):
-    x = (torch.randn((t, h), generator=cuda, device="cuda") * 4).to(
+def _head(gen, t, h, v, scale=4.0):
+    x = (torch.randn((t, h), generator=gen, device="cuda") * scale).to(
         torch.bfloat16)
-    q = torch.randint(-127, 128, (h, v), generator=cuda,
+    q = torch.randint(-127, 128, (h, v), generator=gen,
                       device="cuda").to(torch.int8)
     s = torch.full((v,), h ** -0.5 / 127.0, device="cuda")
-    before = head_topk.launches
+    return x, q, s
+
+
+def _plain_lp_of(x, q, s, tok):
+    logits = head_logits(x, Int8Tensor(q=q, scale=s))
+    return logits.gather(1, tok.long()) - torch.logsumexp(
+        logits, -1, keepdim=True)
+
+
+# the path's T 1 and 10, both sides of the width boundary (16 / 17), a
+# second row tile (65), 17 strips, k 1 and k 128, and k 32 at V 32000, whose
+# 64 KB of keys a row the merge reads from device memory instead of staging
+@pytest.mark.parametrize("t,h,v,k", [
+    (1, 4096, 32000, 10), (10, 4096, 32000, 10), (16, 4096, 32000, 10),
+    (17, 4096, 32000, 10), (10, 5120, 32000, 10), (17, 256, 2048, 5),
+    (40, 128, 1024, 16), (65, 256, 2176, 10), (10, 4096, 2176, 1),
+    (3, 128, 256, 128), (4, 256, 32000, 32)])
+def test_head_topk_matches_plain(cuda, t, h, v, k):
+    x, q, s = _head(cuda, t, h, v)
+    before = head_topk.launches, head_topk_strip.launches
     lp, tok = head_topk(x, Int8Tensor(q=q, scale=s), k)
+    lp2, tok2 = head_topk_int8(x, q, s, k)
+    old_lp, _ = head_topk_strip(x, q, s, k)
     want_lp, _ = head_topk_plain(x, q, s, k)
     torch.cuda.synchronize()
-    assert head_topk.launches == before + 1
+    assert (head_topk.launches, head_topk_strip.launches) == (
+        before[0] + 2, before[1] + 1)
     # the kernel's tokens carry exactly the plain top-k log-probs (a pick
     # that differs only at an f32 summation-order near-tie is still exact)
-    logits = head_logits(x, Int8Tensor(q=q, scale=s))
-    lp_of_tok = logits.gather(1, tok.long()) - torch.logsumexp(
-        logits, -1, keepdim=True)
-    assert float((lp - want_lp).abs().max()) <= 1e-3
-    assert float((lp_of_tok - want_lp).abs().max()) <= 1e-3
+    plan = head_plan(t, h, v)
+    assert float((lp - want_lp).abs().max()) <= 1e-3, plan
+    assert float((_plain_lp_of(x, q, s, tok) - want_lp).abs().max()) <= 1e-3
+    assert float((lp - old_lp).abs().max()) <= 1e-3
     assert bool((tok[:, :-1] != tok[:, 1:]).all())
+    assert torch.equal(lp, lp2) and torch.equal(tok, tok2)   # no atomics
 
 
 def test_head_topk_tie_goes_to_lowest_index(cuda):
@@ -273,6 +332,22 @@ def test_head_topk_tie_goes_to_lowest_index(cuda):
     assert lp[0, 0] == lp[0, 1] == lp[0, 2]
 
 
+@pytest.mark.parametrize("where", ["inside_strip", "across_strips"])
+@pytest.mark.parametrize("fn", [head_topk_int8, head_topk_strip])
+def test_head_topk_ties_inside_and_across_strips(cuda, where, fn):
+    x, q, s = _head(cuda, 2, 4096, 32000, scale=1.0)
+    best = int(head_logits(x, Int8Tensor(q=q, scale=s))[1].argmax())
+    dup = (best - best % 128 + (best % 128 + 37) % 128
+           if where == "inside_strip" else (best + 128 * 97) % 32000)
+    q[:, dup], s[dup] = q[:, best], s[best]
+    lp, tok = fn(x, q, s, 10)
+    _, want_tok = head_topk_plain(x, q, s, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(tok[1], want_tok[1])
+    assert tok[1, :2].tolist() == sorted([best, dup])
+    assert lp[1, 0] == lp[1, 1]
+
+
 def test_wrappers_refuse_instead_of_falling_back(cuda):
     x = torch.randn((1, 4, 64), device="cuda")              # f32, not bf16
     q = torch.zeros((64, 32), dtype=torch.int8, device="cuda")
@@ -289,8 +364,11 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         with pytest.raises(TypeError):                      # f32 q
             fn(qa[..., :64].float().contiguous(), kv[..., :64].contiguous(),
                kv[..., :64].contiguous(), torch.zeros((3, 256), device="cuda"))
-    with pytest.raises(TypeError):
-        head_topk_int8(x[0], q, s, 4)
+    for fn in (head_topk_int8, head_topk_strip):
+        with pytest.raises(TypeError):                      # f32 x
+            fn(x[0], q, s, 4)
+        with pytest.raises(ValueError):                     # V % 128 != 0
+            fn(x[0].bfloat16(), q, s, 4)
     q4 = torch.zeros((32, 32), dtype=torch.uint8, device="cuda")
     s4 = torch.ones((1, 32), device="cuda")
     with pytest.raises(TypeError):                          # f32 x
@@ -300,17 +378,19 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                         # misaligned scale
         int8_matmul(x.bfloat16(), q, torch.ones((33,), device="cuda")[1:])
     counters = (int8_matmul, nf4_matmul, int4_matmul, int4_matmul_strip,
-                tree_attention, tree_attention_simt)
+                int4_matmul_smallm, int4_matmul_splitk, tree_attention,
+                tree_attention_simt, head_topk, head_topk_strip)
     before = [c.launches for c in counters]
     for fn in (nf4_matmul, nf4_matmul_strip, int4_matmul, int4_matmul_smallm,
-               int4_matmul_wide, int4_matmul_strip):
+               int4_matmul_wide, int4_matmul_strip, int4_matmul_splitk):
         with pytest.raises(TypeError):                      # f32 x
             fn(x, q4, s4)
         with pytest.raises(ValueError):                     # Out % 32 != 0
             fn(x.bfloat16(), q4[:, :24].contiguous(),
                s4[:, :24].contiguous())
-    with pytest.raises(ValueError):                         # 40 rows
-        int4_matmul_smallm(torch.zeros((1, 40, 64), dtype=torch.bfloat16,
-                                       device="cuda"), q4, s4)
+    for fn in (int4_matmul_smallm, int4_matmul_splitk):
+        with pytest.raises(ValueError):                     # 40 rows
+            fn(torch.zeros((1, 40, 64), dtype=torch.bfloat16,
+                           device="cuda"), q4, s4)
     # a refusal launches nothing, neither the kernel nor a stand-in for it
     assert [c.launches for c in counters] == before

@@ -27,10 +27,11 @@ from flowspec_tpu.ops import quant as jquant
 from flowspec_tpu.ops import quant_matmul as jqm
 from flowspec_tpu.ops.tree_attention import tree_attention as j_tree_attention
 from flowspec_tpu_torch.ops import _build
+from flowspec_tpu_torch.ops import head_topk as thead
 from flowspec_tpu_torch.ops.head_topk import head_topk, head_topk_plain
 from flowspec_tpu_torch.ops.quant import (
     Int8Tensor, dequantize, qmatmul, quantize_int8)
-from flowspec_tpu_torch.ops.quant_matmul import int8_matmul
+from flowspec_tpu_torch.ops.quant_matmul import WGMMA_STAGES, int8_matmul
 from flowspec_tpu_torch.ops.tree_attention import (
     KEY_TILE, MAX_SPLITS, MAX_WARPS, TILE_WARPS, WAVE_BLOCKS, attention_plan,
     kernel_keys, live_keys, tree_attention, tree_attention_plain,
@@ -349,6 +350,111 @@ def test_head_topk_dense_head_matches_xla():
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
     np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp),
                                rtol=1e-5, atol=1e-5)
+
+
+def _order_keys(v: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """The head kernel's 64-bit order keys (csrc/head_topk.cu order_key):
+    float bits mapped to an unsigned order, high word; ~index, low word."""
+    u = (v.astype(np.float32) + np.float32(0.0)).view(np.uint32)
+    hi = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    return (hi << np.uint64(32)) | (~idx.astype(np.uint32)).astype(np.uint64)
+
+
+def _head_by_strips(logits: np.ndarray, k: int):
+    """What csrc/head_topk.cu computes from the f32 logits, step by step:
+    per 128-column strip the max, the sum of exp and the top-k keys in
+    order; then per row the logsumexp over strips and k rounds, each taking
+    the largest key below the last round's among the strips' entries at
+    positions <= j."""
+    t, v = logits.shape
+    strips = logits.reshape(t, v // 128, 128)
+    idx = np.arange(v).reshape(v // 128, 128)
+    mx = strips.max(-1)
+    se = np.exp(strips - mx[..., None]).sum(-1)
+    keys = np.sort(_order_keys(strips, np.broadcast_to(idx, strips.shape)),
+                   axis=-1)[..., ::-1][..., :k]           # (T, strips, k)
+    m = mx.max(-1, keepdims=True)
+    lse = (m + np.log((se * np.exp(mx - m)).sum(-1, keepdims=True)))[:, 0]
+    lp = np.zeros((t, k), np.float32)
+    tok = np.zeros((t, k), np.int32)
+    for r in range(t):
+        prev = np.uint64(2 ** 64 - 1)
+        for j in range(k):
+            cand = keys[r, :, :j + 1].ravel()
+            best = cand[cand < prev].max()
+            prev = best
+            hi = np.uint32(best >> np.uint64(32))
+            bits = hi & 0x7FFFFFFF if hi & 0x80000000 else ~hi
+            lp[r, j] = np.array([bits], np.uint32).view(np.float32)[0] - lse[r]
+            tok[r, j] = int(~np.uint32(best & np.uint64(0xFFFFFFFF)))
+    return lp, tok
+
+
+@pytest.mark.parametrize("t,v,k", [(3, 1024, 10), (2, 256, 128), (4, 2176, 1)])
+def test_head_kernel_strips_and_key_merge_match_plain(t, v, k):
+    x, q, s = _head_case(t, 64, v, seed=v + k)
+    # ties inside one strip (130 <- 129), across strips (700 <- 3) and at
+    # the top of row 0
+    q[:, 130], s[130] = q[:, 129], s[129]
+    q[:, 700 % v], s[700 % v] = q[:, 3], s[3]
+    lg = x @ (q.astype(np.float32) * s)
+    best = int(np.argmax(lg[0]))
+    dup = (best + 128) % v if best + 128 < v else best - 128
+    q[:, dup], s[dup] = q[:, best], s[best]
+    tx, tq_, ts = (torch.from_numpy(a) for a in (x, q, s))
+    logits = thead.head_logits(tx, Int8Tensor(q=tq_, scale=ts)).numpy()
+    got_lp, got_tok = _head_by_strips(logits, k)
+    want_lp, want_tok = head_topk_plain(tx, tq_, ts, k)
+    np.testing.assert_array_equal(got_tok, want_tok.numpy())
+    np.testing.assert_allclose(got_lp, want_lp.numpy(), rtol=1e-5, atol=1e-5)
+    if k > 1:
+        assert list(got_tok[0, :2]) == sorted([best, dup])
+
+
+@pytest.mark.parametrize("t,h", [(1, 4096), (10, 4096), (1, 5120), (10, 5120),
+                                 (16, 4096), (17, 4096), (65, 256)])
+@pytest.mark.parametrize("v", [32000, 2176])
+def test_head_plan_covers_every_strip_and_k_block(t, h, v):
+    p = thead.head_plan(t, h, v)
+    # strips x row tiles: every (row, 128-column strip) in exactly one block
+    assert p.strips * 128 == v and p.row_tiles * p.n >= t
+    assert (p.row_tiles - 1) * p.n < t
+    assert p.n == (16 if t <= 16 else 64)
+    # one split of every 64-row K block, none empty
+    nkb = h // 64
+    edges = [(i * p.chunk, min((i + 1) * p.chunk, nkb))
+             for i in range(p.ksplit)]
+    assert edges[0][0] == 0 and edges[-1][1] == nkb
+    assert all(a < b for a, b in edges)
+    # the ring of the width, two blocks to an SM, and the parked logits fit
+    assert p.stages == WGMMA_STAGES[p.n]
+    assert 2 * (p.smem + 1024) <= 227 * 1024
+    assert p.n * (128 + 4) * 4 <= p.smem - 1024
+    # at V 32000 the strips alone fill the card: about two blocks an SM
+    if v == 32000:
+        assert 132 < p.strips * p.row_tiles <= 2 * 132 or t > 16
+
+
+def test_head_plan_refuses_what_the_kernel_does_not_take():
+    for t, h, v in [(1, 4096, 32000 + 64), (1, 4096, 100), (0, 4096, 32000),
+                    (1, 4000, 32000), (1, 0, 32000)]:
+        with pytest.raises(ValueError, match="head_plan needs"):
+            thead.head_plan(t, h, v)
+
+
+def test_head_topk_strip_runs_plain_on_cpu_and_counts_nothing():
+    x, q, s = _head_case(3, 128, 2048, seed=11)
+    tx, tq_, ts = (torch.from_numpy(a) for a in (x, q, s))
+    before = head_topk.launches, thead.head_topk_strip.launches
+    for fn in (thead.head_topk_int8, thead.head_topk_strip):
+        lp, tok = fn(tx, tq_, ts, 7)
+        want_lp, want_tok = head_topk_plain(tx, tq_, ts, 7)
+        assert torch.equal(tok, want_tok) and torch.equal(lp, want_lp)
+        with pytest.raises(ValueError, match="k=0 out of range"):
+            fn(tx, tq_, ts, 0)
+        with pytest.raises(TypeError):
+            fn(tx, tq_.to(torch.int16), ts, 4)
+    assert (head_topk.launches, thead.head_topk_strip.launches) == before
 
 
 # ---- the package's boundaries ----------------------------------------------

@@ -445,6 +445,39 @@ def test_matmul_plan_int4_tiles_k_like_nf4_without_the_table():
         tqm.smem_bytes(96, 5, "fp4")
 
 
+@pytest.mark.parametrize("n_in,n_out", [(5120, 5120), (11008, 4096)])
+def test_matmul_plan_small_m_int4_widths_cover_every_block(n_in, n_out):
+    # the small-M route: every M the JAX package sends to its kfull kernel
+    nkb = n_in // 64
+    for m in range(1, tqm.SMALL_M + 1):
+        p = tqm.matmul_plan(m, n_in, n_out, "int4")
+        assert p.n == (16 if m <= 16 else 64) and p.bn == 128
+        assert p.stages == tqm.WGMMA_STAGES[p.n] == 6
+        edges = [(i * p.chunk, min((i + 1) * p.chunk, nkb))
+                 for i in range(p.ksplit)]
+        assert edges[0][0] == 0 and edges[-1][1] == nkb
+        assert all(a < b for a, b in edges)
+        assert all(edges[i][1] == edges[i + 1][0]
+                   for i in range(p.ksplit - 1))
+        assert (n_out // p.bn) * p.ksplit <= tqm.N_SMS * tqm.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("m", [1, 9, 16, 17, 32])
+def test_int4_small_m_on_cpu_is_plain_and_launches_nothing(m):
+    x = torch.from_numpy(_weights(10 + m, (1, m, 128))).to(torch.bfloat16)
+    t = tq.quantize_int4(torch.from_numpy(_weights(3, (128, 64))))
+    counters = (tqm.int4_matmul, tqm.int4_matmul_smallm,
+                tqm.int4_matmul_splitk, tqm.int4_matmul_strip)
+    before = [c.launches for c in counters]
+    want = tqm.int4_matmul_plain(x, t.q, t.scale)
+    for fn in (tqm.int4_matmul, tqm.int4_matmul_smallm,
+               tqm.int4_matmul_splitk):
+        assert torch.equal(fn(x, t.q, t.scale), want)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="bad ranks"):
+        tqm.int4_matmul_splitk(x[0], t.q, t.scale)
+
+
 def test_int4_decode_without_a_table_is_decode_pairs_operand():
     # every byte at scales that round differently in bf16: (128 + n) - 136
     # is n - 8 exactly, and one bf16 multiply rounds as decode_pair's does

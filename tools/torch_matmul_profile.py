@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""The split-K wgmma dequant-matmuls under torch.profiler, on one card.
+"""The split-K wgmma dequant-matmuls and the head top-k under
+torch.profiler, on one card.
 
-    python3 tools/torch_matmul_profile.py [--sass] [--kernels int8,nf4,int4]
+    python3 tools/torch_matmul_profile.py [--sass]
+                                          [--kernels int8,nf4,int4,head]
 
 What chip_smoke.py's event timing cannot separate: at each base and draft
-shape of the 7B paths (int4: the 13B attention projections at M 64 / 81),
-the device times of the main kernel and of the reduce
-pass and the gap between them (the reduce pass is a dependent launch that
-starts early and waits), and the timing floor, i.e. what one tiny elementwise
+shape of the 7B paths (int4: the 13B attention projections at M 64 / 81;
+head: chip_smoke.py's HEAD_SHAPES, V 32000, k 10), the device times of the
+main kernel and of the second pass (the split-K reduce; the head's merge)
+and the gap between them (the second pass is a dependent launch that starts
+early and waits), and the timing floor, i.e. what one tiny elementwise
 launch reads when it is timed like a kernel. The L2 is flushed before every
-launch. `--sass` also dumps `cuobjdump -sass` of both libraries. One JSON
+launch. `--sass` also dumps `cuobjdump -sass` of the libraries. One JSON
 line per row on stdout and in chiprun_out/matmul_profile.jsonl; the ptxas
 report goes to ptxas_matmul.log beside it. Builds the named kernels only
 (seconds). Needs a CUDA card.
@@ -47,7 +50,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass", action="store_true",
                     help="dump cuobjdump -sass of the libraries")
-    ap.add_argument("--kernels", default="int8,nf4")
+    ap.add_argument("--kernels", default="int8,nf4",
+                    help="comma-separated of int8, nf4, int4, head")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -59,10 +63,11 @@ def main() -> int:
 
     from flowspec_tpu_torch.ops import _build
     from flowspec_tpu_torch.ops import quant_matmul as qm
+    from flowspec_tpu_torch.ops.head_topk import head_plan, head_topk_int8
 
     dev = torch.device("cuda")
     kinds = args.kernels.split(",")
-    names = [f"{k}_matmul" for k in kinds]
+    names = [{"head": "head_topk"}.get(k, f"{k}_matmul") for k in kinds]
     cs.OUT_DIR.mkdir(exist_ok=True)
     _build.build(names)
     logs = {n: _build.lib_path(n).with_suffix(".log").read_text()
@@ -94,31 +99,42 @@ def main() -> int:
           "what": "one tiny elementwise launch, timed like a kernel"})
     fns = {"int8": (qm.int8_matmul, cs.INT8_SHAPES),
            "nf4": (qm.nf4_matmul, cs.NF4_SHAPES),
-           "int4": (qm.int4_matmul, cs.INT4_SHAPES)}
+           "int4": (qm.int4_matmul, cs.INT4_SHAPES),
+           "head": (None, [(n, t, h, 32000) for n, t, h in cs.HEAD_SHAPES])}
+    # (main kernel, second pass) by the name the profiler gives them
+    parts = {"head": ("head_wgmma_kernel", "head_select_kernel")}
     for kind in kinds:
         fn, shapes = fns[kind]
+        main_name, second = parts.get(kind, ("qmm_kernel", "qmm_reduce"))
         for name, m, n_in, n_out in shapes:
-            if kind != "int4" and (not name.startswith(("base_", "draft_"))
-                                   or m in (9, 96)):
+            if kind in ("int8", "nf4") and (
+                    not name.startswith(("base_", "draft_")) or m in (9, 96)):
                 continue
-            x, q, s = operands(kind, m, n_in, n_out, dev, gen)
-            fn(x, q, s)
+            if kind == "head":
+                x, q, s = operands("int8", m, n_in, n_out, dev, gen)
+                x = x[0]
+                call = lambda: head_topk_int8(x, q, s, 10)
+                plan = head_plan(m, n_in, n_out)._asdict()
+            else:
+                x, q, s = operands(kind, m, n_in, n_out, dev, gen)
+                call = lambda: fn(x, q, s)
+                plan = qm.matmul_plan(m, n_in, n_out, kind)._asdict()
+            call()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
                     cs.flush_l2(flush)
-                    fn(x, q, s)
+                    call()
                 torch.cuda.synchronize()
             ev = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-            main_ev = [e for e in ev if "qmm_kernel" in e.name]
-            red = [e for e in ev if "qmm_reduce" in e.name]
-            row = {"profile": kind, "shape": name,
-                   "plan": qm.matmul_plan(m, n_in, n_out, kind)._asdict(),
+            main_ev = [e for e in ev if main_name in e.name]
+            red = [e for e in ev if second in e.name]
+            row = {"profile": kind, "shape": name, "plan": plan,
                    "main_us": [e.time_range.elapsed_us() for e in main_ev]}
             if red:
-                row["reduce_us"] = [e.time_range.elapsed_us() for e in red]
+                row["second_us"] = [e.time_range.elapsed_us() for e in red]
                 row["gap_us"] = [r.time_range.start - a.time_range.end
                                  for a, r in zip(main_ev, red)]
             emit(row)

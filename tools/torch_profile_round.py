@@ -12,15 +12,18 @@ profiles one request of 64 prompt + 128 new tokens with torch.profiler
 (CPU + CUDA activities). Prints one JSON line: wall time, summed
 device-kernel time, the device's idle share of the wall time, rounds, and
 device time by kernel family (this port's six CUDA kernels, the split-K
-reduce pass of int8 / nf4 / int4 as `matmul_reduce`; cuBLAS GEMMs (the f32
-lm_head); sort/top-k; everything else).
+reduce pass of int8 / nf4 / int4 as `matmul_reduce`, the head's merge pass
+as `head_select`; cuBLAS GEMMs (the f32 lm_head); sort/top-k; everything
+else). The wgmma int4 kernel runs under both `int4_matmul` and
+`int4_matmul_smallm` and is counted as `int4_matmul`.
 
 `--old-turns` instead serves chip_smoke.py's three requests four times
 without the profiler, in turns (new, old, old, new): "old" routes the
-products and the attention of the serving path to the earlier versions of
-the four redesigned kernels (`int8_matmul_strip`, `nf4_matmul_strip`,
-`int4_matmul_strip` above 32 rows, `tree_attention_simt`) for the length of
-the turn. It prints tok/s and wall ms per round of each turn and of each
+products, the attention and the head of the serving path to the earlier
+versions of the six redesigned kernels (`int8_matmul_strip`,
+`nf4_matmul_strip`, `int4_matmul_strip` above 32 rows and
+`int4_matmul_splitk` up to 32, `tree_attention_simt`, `head_topk_strip`)
+for the length of the turn. It prints tok/s and wall ms per round of each turn and of each
 side, so what the redesigned kernels and their wrappers cost or gain end to
 end is read inside one process. Needs a CUDA card.
 """
@@ -46,11 +49,13 @@ def family(name: str) -> str:
                      ("int8_matmul_kernel", "int8_matmul_strip"),
                      ("p4_matmul_kernel<true", "nf4_matmul_strip"),
                      ("p4_matmul_kernel<false", "int4_matmul_strip"),
-                     ("int4_splitk", "int4_matmul_smallm"),
+                     ("int4_splitk", "int4_matmul_splitk"),
                      ("tree_attention_simt", "tree_attention_simt"),
                      ("tree_attention_mma", "tree_attention"),
-                     ("head_partial_kernel", "head_topk"),
-                     ("head_merge_kernel", "head_topk"),
+                     ("head_wgmma_kernel", "head_topk"),
+                     ("head_select_kernel", "head_select"),
+                     ("head_partial_kernel", "head_topk_strip"),
+                     ("head_merge_kernel", "head_topk_strip"),
                      ("gemm", "cublas_gemm"), ("sm90_xmma", "cublas_gemm"),
                      ("cutlass", "cublas_gemm"), ("sort", "sort_topk"),
                      ("topk", "sort_topk"), ("radix", "sort_topk")):
@@ -63,23 +68,36 @@ def old_turns(eng, prompts, new_tokens) -> dict:
     """Serve `prompts` in turns new, old, old, new; per turn and per side
     tok/s and wall ms per round (prefill included in the wall time)."""
     import torch
+    from flowspec_tpu_torch.draft import beam
     from flowspec_tpu_torch.models import llama
+    from flowspec_tpu_torch.ops import head_topk as hk
     from flowspec_tpu_torch.ops import quant_matmul as qm
     from flowspec_tpu_torch.ops import tree_attention as ta
+    from flowspec_tpu_torch.ops.quant import Int8Tensor
 
-    def int4_old(x, q, s):           # the small-M kernel stays below 33 rows
+    def int4_old(x, q, s):
         if x.shape[0] * x.shape[1] <= qm.SMALL_M:
-            return qm.int4_matmul_smallm(x, q, s)
+            return qm.int4_matmul_splitk(x, q, s)
         return qm.int4_matmul_strip(x, q, s)
+
+    def head_old(x, head, k):        # `hk.head_topk` with the old kernel
+        if not isinstance(head, Int8Tensor):
+            return hk.head_topk(x, head, k)
+        lp, tok = hk.head_topk_strip(x.reshape(-1, x.shape[-1]), head.q,
+                                     head.scale, k)
+        return (lp.reshape(*x.shape[:-1], k),
+                tok.reshape(*x.shape[:-1], k))
 
     new = {(qm, "int8_matmul"): qm.int8_matmul,
            (qm, "nf4_matmul"): qm.nf4_matmul,
            (qm, "int4_matmul"): qm.int4_matmul,
-           (llama, "tree_attention"): ta.tree_attention}
+           (llama, "tree_attention"): ta.tree_attention,
+           (beam, "head_topk"): hk.head_topk}
     old = {(qm, "int8_matmul"): qm.int8_matmul_strip,
            (qm, "nf4_matmul"): qm.nf4_matmul_strip,
            (qm, "int4_matmul"): int4_old,
-           (llama, "tree_attention"): ta.tree_attention_simt}
+           (llama, "tree_attention"): ta.tree_attention_simt,
+           (beam, "head_topk"): head_old}
 
     def serve(route):
         for (mod, name), fn in route.items():
