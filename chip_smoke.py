@@ -27,27 +27,43 @@ Phases, one JSON line each on stdout:
               `old_ms`, timed in turns: new, old, old, new) and must give
               equal bits on two launches; the three wide matmuls are checked
               at ragged shapes, the head at T 16 / 17, V 2176, k 1, k 32 and
-              two ties (inside one 128-column strip and across strips);
-  4. serve / lossless             7B int8 base, int8 thin draft;
-     serve_13b_mixed / lossless_13b_mixed   13B, attention int4 + FFN int8,
+              two ties (inside one 128-column strip and across strips); the
+              attention is timed in the serving path's form (n_valid read
+              on the card, a grid for the whole allocation) and must give
+              the bits of the grid sized from a host n_valid, also timed;
+  4. serve / fused / lossless / fused_ar      7B int8 base, int8 thin draft;
+     the same four with suffix _13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
-     serve_7b_nf4 / lossless_7b_nf4         7B, base and thin draft nf4.
+     and with suffix _7b_nf4                7B, base and thin draft nf4.
      Each at full width and depth: random base from a seeded
-     torch.Generator, the committed thin draft, 64-token prompts through
-     SpecEngine.generate, then generate_ar on the same prompts. Every
-     kernel's launch count is set to 0 before a configuration runs and read
-     after; a kernel of the configuration's path with no launch fails the
-     run, and so does a first spec/AR divergence at a position whose AR
-     top-2 logit gap is >= 0.05. One prefill is counted on its own, so
-     the launches per round are the serve run's count less its prefills over
-     its rounds; they must equal what the code implies (305 / 41 / 9 at 7B),
-     and the comparison-only entry points must not launch at all. Each
-     serve line carries `round_ms`: per kernel, the sum over the shapes of
-     one speculative round of those launches x measured ms, beside the same
-     sum of bounds and of its old version's ms. The AR run's launches less
-     its prefills, over its steps, must equal one base pass at M 1 (160
-     `int4_matmul_smallm` a 13B-mixed step); each lossless line carries the
-     same sums for one AR step as `ar_step_ms`.
+     torch.Generator, the committed thin draft, 64-token prompts, 3
+     requests x 128 new tokens, served in turns in one process: eager
+     SpecEngine.generate, generate_fused twice (the CUDA graph of the
+     round; the first turn captures it), generate again; then generate_ar
+     and generate_ar_fused (its graph captured first). Every kernel's
+     launch count is set to 0 before a turn and read after; a kernel of the
+     path with no launch fails the run. One prefill is counted on its own,
+     so the launches per round (per replay, per AR step) are a turn's count
+     less its prefills over its rounds; they must equal what the code
+     implies (305 / 41 / 9 at 7B), each captured graph must launch exactly
+     that a replay, the profiler must see that many of each kernel a
+     replay, and the comparison-only entry points must not launch at all.
+     The fused streams must equal the eager ones token for token (the same
+     round body on the same allocation); spec against AR fails the run at
+     a first divergence whose AR top-2 logit gap is >= 0.05. One eager and
+     one fused request of each run under torch.profiler: the device's idle
+     share and each kernel family's ms a round, eager and inside the graph.
+     Each serve line carries `round_ms`: per kernel, the sum over the
+     shapes of one speculative round of those launches x measured ms,
+     beside the same sum of bounds and of its old version's ms; each
+     lossless line the same for one AR step as `ar_step_ms`.
+  5. buckets / force_accept  at 7B int8: generate_fused with
+     kv_buckets=(128,) (buckets 128 -> 216: 256 -> 512 base KV rows, two
+     graphs), lossless against AR under the near-tie rule; force_accept=3,
+     at least 2.5 tokens a round.
+  6. lm_head   the verify-width lm_head at 7B within f32 summation order of
+     the f32 product, one call's peak memory below one f32 head.
+Every line of phases 4-6 carries the card's name and power limit.
 Then the `kernels` line (each kernel of the path, with its comparison-only
 old entry point under "old") and, last, {"ok": true,
 "device": {...}}. Per-shape
@@ -400,10 +416,12 @@ def check_attention(dev, gen, flush, details):
                                          n_valid, d)
         n_keys = live_keys(s_max, n_valid)
         n_read = kernel_keys(s_max, n_valid)
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
         before = tree_attention.launches
-        got = tree_attention(q, k, v, bias, n_valid)
-        again = tree_attention(q, k, v, bias, n_valid)
-        if tree_attention.launches != before + 2:
+        got = tree_attention(q, k, v, bias, nv)       # the serving path's form
+        again = tree_attention(q, k, v, bias, nv)
+        host = tree_attention(q, k, v, bias, n_valid)
+        if tree_attention.launches != before + 3:
             raise AssertionError(f"tree_attention did not launch at {name}")
         old = tree_attention_simt(q, k, v, bias, n_valid)
         want = tree_attention_plain(q, k, v, bias, n_keys)
@@ -411,24 +429,35 @@ def check_attention(dev, gen, flush, details):
         err = float((got.float() - want.float()).abs().max())
         err_old = float((got.float() - old.float()).abs().max())
         equal = bool(torch.equal(got, again))
-        ok = err <= 2e-2 and err_old <= 2e-2 and equal
+        equal_host = bool(torch.equal(got, host))
+        ok = err <= 2e-2 and err_old <= 2e-2 and equal and equal_host
         b, by = bound_ms(
             2 * nkv * n_valid * d * 2 + 2 * nq * t * d * 2 + t * n_valid * 4,
             4.0 * nq * t * n_valid * d)
         kr = k[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
         vr = v[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
         mask = bias[:, :n_read].to(torch.bfloat16).contiguous()
-        runs = [time_ms(lambda: f(q, k, v, bias, n_valid), flush)
-                for f in (tree_attention, tree_attention_simt,
-                          tree_attention_simt, tree_attention)]
+        runs = [time_ms(lambda: f(q, k, v, bias, a), flush)
+                for f, a in ((tree_attention, nv), (tree_attention_simt,
+                                                    n_valid),
+                             (tree_attention_simt, n_valid),
+                             (tree_attention, nv))]
         row = {"kernel": "tree_attention", "shape": name, "nq": nq,
                "nkv": nkv, "T": t, "S": s_max, "n_valid": n_valid,
                "n_keys_read": n_read, "old_n_keys_read": n_keys,
-               "plan": attention_plan(nkv, nq // nkv, t, n_read)._asdict(),
+               # the grid for the allocation, n_valid read on the card
+               # (empty splits past the live tiles), beside the grid sized
+               # to the live tiles from a host n_valid: equal bits
+               "plan": attention_plan(nkv, nq // nkv, t, s_max)._asdict(),
+               "host_n_valid_plan": attention_plan(nkv, nq // nkv, t,
+                                                   n_read)._asdict(),
+               "host_n_valid_ms": time_ms(
+                   lambda: tree_attention(q, k, v, bias, n_valid), flush),
                "max_abs_err": err, "vs_old_max_abs_err": err_old,
-               "equal_bits": equal,
+               "equal_bits": equal, "equal_bits_host_n_valid": equal_host,
                "tolerance": "2e-2 abs (bf16 outputs)", "ok": ok,
-               "ms": (runs[0] + runs[3]) / 2, "old_ms": (runs[1] + runs[2]) / 2,
+               "ms": (runs[0] + runs[3]) / 2,
+               "old_ms": (runs[1] + runs[2]) / 2,
                "runs_ms": runs,
                "plain_ms": time_ms(
                    lambda: tree_attention_plain(q, k, v, bias, n_keys), flush,
@@ -601,19 +630,8 @@ def launch_counts():
     """The wrapper that carries each kernel's launch count, the
     comparison-only entry points included (they must count 0 on a serve
     path)."""
-    from flowspec_tpu_torch.ops import quant_matmul as qm
-    from flowspec_tpu_torch.ops import tree_attention as ta
-    from flowspec_tpu_torch.ops.head_topk import head_topk, head_topk_strip
-    return {"int8_matmul": qm.int8_matmul, "tree_attention": ta.tree_attention,
-            "head_topk": head_topk, "nf4_matmul": qm.nf4_matmul,
-            "int4_matmul": qm.int4_matmul,
-            "int4_matmul_smallm": qm.int4_matmul_smallm,
-            "int8_matmul_strip": qm.int8_matmul_strip,
-            "nf4_matmul_strip": qm.nf4_matmul_strip,
-            "int4_matmul_strip": qm.int4_matmul_strip,
-            "tree_attention_simt": ta.tree_attention_simt,
-            "head_topk_strip": head_topk_strip,
-            "int4_matmul_splitk": qm.int4_matmul_splitk}
+    from flowspec_tpu_torch.ops import counted_wrappers
+    return counted_wrappers()
 
 
 def _matmul_kernel(w, m):
@@ -752,72 +770,137 @@ def launches_per_round(tag, launches, prefill, n_requests, rounds, expected):
     return per_round
 
 
-def serve_config(tag, dev, counters, kernel_rows):
-    """Drive one configuration through SpecEngine.generate and generate_ar
-    with the launch counts zeroed before and read after each, emit its
-    serve and lossless lines, and return its launches {kernel: count} over
-    both and its `round_sums`. One prefill is counted on its own first, so
-    that the serve run's count splits into prefills and rounds. Raises if a
-    kernel of its path never launched, if the launches per round are not the
-    expected ones, or if spec diverges from AR off a near-tie."""
+def serve_turn(fn, prompts, new_tokens):
+    """Serve `prompts` one after another through `fn` (generate's
+    signature): (outputs past the prompt, seconds a request, rounds, new
+    tokens, stats of each request)."""
     import torch
-    model, quant, n_requests, new_tokens = CONFIGS[tag]
-    suffix = "" if tag == "7b_int8" else "_" + tag
-    eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
-                                         new_tokens)
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    eng.prefill(eng.init_state(), prompts[0])    # every prompt has one length
-    torch.cuda.synchronize()
-    prefill = {n: fn.launches for n, fn in counters.items()}
-    for fn in counters.values():
-        fn.launches = 0
-    spec_out, req_s, rounds, new = [], [], 0, 0
+    outs, req_s, rounds, new, stats_all = [], [], 0, 0, []
     for p in prompts:
         t0 = time.perf_counter()
-        out, stats = eng.generate(p, max_new_tokens=new_tokens,
-                                  eos_token_id=-1)
+        out, stats = fn(p, max_new_tokens=new_tokens, eos_token_id=-1)
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t0)
-        spec_out.append(out[PROMPT_LEN:])
-        rounds += stats["rounds"]
+        outs.append(out[len(p):])
+        rounds += stats.get("rounds", stats["new_tokens"])
         new += stats["new_tokens"]
-    launches = {n: fn.launches for n, fn in counters.items()}
-    per_round = launches_per_round(tag, launches, prefill, len(prompts),
-                                   rounds, expected_per_round(eng))
-    draft_kind = "int8" if quant == "mixed" else quant
-    emit({"phase": "serve" + suffix,
-          "model": f"llama_{model} {quant} (random, seeded)",
-          "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
-          "beam_head": type(eng.beam_head).__name__,
-          "requests": len(prompts), "prompt_len": PROMPT_LEN,
-          "new_tokens": new, "rounds": rounds,
-          "accept_per_round": new / rounds, "tok_s": new / sum(req_s),
-          "request_s": req_s, "param_build_s": params_s,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches, "prefill_launches": prefill,
-          "launches_per_round": per_round,
-          "round_ms": (sums := round_sums(eng, kernel_rows, per_round))})
-    missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"{tag}: generate never launched {missing}")
+        stats_all.append(stats)
+    return outs, req_s, rounds, new, stats_all
 
-    # lossless: greedy spec == greedy AR except at near-ties
+
+def zero(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
-    ar_out, ar_s = [], []
-    for p in prompts:
+
+
+def counts(counters) -> dict:
+    return {n: fn.launches for n, fn in counters.items()}
+
+
+def family(name: str) -> str:
+    """The kernel family of a device kernel's name in a profiler trace: this
+    port's six CUDA kernels, the split-K reduce pass of int8 / nf4 / int4
+    as `matmul_reduce`, the head's merge pass as `head_select`, cuBLAS
+    GEMMs (the lm_head), sort/top-k, everything else. The wgmma int4 kernel
+    runs under both `int4_matmul` and `int4_matmul_smallm` and counts as
+    `int4_matmul`."""
+    n = name.lower()
+    for key, fam in (("qmm_kernel<0", "int8_matmul"),
+                     ("qmm_kernel<1", "nf4_matmul"),
+                     ("qmm_kernel<2", "int4_matmul"),
+                     ("qmm_reduce", "matmul_reduce"),
+                     ("int8_matmul_kernel", "int8_matmul_strip"),
+                     ("p4_matmul_kernel<true", "nf4_matmul_strip"),
+                     ("p4_matmul_kernel<false", "int4_matmul_strip"),
+                     ("int4_splitk", "int4_matmul_splitk"),
+                     ("tree_attention_simt", "tree_attention_simt"),
+                     ("tree_attention_mma", "tree_attention"),
+                     ("head_wgmma_kernel", "head_topk"),
+                     ("head_select_kernel", "head_select"),
+                     ("head_partial_kernel", "head_topk_strip"),
+                     ("head_merge_kernel", "head_topk_strip"),
+                     ("gemm", "cublas_gemm"), ("sm90_xmma", "cublas_gemm"),
+                     ("nvjet", "cublas_gemm"),
+                     ("cutlass", "cublas_gemm"), ("sort", "sort_topk"),
+                     ("topk", "sort_topk"), ("radix", "sort_topk")):
+        if key in n:
+            return fam
+    return "other"
+
+
+def profile_request(fn, prompt, new_tokens) -> dict:
+    """One request through `fn` under torch.profiler (CPU + CUDA): wall
+    time, device kernel time and the device's idle share of the wall time,
+    and per round (per step for a request without rounds) the kernels and
+    the device ms of each family, and of the ten costliest "other" ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ar, _ = eng.generate_ar(p, max_new_tokens=new_tokens, eos_token_id=-1)
+        _, stats = fn(prompt, max_new_tokens=new_tokens, eos_token_id=-1)
         torch.cuda.synchronize()
-        ar_s.append(time.perf_counter() - t0)
-        ar_out.append(ar[PROMPT_LEN:])
-    ar_launches = {n: fn.launches for n, fn in counters.items()}
-    # generate_ar runs one base step per new token, after its prefill
-    per_step = launches_per_round(tag + " AR", ar_launches, prefill,
-                                  len(prompts), len(prompts) * new_tokens,
-                                  expected_per_ar_step(eng))
+        wall = time.perf_counter() - t0
+    rounds = stats.get("rounds", stats["new_tokens"])
+    ms, n, other, busy, kernels = {}, {}, {}, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = ev.time_range.elapsed_us() / 1e6
+        fam = family(ev.name)
+        ms[fam] = ms.get(fam, 0.0) + dt * 1e3 / rounds
+        n[fam] = n.get(fam, 0) + 1
+        if fam == "other":
+            o = other.setdefault(ev.name[:80], [0.0, 0])
+            o[0] += dt * 1e3 / rounds
+            o[1] += 1
+        busy += dt
+        kernels += 1
+    return {"wall_s": wall, "rounds": rounds,
+            "wall_ms_per_round": wall * 1e3 / rounds,
+            "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "device_kernels": kernels, "kernels_per_round": kernels / rounds,
+            "device_ms_per_round_by_family": ms, "kernels_by_family": n,
+            "kernels_per_round_by_family": {f: c / rounds
+                                            for f, c in n.items()},
+            # the ten costliest kernels of "other": [ms a round, launches]
+            "other_top": dict(sorted(other.items(),
+                                     key=lambda kv: -kv[1][0])[:10])}
+
+
+def graphs_of(eng, kind):
+    return [g for k, g in eng._graphs.items() if k[0] == kind]
+
+
+def check_graph_launches(tag, eng, kind, expected):
+    """Every captured graph of `kind` must launch per replay what the code
+    implies for one round (one AR step), kernel by kernel."""
+    for g in graphs_of(eng, kind):
+        if g.launches != {k: n for k, n in expected.items() if n}:
+            raise AssertionError(f"{tag}: a {kind} graph launches "
+                                 f"{g.launches} a replay, expected {expected}")
+
+
+def confirm_by_profiler(tag, prof, per_round, prefill):
+    """The profiler's kernels of each kernel family in a profiled request
+    equal the wrappers' counts: one prefill and `per_round` a round (the
+    wgmma int4 kernel of both int4 entry points is one family)."""
+    want = {k: prefill.get(k, 0) + prof["rounds"] * n
+            for k, n in per_round.items()}
+    want["int4_matmul"] = (want.get("int4_matmul", 0)
+                           + want.pop("int4_matmul_smallm", 0))
+    seen = prof["kernels_by_family"]
+    bad = {k: (seen.get(k, 0), n) for k, n in want.items()
+           if n and seen.get(k, 0) != n}
+    if bad:
+        raise AssertionError(f"{tag}: profiler kernels a round vs counted "
+                             f"launches: {bad}")
+
+
+def divergences(eng, prompts, spec_out, ar_out):
+    """Spec against AR, request by request: the match fraction and, at the
+    first differing position, the base model's top-2 gap there."""
     matches, faults = [], []
     for p, spec, ar in zip(prompts, spec_out, ar_out):
         same = [a == b for a, b in zip(spec, ar)]
@@ -826,8 +909,127 @@ def serve_config(tag, dev, counters, kernel_rows):
             i = same.index(False)
             faults.append({"position": i,
                            "top2_gap": top2_gap(eng, p + ar[:i])})
-    emit({"phase": "lossless" + suffix, "match_fraction": matches,
-          "first_divergences": faults, "ar_tok_s": new / sum(ar_s),
+    return matches, faults
+
+
+def check_lossless(tag, faults):
+    real = [f for f in faults if f["top2_gap"] >= NEAR_TIE_GAP]
+    if real:
+        raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
+                             f"{real}")
+
+
+def serve_config(tag, dev, counters, kernel_rows, smi):
+    """Drive one configuration through SpecEngine.generate and
+    generate_fused in turns (eager, fused, fused, eager), then generate_ar
+    and generate_ar_fused, with the launch counts zeroed before and read
+    after each turn; emit its serve, fused, lossless and fused_ar lines;
+    return its launches {kernel: count} over the turns, its `round_sums`,
+    its `ar_step_sums` and the two profiled rounds' device ms by family.
+    One prefill is counted on its own first, so that a turn's count splits
+    into prefills and rounds. Raises if a kernel of its path never launched,
+    if the launches per round (per replay) are not the expected ones, if
+    the fused stream differs from the eager one, or if spec diverges from
+    AR off a near-tie."""
+    import torch
+    model, quant, n_requests, new_tokens = CONFIGS[tag]
+    suffix = "" if tag == "7b_int8" else "_" + tag
+    eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
+                                         new_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    eng.prefill(eng.init_state(), prompts[0])    # every prompt has one length
+    torch.cuda.synchronize()
+    prefill = counts(counters)
+    expected = expected_per_round(eng)
+
+    # turn 1: eager
+    zero(counters)
+    spec_out, req_s, rounds, new, _ = serve_turn(eng.generate, prompts,
+                                                 new_tokens)
+    launches = counts(counters)
+    per_round = launches_per_round(tag, launches, prefill, len(prompts),
+                                   rounds, expected)
+    eager_mem = torch.cuda.max_memory_allocated()
+    draft_kind = "int8" if quant == "mixed" else quant
+    emit({"phase": "serve" + suffix, "card": smi,
+          "model": f"llama_{model} {quant} (random, seeded)",
+          "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
+          "beam_head": type(eng.beam_head).__name__,
+          "requests": len(prompts), "prompt_len": PROMPT_LEN,
+          "new_tokens": new, "rounds": rounds,
+          "accept_per_round": new / rounds, "tok_s": new / sum(req_s),
+          "request_s": req_s, "param_build_s": params_s,
+          "max_memory_allocated": eager_mem,
+          "launches": launches, "prefill_launches": prefill,
+          "launches_per_round": per_round,
+          "round_ms": (sums := round_sums(eng, kernel_rows, per_round))})
+    missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: generate never launched {missing}")
+
+    # turns 2 and 3: fused (the first captures one graph), turn 4: eager
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f1_out, f1_s, f1_rounds, f1_new, f1_stats = serve_turn(
+        eng.generate_fused, prompts, new_tokens)
+    first_turn_s = time.perf_counter() - t0
+    capture_s = sum(g.capture_s for g in graphs_of(eng, "spec"))
+    zero(counters)
+    f_out, f_s, f_rounds, f_new, f_stats = serve_turn(
+        eng.generate_fused, prompts, new_tokens)
+    f_launches = counts(counters)
+    fused_mem = torch.cuda.max_memory_allocated()
+    e2_out, e2_s, _, e2_new, _ = serve_turn(eng.generate, prompts, new_tokens)
+    check_graph_launches(tag, eng, "spec", expected)
+    f_per_round = launches_per_round(tag + " fused", f_launches, prefill,
+                                     len(prompts), f_rounds, expected)
+    missing = [n for n in ON_SPEC[tag] if f_launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: generate_fused never launched "
+                             f"{missing}")
+    if not (f_out == spec_out == f1_out == e2_out and f_rounds == rounds
+            and f1_rounds == rounds):
+        raise AssertionError(f"{tag}: the fused stream differs from the "
+                             "eager one")
+    if any(st["kv_buckets_used"] != 1 for st in f_stats):
+        raise AssertionError(f"{tag}: buckets engaged without kv_buckets")
+    prof_eager = profile_request(eng.generate, prompts[0], new_tokens)
+    prof_fused = profile_request(eng.generate_fused, prompts[0], new_tokens)
+    confirm_by_profiler(tag + " fused", prof_fused, f_per_round, prefill)
+    eager_tok_s = [new / sum(req_s), e2_new / sum(e2_s)]
+    emit({"phase": "fused" + suffix, "card": smi,
+          "turns": ["eager", "fused", "fused", "eager"],
+          "turn_tok_s": [eager_tok_s[0], f1_new / first_turn_s,
+                         f_new / sum(f_s), eager_tok_s[1]],
+          "eager_tok_s": statistics.mean(eager_tok_s),
+          "fused_tok_s": f_new / sum(f_s), "fused_request_s": f_s,
+          "first_fused_turn_s": first_turn_s, "graph_capture_s": capture_s,
+          "graphs": len(graphs_of(eng, "spec")),
+          "rounds": f_rounds, "accept_per_round": f_new / f_rounds,
+          "equal_to_eager": True,
+          "launches": f_launches, "launches_per_replay": f_per_round,
+          "expected_per_round": expected,
+          "eager_device_idle_share": prof_eager["device_idle_share"],
+          "fused_device_idle_share": prof_fused["device_idle_share"],
+          "eager_profile": prof_eager, "fused_profile": prof_fused,
+          "max_memory_allocated": fused_mem,
+          "eager_max_memory_allocated": eager_mem})
+
+    # lossless: greedy spec == greedy AR except at near-ties; AR eager then
+    # fused twice (the first captures)
+    zero(counters)
+    ar_out, ar_s, _, ar_new, _ = serve_turn(eng.generate_ar, prompts,
+                                            new_tokens)
+    ar_launches = counts(counters)
+    # generate_ar runs one base step per new token, after its prefill
+    per_step = launches_per_round(tag + " AR", ar_launches, prefill,
+                                  len(prompts), len(prompts) * new_tokens,
+                                  expected_per_ar_step(eng))
+    matches, faults = divergences(eng, prompts, spec_out, ar_out)
+    emit({"phase": "lossless" + suffix, "card": smi,
+          "match_fraction": matches,
+          "first_divergences": faults, "ar_tok_s": ar_new / sum(ar_s),
           "ar_request_s": ar_s, "near_tie_gap": NEAR_TIE_GAP,
           "ar_launches": ar_launches, "ar_launches_per_step": per_step,
           "ar_step_ms": (ar_sums := ar_step_sums(eng, kernel_rows,
@@ -835,12 +1037,106 @@ def serve_config(tag, dev, counters, kernel_rows):
     missing = [n for n in ON_AR[tag] if ar_launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: generate_ar never launched {missing}")
-    real = [f for f in faults if f["top2_gap"] >= NEAR_TIE_GAP]
-    if real:
-        raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
-                             f"{real}")
-    return ({n: launches[n] + ar_launches[n] for n in counters}, sums,
-            ar_sums)
+    check_lossless(tag, faults)
+    serve_turn(eng.generate_ar_fused, prompts[:1], new_tokens)
+    capture_ar_s = sum(g.capture_s for g in graphs_of(eng, "ar"))
+    zero(counters)
+    far_out, far_s, _, far_new, _ = serve_turn(eng.generate_ar_fused,
+                                               prompts, new_tokens)
+    far_launches = counts(counters)
+    check_graph_launches(tag + " AR", eng, "ar", expected_per_ar_step(eng))
+    # both AR loops run one step a token (the last one's is not read)
+    far_steps = launches_per_round(
+        tag + " fused AR", far_launches, prefill, len(prompts),
+        len(prompts) * new_tokens, expected_per_ar_step(eng))
+    missing = [n for n in ON_AR[tag] if far_launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: generate_ar_fused never launched "
+                             f"{missing}")
+    if far_out != ar_out:
+        raise AssertionError(f"{tag}: the fused AR stream differs from the "
+                             "eager one")
+    prof_ar = profile_request(eng.generate_ar_fused, prompts[0], new_tokens)
+    emit({"phase": "fused_ar" + suffix, "card": smi,
+          "ar_tok_s": ar_new / sum(ar_s),
+          "fused_ar_tok_s": far_new / sum(far_s),
+          "fused_ar_request_s": far_s, "graph_capture_s": capture_ar_s,
+          "equal_to_eager": True, "launches": far_launches,
+          "launches_per_replay": far_steps,
+          "fused_ar_device_idle_share": prof_ar["device_idle_share"],
+          "fused_ar_profile": prof_ar})
+    return ({n: launches[n] + f_launches[n] + ar_launches[n]
+             + far_launches[n] for n in counters}, sums, ar_sums,
+            {"eager": prof_eager["device_ms_per_round_by_family"],
+             "fused": prof_fused["device_ms_per_round_by_family"]},
+            (eng, prompts, ar_out))
+
+
+def bucket_and_force_runs(eng, prompts, ar_out, smi):
+    """At 7B int8: generate_fused with kv_buckets=(128,) (max_seq_len 216:
+    buckets 128 -> 216, base KV 256 -> 512 rows, two graphs), lossless
+    against AR under the near-tie rule; and force_accept=3, whose accepted
+    tokens a round must reach 2.5."""
+    import dataclasses
+    from flowspec_tpu_torch.runtime import SpecEngine
+    new_tokens = CONFIGS["7b_int8"][3]
+    beng = SpecEngine(eng.params, eng.draft,
+                      dataclasses.replace(eng.cfg, kv_buckets=(128,)))
+    b_out, b_s, b_rounds, b_new, b_stats = serve_turn(
+        beng.generate_fused, prompts, new_tokens)
+    used = [st["kv_buckets_used"] for st in b_stats]
+    rows = sorted(k[1] for k in beng._graphs if k[0] == "spec")
+    matches, faults = divergences(eng, prompts, b_out, ar_out)
+    emit({"phase": "buckets", "card": smi, "kv_buckets": [128],
+          "max_seq_len": eng.cfg.max_seq_len,
+          "plan": beng._plan_buckets(PROMPT_LEN, new_tokens),
+          "base_rows_of_graphs": rows, "kv_buckets_used": used,
+          "tok_s": b_new / sum(b_s), "request_s": b_s, "rounds": b_rounds,
+          "graph_capture_s": sum(g.capture_s for g in beng._graphs.values()),
+          "match_fraction": matches, "first_divergences": faults,
+          "near_tie_gap": NEAR_TIE_GAP})
+    if used != [2] * len(prompts) or rows != [256, 512]:
+        raise AssertionError(f"buckets: {used} buckets used, graphs of "
+                             f"{rows} rows")
+    check_lossless("7b_int8 buckets", faults)
+    del beng
+    feng = SpecEngine(eng.params, eng.draft,
+                      dataclasses.replace(eng.cfg, force_accept=3))
+    _, f_s, f_rounds, f_new, _ = serve_turn(feng.generate_fused, prompts[:1],
+                                            new_tokens)
+    emit({"phase": "force_accept", "card": smi, "force_accept": 3,
+          "accept_per_round": f_new / f_rounds, "rounds": f_rounds,
+          "tok_s": f_new / sum(f_s)})
+    if f_new / f_rounds < 2.5:
+        raise AssertionError(f"force_accept=3: {f_new / f_rounds} a round")
+
+
+def lm_head_check(dev, gen, smi):
+    """lm_head_logits at verify width (81 rows) at 7B: within f32 summation
+    order of the f32 product, and one call's peak memory below one f32 copy
+    of the head."""
+    import torch
+    from flowspec_tpu_torch.models.llama import LlamaParams, lm_head_logits
+    h, v, t = 4096, 32000, 81
+    head = (torch.randn((h, v), generator=gen, device=dev)
+            * h ** -0.5).to(torch.bfloat16)
+    x = torch.randn((1, t, h), generator=gen, device=dev).to(torch.bfloat16)
+    params = LlamaParams(embed=None, layers=None, final_norm=None,
+                         lm_head=head)
+    lm_head_logits(params, x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = lm_head_logits(params, x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    err = float((got - x.float() @ head.float()).abs().max())
+    row = {"phase": "lm_head", "card": smi, "T": t, "H": h, "V": v,
+           "peak_bytes": peak, "f32_head_bytes": h * v * 4,
+           "max_abs_err": err, "tolerance": "2e-3 abs (f32 sums of 4096)"}
+    emit(row)
+    if peak >= h * v * 4 or err > 2e-3:
+        raise AssertionError(f"lm_head: {row}")
 
 
 def old_entry(kernel, rows, launches):
@@ -930,13 +1226,18 @@ def main() -> int:
           "all_ok": all(r["ok"] for r in details),
           "main_shapes": {n: kernel_rows[n][s] for n, s in MAIN.items()}})
 
-    # 4. the three configurations through the entry points, one at a time
+    # 4. the three configurations through the entry points, one at a time;
+    # at 7B int8 also KV buckets and force_accept, then the lm_head
     counters = launch_counts()
-    by_config, sums, ar_sums = {}, {}, {}
+    by_config, sums, ar_sums, profiled = {}, {}, {}, {}
     for tag in CONFIGS:
-        by_config[tag], sums[tag], ar_sums[tag] = serve_config(
-            tag, dev, counters, kernel_rows)
+        (by_config[tag], sums[tag], ar_sums[tag], profiled[tag],
+         served) = serve_config(tag, dev, counters, kernel_rows, smi)
+        if tag == "7b_int8":
+            bucket_and_force_runs(*served, smi)
+        del served
         torch.cuda.empty_cache()
+    lm_head_check(dev, gen, smi)
     launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
     missing = [n for n in _build.KERNELS if launches[n] == 0]
     if missing:
@@ -957,6 +1258,11 @@ def main() -> int:
          "launches_by_config": {t: c[n] for t, c in by_config.items()},
          # per configuration: one round's launches x ms, bounds, old ms
          "round_ms": {t: v[n] for t, v in sums.items() if n in v},
+         # per configuration: device ms a round of the kernel's family
+         # under torch.profiler, eager and inside the replayed graph
+         "profiled_round_ms": {
+             t: {m: p[m].get(n, 0.0) for m in ("eager", "fused")}
+             for t, p in profiled.items()},
          "ar_step_ms": {t: v[n] for t, v in ar_sums.items() if n in v},
          # a redesigned kernel's earlier version, an entry point of the same
          # library for comparison only (0 launches on every serve path),

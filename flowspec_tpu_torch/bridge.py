@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from flowspec_tpu_torch.draft.eagle import EagleParams
-from flowspec_tpu_torch.models.kv_cache import KVCache
+from flowspec_tpu_torch.models.kv_cache import KVCache, device_scalar
 from flowspec_tpu_torch.models.llama import LlamaLayerParams, LlamaParams
 from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
 from flowspec_tpu_torch.runtime.engine import resolve_device
@@ -87,4 +87,4 @@ def eagle_params(d: dict, device=None) -> EagleParams:
 def kv_cache(d: dict, device=None) -> KVCache:
     device = resolve_device(device)
     return KVCache(k=tensor(d["k"], device), v=tensor(d["v"], device),
-                   length=int(d["length"]))
+                   length=device_scalar(int(d["length"]), device))

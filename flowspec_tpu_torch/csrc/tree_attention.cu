@@ -12,13 +12,18 @@
 // softmax (m, l, acc) with P rounded to bf16 before the PV product and l
 // summed from the f32 P, f32 accumulation, acc / max(l, 1e-30) at the end.
 //
-// Live keys. The caller passes n_keys = ceil(n_valid / 64) * 64 (at most
-// S): only those KV rows are read. Under the caller's contract
-// (ops/tree_attention.py) every column at or past n_valid carries a -1e9
-// bias, so exp() of it underflows to exactly 0 beside any live column, and
-// the rows skipped would have added exactly nothing. A row with no live
-// column at all is garbage that callers discard, as on every path of the
-// JAX package.
+// Live keys. The grid covers n_keys KV rows (a multiple of 64, at most S).
+// Given a device pointer `n_valid` (the live rows, an int32 the serving
+// path keeps on the card so that a replayed CUDA graph sees this round's
+// value), every block reads it and works through the first
+// ceil(n_valid / 64) 64-key tiles only (at least one, at most n_keys / 64);
+// a split whose tiles all lie past them is empty. Given a null pointer, all
+// n_keys rows are live (the caller sized the grid to them). Under the
+// caller's contract (ops/tree_attention.py) every column at or past n_valid
+// carries a -1e9 bias, so exp() of it underflows to exactly 0 beside any
+// live column, and the rows skipped would have added exactly nothing. A row
+// with no live column at all is garbage that callers discard, as on every
+// path of the JAX package.
 //
 // Bound on the H100: bytes. The shapes of a speculative round are T = 1-96
 // query rows per head over 64-512 live keys; a 7B verify layer reads 2 x 32
@@ -60,7 +65,15 @@
 //    (Pushing each partial to the block that owns its rows by remote 8-byte
 //    stores instead, then joining locally, measured slower at every verify
 //    shape.) A call of one split (a prefill chunk of 64 keys) writes its
-//    rows directly.
+//    rows directly, as acc / max(l, 1e-30), the join's arithmetic with one
+//    partial, so the bits do not depend on the split count.
+//  - An empty split (a device n_valid below the grid's keys) loads nothing,
+//    still reaches both cluster barriers (an early return would deadlock
+//    its cluster) and publishes the neutral partial: acc 0, l 0 and a
+//    finite m (EMPTY_M), so the join's exp2((m - max) log2 e) is exactly 0
+//    and never -inf - -inf. Adding its zeros leaves every sum unchanged:
+//    the output equals that of the grid sized to the live tiles bit for
+//    bit.
 //  - exp(x - m) is computed as exp2(x log2(e) - m log2(e)), one MUFU op.
 //  - The plan (warps a block, splits, tiles a split) comes from Python
 //    (`ops/tree_attention.py attention_plan`), as `matmul_plan` does for
@@ -87,6 +100,7 @@ constexpr int KT = 64;          // keys per tile
 constexpr int MAX_WARPS = 6;    // warps a block (16 query rows each)
 constexpr int MAX_SPLITS = 8;   // blocks a cluster (the portable limit)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float EMPTY_M = -1e30f;  // m of an empty split: below any score
 
 // Phase stamps, compiled in only with -DFS_ATTN_STAMPS (a separate build of
 // tools/torch_attention_profile.py; the serving library has none): thread 0
@@ -186,15 +200,17 @@ __device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
 // Requires D in {64, 128}, n_keys % KT == 0, n_keys <= S, 16-byte aligned
 // q/k/v/bias/out, S % 4 == 0, blockDim.x == 32 * warps (warps <=
 // MAX_WARPS), gridDim = (splits, ceil(G*T / (16 * warps)), nkv) launched as
-// clusters of (splits, 1, 1), splits <= MAX_SPLITS, every split non-empty:
-// (splits - 1) * tps < n_keys / KT <= splits * tps, and smem_bytes<D>(warps,
-// tps > 1 ? 2 : 1) of dynamic shared memory.
+// clusters of (splits, 1, 1), splits <= MAX_SPLITS, every split non-empty
+// at n_keys: (splits - 1) * tps < n_keys / KT <= splits * tps, and
+// smem_bytes<D>(warps, tps > 1 ? 2 : 1) of dynamic shared memory. `n_valid`
+// (device, may be null) cuts the live tiles, emptying the last splits.
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const float* __restrict__ bias,
+                          const int* __restrict__ n_valid,
                           __nv_bfloat16* __restrict__ out, int G, int T,
                           int S, int n_keys, int tps, float scale) {
   constexpr int DP = D + 8;     // bf16 row stride of a K / V / Q tile
@@ -213,7 +229,9 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int rows = G * T;
   const int r0 = blockIdx.y * R;
   const bool live = r0 + warp * 16 < rows;
-  const int n_tiles = n_keys / KT;
+  const int n_tiles =
+      n_valid == nullptr ? n_keys / KT
+                         : min(n_keys / KT, max(1, (*n_valid + KT - 1) / KT));
   const int t_begin = split * tps;
   const int nt = min(t_begin + tps, n_tiles) - t_begin;
   const int sbytes = stage_bytes<D>(nwarps);
@@ -258,7 +276,7 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   };
-  load(0, 0);
+  if (nt > 0) load(0, 0);
 
   // ldmatrix addresses. Q as A fragments (matrix i: rows 8(i&1).., k
   // 8(i>>1).. of a k16 step); K as B fragments of two k16 steps (matrix i:
@@ -384,6 +402,7 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   FS_STAMP(4);
+  if (nt <= 0) m_a = m_b = EMPTY_M;        // the neutral partial
   // l summed over the row's 4 lanes
 #pragma unroll
   for (int o2 = 1; o2 < 4; o2 <<= 1) {
@@ -392,17 +411,17 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   if (splits == 1) {                       // one split: the result itself
     const int ra = r0 + la, rb = r0 + lb;
-    const float ia = 1.f / fmaxf(l_a, 1e-30f), ib = 1.f / fmaxf(l_b, 1e-30f);
+    const float da = fmaxf(l_a, 1e-30f), db = fmaxf(l_b, 1e-30f);
     if (live) {
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         const int c = 8 * j + 2 * t4;
         if (ra < rows)
           *reinterpret_cast<uint32_t*>(out + ((size_t)h * rows + ra) * D + c) =
-              pack_bf16(o[j][0] * ia, o[j][1] * ia);
+              pack_bf16(o[j][0] / da, o[j][1] / da);
         if (rb < rows)
           *reinterpret_cast<uint32_t*>(out + ((size_t)h * rows + rb) * D + c) =
-              pack_bf16(o[j][2] * ib, o[j][3] * ib);
+              pack_bf16(o[j][2] / db, o[j][3] / db);
       }
     }
     return;
@@ -509,7 +528,8 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias,
-               void* out, int nkv, int G, int T, int S, int n_keys, int warps,
+               const void* n_valid, void* out, int nkv, int G, int T, int S,
+               int n_keys, int warps,
                int splits, int tps, float scale, cudaStream_t st) {
   // dynamic shared memory above 48 KB is an opt-in per kernel and device,
   // made once for each (for the largest block)
@@ -541,6 +561,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* bias,
                          static_cast<const __nv_bfloat16*>(k),
                          static_cast<const __nv_bfloat16*>(v),
                          static_cast<const float*>(bias),
+                         static_cast<const int*>(n_valid),
                          static_cast<__nv_bfloat16*>(out), G, T, S, n_keys,
                          tps, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -688,12 +709,14 @@ extern "C" int tree_attention_set_stamps(void* buf) {
 
 // q (nkv*G*T, D), k/v (nkv, S, D) bf16, bias (T, S) f32 -> out like q, by
 // the plan (warps, splits, tiles_per_split) of `ops/tree_attention.py
-// attention_plan`. Needs D in {64, 128}, n_keys % 64 == 0, n_keys <= S,
-// S % 4 == 0 and 16-byte aligned q/k/v/bias/out (the Python wrapper
-// checks). Returns the first CUDA error, or cudaErrorInvalidValue for a
-// plan the kernel does not take.
+// attention_plan` for a grid of n_keys keys; n_valid (a device int32, or
+// null for n_keys) the live rows. Needs D in {64, 128}, n_keys % 64 == 0,
+// n_keys <= S, S % 4 == 0 and 16-byte aligned q/k/v/bias/out (the Python
+// wrapper checks). Returns the first CUDA error, or cudaErrorInvalidValue
+// for a plan the kernel does not take.
 extern "C" int tree_attention(const void* q, const void* k, const void* v,
-                              const void* bias, void* out, int nkv, int G,
+                              const void* bias, const void* n_valid,
+                              void* out, int nkv, int G,
                               int T, int S, int D, int n_keys, int warps,
                               int splits, int tiles_per_split, float scale,
                               void* stream) {
@@ -706,11 +729,11 @@ extern "C" int tree_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch_mma<128>(q, k, v, bias, out, nkv, G, T, S, n_keys, warps,
-                           splits, tiles_per_split, scale, st);
+    return launch_mma<128>(q, k, v, bias, n_valid, out, nkv, G, T, S, n_keys,
+                           warps, splits, tiles_per_split, scale, st);
   if (D == 64)
-    return launch_mma<64>(q, k, v, bias, out, nkv, G, T, S, n_keys, warps,
-                          splits, tiles_per_split, scale, st);
+    return launch_mma<64>(q, k, v, bias, n_valid, out, nkv, G, T, S, n_keys,
+                          warps, splits, tiles_per_split, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,7 +5,10 @@ port). A Python loop over levels replaces the `lax.scan`: each level
 forwards the K frontier nodes through the draft layer against the draft KV,
 scores them with the fused head top-k (`ops/head_topk.py`) and keeps the
 global top-K of the K*K candidates. Every order that decides the tree is
-(score desc, flat index asc), as `jax.lax.top_k` gives it.
+(score desc, flat index asc), as `jax.lax.top_k` gives it. The draft KV's
+length (`ctx_end`, `pos0`) stays a device scalar, so the writes and biases
+of a replayed CUDA graph follow each round; the level is a host int (the
+loop is unrolled).
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ from flowspec_tpu_torch.config import ModelConfig, TreeConfig
 from flowspec_tpu_torch.draft.eagle import (
     EagleParams, draft_view, eagle_layer, fuse, project_out,
 )
-from flowspec_tpu_torch.models.kv_cache import KVCache, clamp_start
+from flowspec_tpu_torch.models.kv_cache import (
+    KVCache, device_scalar, write_rows,
+)
 from flowspec_tpu_torch.ops.head_topk import head_logits, head_topk
 from flowspec_tpu_torch.tree.build import build_tree, select_topn
-from flowspec_tpu_torch.tree.types import TokenTree
+from flowspec_tpu_torch.tree.types import TokenTree, take
 
 __all__ = ["BeamState", "head_logits", "topk_generate"]
 
@@ -36,8 +41,8 @@ class BeamState:
     flat_ids: torch.Tensor    # (K,) int64 candidate flat ids
     mask: torch.Tensor        # (K, LVLS*K) bool — beam-block ancestors
     level: int                # next beam block index
-    ctx_end: int              # draft KV length before the beam region
-    pos0: int                 # rope position of beam level 0
+    ctx_end: torch.Tensor     # () int32 draft KV length before the beam region
+    pos0: torch.Tensor        # () int32 rope position of beam level 0
     cand_tokens: torch.Tensor   # (M,) pool, M = K + max_levels*K^2
     cand_scores: torch.Tensor
     cand_parents: torch.Tensor
@@ -45,12 +50,11 @@ class BeamState:
     selected: torch.Tensor
 
 
-def _update_slice(buf: torch.Tensor, upd: torch.Tensor, start: int):
-    """`dynamic_update_slice` on a 1-D buffer (start clamped to fit)."""
-    s0 = clamp_start(start, upd.shape[0], buf.shape[0])
-    out = buf.clone()
-    out[s0:s0 + upd.shape[0]] = upd
-    return out
+def _update_slice(buf: torch.Tensor, upd: torch.Tensor, start):
+    """`dynamic_update_slice` on a 1-D buffer (start, a host int or a
+    device scalar, clamped to fit)."""
+    rows = write_rows(start, upd.shape[0], buf.shape[0], buf.device)
+    return buf.index_copy(0, rows, upd.to(buf.dtype))
 
 
 def _topk_stable(x: torch.Tensor, k: int):
@@ -72,7 +76,7 @@ def _beam_step(p: EagleParams, head, cache_k, cache_v, state: BeamState,
 
     write_start = state.ctx_end + lv * k_beam
     x = fuse(p, state.tokens[None], state.hidden[None])
-    positions = torch.full((k_beam,), state.pos0 + lv, device=dev)
+    positions = (state.pos0 + lv).expand(k_beam)
 
     lanes = torch.arange(max_levels * k_beam, device=dev)
     eye_l = lanes[None, :] == (lv * k_beam
@@ -97,7 +101,7 @@ def _beam_step(p: EagleParams, head, cache_k, cache_v, state: BeamState,
     flat_base = k_beam + lv * k_beam * k_beam
     cand_tok = row_tok.reshape(-1).to(torch.int32)
     cand_sc = cu.reshape(-1)
-    cand_par = state.flat_ids.repeat_interleave(k_beam)
+    cand_par = state.flat_ids[:, None].expand(-1, k_beam).reshape(-1)
 
     m = state.cand_tokens.shape[0]
     am = torch.arange(m, device=dev)
@@ -117,8 +121,8 @@ def _beam_step(p: EagleParams, head, cache_k, cache_v, state: BeamState,
         selected=state.selected)
 
 
-def _init_beam(p: EagleParams, head, root_hidden: torch.Tensor, ctx_end: int,
-               pos0: int, tree_cfg: TreeConfig,
+def _init_beam(p: EagleParams, head, root_hidden: torch.Tensor, ctx_end,
+               pos0, tree_cfg: TreeConfig,
                max_levels: int) -> BeamState:
     """Root expansion: top-k children of the root from its draft hidden."""
     k_beam = tree_cfg.top_k
@@ -138,7 +142,8 @@ def _init_beam(p: EagleParams, head, root_hidden: torch.Tensor, ctx_end: int,
         scores=sc, flat_ids=torch.arange(k_beam, device=dev),
         mask=torch.zeros((k_beam, max_levels * k_beam), dtype=torch.bool,
                          device=dev),
-        level=0, ctx_end=int(ctx_end), pos0=int(pos0),
+        level=0, ctx_end=device_scalar(ctx_end, dev),
+        pos0=device_scalar(pos0, dev),
         cand_tokens=cand_tokens, cand_scores=cand_scores,
         cand_parents=torch.full((m,), -1, dtype=torch.int64, device=dev),
         cand_valid=torch.arange(m, device=dev) < k_beam,
@@ -149,12 +154,16 @@ def topk_generate(p: EagleParams, head, cache: KVCache,
                   root_token: torch.Tensor, root_hidden: torch.Tensor,
                   tree_cfg: TreeConfig, cfg: ModelConfig,
                   num_select: int | None = None, depth: int | None = None,
-                  max_levels: int | None = None):
+                  max_levels: int | None = None,
+                  force_deep_path: bool = False):
     """Generate a fresh draft tree hanging off `root_token`.
 
     `root_hidden` (H,) is the draft output for the context pair whose token
     input was the root. Returns (tree, beam_state, cache): the cache has the
     beam region written but `length` still at ctx_end (stable_kv).
+    `force_deep_path` (the `force_accept` bench mode) puts the best final
+    frontier node's whole chain into the tree, as
+    `flowspec_tpu/draft/beam.py:205-229` does.
     """
     depth = depth if depth is not None else tree_cfg.depth
     num_select = (num_select if num_select is not None
@@ -169,7 +178,22 @@ def topk_generate(p: EagleParams, head, cache: KVCache,
                            tree_cfg.top_k, max_levels,
                            inv_tau=1.0 / tree_cfg.score_temperature)
 
-    sel = select_topn(state.cand_scores, state.cand_valid, num_select)
+    sel_force = None
+    if force_deep_path and num_select > 0:
+        # random-weight beam scores decay ~uniformly per level, so plain
+        # top-N keeps shallow nodes: walk the best final node's parents
+        # (depth steps) and force that chain in, within num_select
+        m = state.cand_tokens.shape[0]
+        i_m = torch.arange(m, device=root_token.device)
+        sel_force = torch.zeros((m,), dtype=torch.bool, device=i_m.device)
+        node = state.flat_ids[0]
+        for _ in range(depth):
+            sel_force = sel_force | (i_m == node)
+            parent = take(state.cand_parents, node.clamp(0, m - 1))
+            node = torch.where(node >= 0, parent, -1)
+        num_select = max(num_select - depth, 1)
+    sel = select_topn(state.cand_scores, state.cand_valid, num_select,
+                      force_include=sel_force)
     tree = build_tree(state.cand_tokens, state.cand_scores,
                       state.cand_parents, sel, root_token,
                       tree_cfg.node_cap, tree_cfg.leaf_cap,

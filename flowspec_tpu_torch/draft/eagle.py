@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from flowspec_tpu_torch.config import ModelConfig
-from flowspec_tpu_torch.models.kv_cache import KVCache
+from flowspec_tpu_torch.models.bias import prefill_bias
+from flowspec_tpu_torch.models.kv_cache import KVCache, device_scalar
 from flowspec_tpu_torch.models.llama import (
     QUANT_KINDS, QUANTIZERS, attention_block, rms_norm,
 )
@@ -72,10 +73,11 @@ def project_out(p: EagleParams, x: torch.Tensor,
 
 
 def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
-                positions: torch.Tensor, bias: torch.Tensor, write_start: int,
+                positions: torch.Tensor, bias: torch.Tensor, write_start,
                 cfg: ModelConfig) -> torch.Tensor:
     """x (1, T, W) already fc-fused; no input RMSNorm. k/v_cache are the
-    draft layer's (1, nkv, S, D) buffers, appended in place."""
+    draft layer's (1, nkv, S, D) buffers, appended in place at
+    `write_start` (host int or device scalar)."""
     res = x
     x = res + attention_block(x, p.wq, p.wk, p.wv, p.wo, k_cache, v_cache,
                               positions, bias, write_start, cfg)
@@ -110,21 +112,21 @@ def quantize_eagle_params(p: EagleParams, kind: str) -> EagleParams:
 
 def draft_context_forward(p: EagleParams, cache: KVCache,
                           tokens: torch.Tensor, hidden: torch.Tensor,
-                          start: int, n_valid: int, cfg: ModelConfig):
+                          start, n_valid, cfg: ModelConfig):
     """Advance the draft KV over context pairs (token_{i+1}, base_hidden_i).
 
     tokens (T,), hidden (1, T, H) padded to a static T; pairs [0, n_valid)
-    are real. Returns (out_hidden (1, T, H), cache with length
-    start + n_valid — the reference's `stable_kv`).
+    are real; `start` and `n_valid` are host ints or device scalars. Returns
+    (out_hidden (1, T, H), cache with length start + n_valid — the
+    reference's `stable_kv`).
     """
     dc = draft_view(p, cfg)
     t = tokens.shape[0]
     dev = tokens.device
+    start = device_scalar(start, dev)
     x = fuse(p, tokens[None], hidden)
     positions = start + torch.arange(t, device=dev)
-    i = torch.arange(t, device=dev)[:, None]
-    j = torch.arange(cache.max_len, device=dev)[None, :]
-    bias = torch.where(j <= start + i, 0.0, -1e9).to(torch.float32)
+    bias = prefill_bias(start, t, cache.max_len, device=dev)
     out = eagle_layer(x, p, cache.k[0], cache.v[0], positions, bias, start, dc)
     return project_out(p, out, hidden), cache.with_length(start + n_valid)
 

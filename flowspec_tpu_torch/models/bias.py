@@ -1,7 +1,9 @@
 """Attention-bias builders for prefill and tree chunks.
 
 Port of `flowspec_tpu/models/bias.py`: the model is mask-agnostic; callers
-build one additive (T, S) bias per forward and every layer reuses it.
+build one additive (T, S) bias per forward and every layer reuses it. The
+start and base are host ints or 0-d tensors on the device (the serving
+path's lengths), so the bias of a replayed CUDA graph follows each round.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 from flowspec_tpu_torch.tree.types import NEG_INF
 
 
-def prefill_bias(start: int, t: int, s_max: int, dtype=torch.float32,
+def prefill_bias(start, t: int, s_max: int, dtype=torch.float32,
                  device=None) -> torch.Tensor:
     """(T, S) bias for a contiguous chunk written at [start, start+T): query
     i attends cache positions j <= start + i."""
@@ -21,7 +23,7 @@ def prefill_bias(start: int, t: int, s_max: int, dtype=torch.float32,
     return torch.where(ok, 0.0, NEG_INF).to(dtype)
 
 
-def tree_bias(anc_bias_rows: torch.Tensor, tree_base: int, s_max: int,
+def tree_bias(anc_bias_rows: torch.Tensor, tree_base, s_max: int,
               dtype=torch.float32) -> torch.Tensor:
     """(T, S) bias for the tree written at cache positions
     [tree_base, tree_base + N): [0, tree_base) is committed context

@@ -8,7 +8,9 @@ Every attention goes through the tree-attention kernel's wrapper
 (`ops/tree_attention.py`) and every quantized projection (int8, nf4, int4)
 through its dequant-matmul's (`ops/quant_matmul.py`). bf16 rounding points
 follow the JAX package: rms_norm and rope in f32 then cast, probs cast to
-q's dtype.
+q's dtype. Write starts are host ints or 0-d device tensors: the K/V rows
+and the attention's live-row count derive from them on the device
+(`kv_write`), so a replayed CUDA graph follows each round's lengths.
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from typing import NamedTuple
+
 from flowspec_tpu_torch.config import ModelConfig
-from flowspec_tpu_torch.models.kv_cache import KVCache, clamp_start
+from flowspec_tpu_torch.models.kv_cache import (
+    KVCache, device_scalar, write_rows,
+)
 from flowspec_tpu_torch.ops.quant import (
-    NF4_BLOCK, Int4Tensor, Int8Tensor, NF4Tensor, qmatmul, quantize_int4,
-    quantize_int8, quantize_nf4,
+    NF4_BLOCK, Int4Tensor, Int8Tensor, NF4Tensor, matmul_f32_out, qmatmul,
+    quantize_int4, quantize_int8, quantize_nf4,
 )
 from flowspec_tpu_torch.ops.tree_attention import tree_attention
 
@@ -81,20 +87,39 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
-def attention(q, k_all, v_all, bias, n_valid: int | None = None):
+def attention(q, k_all, v_all, bias, n_valid=None):
     """q (1, nq, T, D); k_all/v_all (1, nkv, S, D); bias (T, S) additive;
-    `n_valid` live KV rows (rows at or past it carry a -1e9 bias). The
-    tree-attention kernel on a CUDA tensor, its plain version on the CPU."""
+    `n_valid` live KV rows (rows at or past it carry a -1e9 bias), a host
+    int or a device scalar. The tree-attention kernel on a CUDA tensor, its
+    plain version on the CPU."""
     return tree_attention(q, k_all, v_all, bias.float(), n_valid)
 
 
+class KVWrite(NamedTuple):
+    """Where a T-token chunk goes in an S-row cache: the rows (clamped
+    like `dynamic_update_slice`) and the live rows after the write."""
+    rows: torch.Tensor       # (T,) int64
+    n_valid: torch.Tensor    # () int32
+
+
+def kv_write(write_start, t: int, s_max: int, device) -> KVWrite:
+    """The `KVWrite` of a chunk at `write_start` (host int or device
+    scalar), computed once per forward and shared by its layers."""
+    start = device_scalar(write_start, device)
+    return KVWrite(rows=write_rows(start, t, s_max, device),
+                   n_valid=start + t)
+
+
 def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
-                    write_start: int, cfg: ModelConfig, bq=None, bk=None,
+                    write_start, cfg: ModelConfig, bq=None, bk=None,
                     bv=None):
     """qkv projections (+optional bias), rope, KV-cache append (in place,
     start clamped like `dynamic_update_slice`), masked attention, output
-    projection. k_cache/v_cache are one layer's (1, nkv, S, D) buffers."""
+    projection. k_cache/v_cache are one layer's (1, nkv, S, D) buffers;
+    `write_start` a host int, a device scalar or the forward's `KVWrite`."""
     b, t, _ = x.shape
+    if not isinstance(write_start, KVWrite):
+        write_start = kv_write(write_start, t, k_cache.shape[2], x.device)
     d = cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
 
@@ -109,18 +134,17 @@ def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
              cfg.rope_theta)
     v = v.reshape(b, t, nkv, d).transpose(1, 2)
 
-    s0 = clamp_start(write_start, t, k_cache.shape[2])
-    k_cache[:, :, s0:s0 + t] = k.to(k_cache.dtype)
-    v_cache[:, :, s0:s0 + t] = v.to(v_cache.dtype)
+    k_cache.index_copy_(2, write_start.rows, k.to(k_cache.dtype))
+    v_cache.index_copy_(2, write_start.rows, v.to(v_cache.dtype))
 
     attn = attention(q.contiguous(), k_cache, v_cache, bias,
-                     n_valid=int(write_start) + t)
+                     n_valid=write_start.n_valid)
     attn = attn.transpose(1, 2).reshape(b, t, nq * d)
     return qmatmul(attn, wo)
 
 
 def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
-                  write_start: int, cfg: ModelConfig):
+                  write_start, cfg: ModelConfig):
     """One decoder layer over one layer's (1, nkv, S, D) cache buffers."""
     res = x
     x = rms_norm(x, lp.input_ln, cfg.rms_norm_eps)
@@ -135,10 +159,13 @@ def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
 
 def llama_forward(params: LlamaParams, cache: KVCache, hidden: torch.Tensor,
                   positions: torch.Tensor, bias: torch.Tensor,
-                  write_start: int, cfg: ModelConfig):
-    """Run the stacked decoder layers over a (1, T, H) chunk, appending to
-    `cache` in place. Returns (hidden, cache) — hidden not final-normed."""
+                  write_start, cfg: ModelConfig):
+    """Run the stacked decoder layers over a (1, T, H) chunk written at
+    `write_start` (host int or device scalar), appending to `cache` in
+    place. Returns (hidden, cache) — hidden not final-normed."""
     x = hidden
+    write_start = kv_write(write_start, hidden.shape[1], cache.max_len,
+                           hidden.device)
     for i in range(cache.k.shape[0]):
         x = decoder_layer(x, params.layers.layer(i), cache.k[i], cache.v[i],
                           positions, bias, write_start, cfg)
@@ -157,8 +184,10 @@ def embed_tokens(params: LlamaParams, tokens: torch.Tensor) -> torch.Tensor:
 def lm_head_logits(params: LlamaParams, hidden: torch.Tensor) -> torch.Tensor:
     """(..., H) -> (..., V) f32: products of the working dtype summed in
     f32, as the JAX package's einsum with preferred_element_type=f32 (a
-    bf16 product output would round every logit to bf16)."""
-    return torch.matmul(hidden.float(), params.lm_head.float())
+    bf16 product output would round every logit to bf16). On the card one
+    GEMM of the working dtype with f32 output, no f32 copy of the (H, V)
+    head; on the CPU the f32 product."""
+    return matmul_f32_out(hidden, params.lm_head)
 
 
 QUANT_FIELDS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from flowspec_tpu_torch.ops import _build
-from flowspec_tpu_torch.ops.quant import Int8Tensor
+from flowspec_tpu_torch.ops.quant import Int8Tensor, matmul_f32_out
 from flowspec_tpu_torch.ops.quant_matmul import WGMMA_STAGES, smem_bytes
 
 COLS_PER_BLOCK = 128
@@ -64,11 +64,15 @@ def head_plan(t: int, h: int, v: int) -> HeadPlan:
 def head_logits(x: torch.Tensor, head) -> torch.Tensor:
     """(..., H) @ head -> (..., V) float32 (`flowspec_tpu/draft/beam.py:30`):
     products of x's dtype summed in f32; an int8 head is cast to x's dtype
-    (exact) and scaled after the sum."""
+    (exact) and scaled after the sum. A plain head on the card takes one
+    GEMM with f32 output and no f32 copy of the head
+    (`ops/quant.py matmul_f32_out`)."""
     if isinstance(head, Int8Tensor):
         y = torch.matmul(x.float(), head.q.to(x.dtype).float())
         return y * head.scale
-    return torch.matmul(x.float(), head.to(x.dtype).float())
+    if x.device.type == "cpu":
+        return torch.matmul(x.float(), head.to(x.dtype).float())
+    return matmul_f32_out(x, head.to(x.dtype))
 
 
 def topk_log_softmax(logits: torch.Tensor, k: int):

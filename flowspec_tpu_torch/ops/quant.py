@@ -172,3 +172,20 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     lead = x.shape[:-1]
     y = fn(x.reshape(1, -1, x.shape[-1]), w.q, w.scale)
     return y.reshape(*lead, w.out_features)
+
+
+def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., H) @ w (H, V) -> (..., V) float32 from products of w's
+    dtype summed in f32. A CUDA tensor takes one GEMM that reads w as it
+    is and writes f32 (`aten::mm.dtype`, a plain large product that the JAX
+    package leaves to XLA too): casting w to f32 first would make an f32
+    copy of the head on every call (0.52 GB at 7B), which a CUDA graph
+    would hold in its pool for good. The CPU, which has no such
+    GEMM, multiplies in f32 (the products of bf16 values are exact in
+    f32), as does an f32 w."""
+    if x.device.type == "cpu" or w.dtype == torch.float32:
+        return torch.matmul(x.float(), w.float())
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w,
+                 out_dtype=torch.float32)
+    return y.reshape(*lead, w.shape[-1])

@@ -12,10 +12,18 @@ does), so the rows skipped would have contributed exactly 0.
 On a CUDA tensor `tree_attention` launches `csrc/tree_attention.cu` (bf16)
 by `attention_plan`: key splits of 64-key tiles, the splits of one (KV head,
 row tile) a thread-block cluster that joins them in shared memory.
+`n_valid` is a host int or a 0-d tensor on q's device. The serving path
+passes the tensor: its positions live on the card, so a replayed CUDA graph
+reads each round's value. The kernel's grid is then planned for the whole
+allocation (`attention_plan` at n_keys = S) and every block reads n_valid
+from device memory and works through the live 64-key tiles only; the
+splits past them are empty. A host int plans the grid for the live tiles
+alone (`kernel_keys`). The two give equal bits.
+
 `tree_attention_simt` is the earlier kernel of the same library (one block
 per KV head and 32 query rows, CUDA cores), kept for comparison only:
-nothing on the serving path calls it. On a CPU tensor both run
-`tree_attention_plain`.
+nothing on the serving path calls it; it takes a host n_valid. On a CPU
+tensor both run `tree_attention_plain`.
 """
 
 from __future__ import annotations
@@ -35,9 +43,13 @@ TILE_WARPS = 3       # warps a block while the grid stays one wave
 WAVE_BLOCKS = 360    # blocks of TILE_WARPS that run as one wave on an H100
 
 
-def live_keys(s_max: int, n_valid: int | None) -> int:
+def live_keys(s_max: int, n_valid) -> int:
     """KV rows the plain version (and the earlier kernel) reads for
-    `n_valid` live rows: whole 256-row blocks, at most the allocation."""
+    `n_valid` live rows: whole 256-row blocks, at most the allocation. A
+    0-d tensor on the card reads all `s_max` rows (knowing its value would
+    cost a device-to-host read); one on the CPU is read."""
+    if isinstance(n_valid, torch.Tensor) and n_valid.device.type != "cpu":
+        n_valid = None
     if n_valid is None:
         return s_max
     return min(s_max, -(-int(n_valid) // KV_BLOCK) * KV_BLOCK)
@@ -94,10 +106,13 @@ def attention_plan(nkv: int, g: int, t: int, n_keys: int) -> AttentionPlan:
                          blocks=nkv * row_tiles * splits)
 
 
-def tree_attention_plain(q, k_cache, v_cache, bias, n_keys: int):
+def tree_attention_plain(q, k_cache, v_cache, bias, n_valid=None):
     """The dense path of the JAX package's `attention` (`models/llama.py:
-    187-196`) over the first `n_keys` KV rows: f32 scores, softmax, probs
-    cast to q's dtype before PV, f32 accumulation, cast last."""
+    187-196`) over the KV rows `live_keys` gives for `n_valid` (a host int,
+    a 0-d tensor or None): f32 scores, softmax, probs cast to q's dtype
+    before PV, f32 accumulation, cast last. Rows read past n_valid carry a
+    -1e9 bias and add exactly nothing."""
+    n_keys = live_keys(k_cache.shape[2], n_valid)
     nq, nkv = q.shape[1], k_cache.shape[1]
     k = k_cache[:, :, :n_keys]
     v = v_cache[:, :, :n_keys]
@@ -127,19 +142,26 @@ def _check(name, q, k_cache, v_cache, bias):
 
 def tree_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, bias: torch.Tensor,
-                   n_valid: int | None = None) -> torch.Tensor:
+                   n_valid=None) -> torch.Tensor:
     """q (1, nq, T, D); k/v_cache (1, nkv, S, D); bias (T, S) f32 additive;
-    n_valid: live KV rows (None = all S). Returns (1, nq, T, D)."""
+    n_valid: live KV rows, a host int or a 0-d tensor on q's device (None =
+    all S). Returns (1, nq, T, D)."""
     _check("tree_attention", q, k_cache, v_cache, bias)
     s_max = k_cache.shape[2]
     if q.device.type == "cpu":
-        return tree_attention_plain(q, k_cache, v_cache, bias,
-                                    live_keys(s_max, n_valid))
+        return tree_attention_plain(q, k_cache, v_cache, bias, n_valid)
     _, nq, t, _ = q.shape
     nkv = k_cache.shape[1]
-    plan = attention_plan(nkv, nq // nkv, t, kernel_keys(s_max, n_valid))
+    on_device = isinstance(n_valid, torch.Tensor)
+    if on_device and (n_valid.dim() != 0 or n_valid.device != q.device):
+        raise ValueError("tree_attention: a tensor n_valid must be 0-d on "
+                         f"q's device, got {tuple(n_valid.shape)} on "
+                         f"{n_valid.device}")
+    plan = attention_plan(nkv, nq // nkv, t,
+                          s_max if on_device else kernel_keys(s_max, n_valid))
     return _launch(tree_attention, q, k_cache, v_cache, bias, plan.n_keys,
-                   (plan.warps, plan.splits, plan.tiles_per_split))
+                   (plan.warps, plan.splits, plan.tiles_per_split),
+                   n_valid=(n_valid.to(torch.int32) if on_device else None))
 
 
 tree_attention.launches = 0
@@ -149,8 +171,8 @@ def tree_attention_simt(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, bias: torch.Tensor,
                         n_valid: int | None = None) -> torch.Tensor:
     """The same function through the earlier kernel (CUDA cores, one block
-    per KV head and 32 query rows, whole 256-row blocks). For comparison
-    only."""
+    per KV head and 32 query rows, whole 256-row blocks; a tensor n_valid
+    reads all S rows). For comparison only."""
     _check("tree_attention_simt", q, k_cache, v_cache, bias)
     n_keys = live_keys(k_cache.shape[2], n_valid)
     if q.device.type == "cpu":
@@ -162,10 +184,12 @@ def tree_attention_simt(q: torch.Tensor, k_cache: torch.Tensor,
 tree_attention_simt.launches = 0
 
 
-def _launch(wrapper, q, k_cache, v_cache, bias, n_keys, plan_ints, lib=None):
+def _launch(wrapper, q, k_cache, v_cache, bias, n_keys, plan_ints, lib=None,
+            n_valid=None):
     """Launch the kernel named like `wrapper` and count it. The C entry
-    point takes (q, k, v, bias, out, nkv, G, T, S, D, n_keys, *plan_ints,
-    scale, stream); anything the kernel does not take raises here."""
+    point takes (q, k, v, bias, [n_valid,] out, nkv, G, T, S, D, n_keys,
+    *plan_ints, scale, stream), the device n_valid pointer (0 for none) for
+    `tree_attention` only; anything the kernel does not take raises here."""
     name = wrapper.__name__
     _, nq, t, d = q.shape
     _, nkv, s_max, _ = k_cache.shape
@@ -181,11 +205,14 @@ def _launch(wrapper, q, k_cache, v_cache, bias, n_keys, plan_ints, lib=None):
     q, k_cache, v_cache, bias = (_build.aligned16(x)
                                  for x in (q, k_cache, v_cache, bias))
     out = torch.empty_like(q)
-    fn = _build.bind(name, 5, 6 + len(plan_ints), 1, lib=lib)
+    nv = () if wrapper is not tree_attention else (
+        0 if n_valid is None else n_valid.data_ptr(),)
+    fn = _build.bind(name, 5 + len(nv), 6 + len(plan_ints), 1, lib=lib)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), nkv, nq // nkv, t, s_max, d,
-                 n_keys, *plan_ints, d ** -0.5, _build.stream_ptr(q.device))
+                 bias.data_ptr(), *nv, out.data_ptr(), nkv, nq // nkv, t,
+                 s_max, d, n_keys, *plan_ints, d ** -0.5,
+                 _build.stream_ptr(q.device))
     _build.check(err, name)
     wrapper.launches += 1
     return out

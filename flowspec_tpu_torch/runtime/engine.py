@@ -1,15 +1,24 @@
 """Single-device tree-speculative decoding engine.
 
 Port of `flowspec_tpu/runtime/engine.py` (single-request path):
-prefill -> [draft context -> beam tree -> verify the whole tree -> greedy
-accept -> compact KV] -> ... The JAX package jits each step and runs the
-round loop on device; here each step runs eagerly and the round loop is a
-Python loop. Positions and lengths (commit_len, n_pending, cache lengths)
-are host ints, so every kernel launch knows its live KV rows without a
-device sync; the round syncs once, to read the accepted length.
+prefill -> [draft context -> beam tree -> verify the whole tree -> accept
+-> compact KV] -> ... Positions and lengths (commit_len, n_pending, the
+caches' lengths) are 0-d int32 tensors on the engine's device, as in the
+JAX state, so one round (`_spec_round`) issues no device-to-host read and
+can be captured as a CUDA graph.
 
-Not ported yet (ROADMAP.md, Queue 1): `generate_fused` / CUDA graphs, KV
-buckets, `resume_and_generate`, `serve` and `force_accept`.
+Two decode paths share that round body, as the JAX package's do:
+- `generate` runs it eagerly in a Python loop and reads the accepted tokens
+  once a round;
+- `generate_fused` / `generate_ar_fused` run the counterparts of
+  `_spec_decode_loop` / `_ar_decode_loop` (`runtime/graphs.py`): on the card
+  one CUDA graph a KV bucket, replayed with one small read a replay; on the
+  CPU the same loop body without capture.
+`kv_buckets` (`_plan_buckets`, `_grow_kv`), `resume_and_generate` and the
+`force_accept` bench mode are ported too; greedy and stochastic rounds
+alike read nothing back (`tree/posterior.py` walks every depth with masks,
+as the JAX scan does). Not ported yet (ROADMAP.md, Queue 1): batched
+serving (`serve`).
 """
 
 from __future__ import annotations
@@ -28,16 +37,19 @@ from flowspec_tpu_torch.draft.eagle import (
     EagleParams, draft_context_forward, draft_view,
 )
 from flowspec_tpu_torch.models.bias import prefill_bias, tree_bias
-from flowspec_tpu_torch.models.kv_cache import KVCache, init_kv_cache
+from flowspec_tpu_torch.models.kv_cache import (
+    KVCache, device_scalar, grow_kv, init_kv_cache,
+)
 from flowspec_tpu_torch.models.llama import (
     LlamaParams, embed_tokens, final_hidden, lm_head_logits, llama_forward,
 )
 from flowspec_tpu_torch.ops.quant import Int8Tensor, NF4Tensor, quantize_int8
+from flowspec_tpu_torch.runtime import graphs
 from flowspec_tpu_torch.tree.posterior import (
     evaluate_posterior_greedy, evaluate_posterior_stochastic,
 )
 from flowspec_tpu_torch.tree.sampling import sample_token
-from flowspec_tpu_torch.tree.types import tree_attention_bias
+from flowspec_tpu_torch.tree.types import take, tree_attention_bias
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,11 +81,12 @@ def make_beam_head(params: LlamaParams, draft: EagleParams,
 class EngineState:
     base_cache: KVCache
     draft_cache: KVCache
-    commit_len: int                # committed tokens (== base KV length)
+    commit_len: torch.Tensor       # () int32 — committed tokens (== base KV
+                                   #   length)
     root_token: torch.Tensor       # () int32 — current speculation root
     pending_tokens: torch.Tensor   # (CTX,) int32 — draft pairs not consumed
     pending_hidden: torch.Tensor   # (1, CTX, H)
-    n_pending: int
+    n_pending: torch.Tensor        # () int32
     root_hidden: torch.Tensor      # (H,) — draft hidden of the root pair,
                                    #   used when n_pending == 0
     generator: Optional[torch.Generator] = None
@@ -107,6 +120,8 @@ class SpecEngine:
         self.ctx_pad = max(tc.depth_cap + 1, cfg.prefill_chunk)
         self._max_levels = tc.depth + tc.expand_depth
         self.draft_kv_len, self.base_kv_len = self._kv_rows(cfg.max_seq_len)
+        # captured decode loops, keyed by kind and shapes (runtime/graphs.py)
+        self._graphs: dict = {}
 
     # ---- state setup -----------------------------------------------------
     def _kv_rows(self, max_seq: int):
@@ -117,26 +132,52 @@ class SpecEngine:
         return (rnd(max_seq + self._max_levels * tc.top_k),
                 rnd(max_seq + tc.node_cap))
 
-    def init_state(self, seed: int = 0) -> EngineState:
+    def _plan_buckets(self, prompt_len: int, max_new: int):
+        """Ascending max_seq bucket schedule for one request; [max_seq_len]
+        when bucket growth is off. Buckets too small to fit the prompt plus
+        one round are dropped, and the list is cut at the first bucket that
+        covers the full request (later buckets can never engage)."""
+        tc = self.cfg.tree
+        full = self.cfg.max_seq_len
+        if not self.cfg.kv_buckets:
+            return [full]
+        need = prompt_len + max_new + tc.depth_cap + 1
+        out = []
+        for s in sorted(set(self.cfg.kv_buckets) | {full}):
+            if s > full or s < prompt_len + tc.depth_cap + 1:
+                continue
+            out.append(s)
+            if s >= need:
+                break
+        return out or [full]
+
+    def init_state(self, seed: int = 0,
+                   max_seq: Optional[int] = None) -> EngineState:
         mc = self.cfg.model
         dt = getattr(torch, mc.dtype)
         dev = self.device
+        draft_rows, base_rows = (
+            self._kv_rows(max_seq) if max_seq is not None
+            else (self.draft_kv_len, self.base_kv_len))
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
         return EngineState(
             base_cache=init_kv_cache(mc.num_hidden_layers, 1,
                                      mc.num_key_value_heads,
-                                     self.base_kv_len, mc.head_dim_, dt, dev),
+                                     base_rows, mc.head_dim_, dt, dev),
+            # draft KV geometry follows the draft's own (possibly thin)
+            # head layout, not the base's
             draft_cache=init_kv_cache(1, 1, self.dcfg.num_key_value_heads,
-                                      self.draft_kv_len, self.dcfg.head_dim_,
+                                      draft_rows, self.dcfg.head_dim_,
                                       dt, dev),
-            commit_len=0,
+            commit_len=zero,
             root_token=torch.zeros((), dtype=torch.int32, device=dev),
             pending_tokens=torch.zeros((self.ctx_pad,), dtype=torch.int32,
                                        device=dev),
             pending_hidden=torch.zeros((1, self.ctx_pad, mc.hidden_size),
                                        dtype=dt, device=dev),
-            n_pending=0,
+            n_pending=zero.clone(),
             root_hidden=torch.zeros((mc.hidden_size,), dtype=dt, device=dev),
             generator=gen)
 
@@ -198,13 +239,12 @@ class SpecEngine:
         new_tokens = 0
         rounds = 0
         while new_tokens < max_new:
-            state, accepted = _spec_round(
-                state, self.params, self.draft, self.beam_head,
-                cfg=self.cfg.model, tree_cfg=self.cfg.tree,
-                sampling=self.cfg.sampling)
+            state, accepted, n_acc = self._round(state)
             rounds += 1
+            # the round's one host read: the accepted length and tokens
+            n, *acc = torch.cat([n_acc.view(1), accepted]).tolist()
             stop = False
-            for t in accepted:
+            for t in acc[:n]:
                 out.append(t)
                 new_tokens += 1
                 if t == eos_token_id or new_tokens >= max_new:
@@ -217,6 +257,127 @@ class SpecEngine:
         if return_state:
             return out, stats, state
         return out, stats
+
+    def _round(self, state: EngineState):
+        """One `_spec_round` with this engine's weights and configuration:
+        (state, accepted (depth_cap,) int32 with -1 padding, n_accepted)."""
+        return _spec_round(state, self.params, self.draft, self.beam_head,
+                           cfg=self.cfg.model, tree_cfg=self.cfg.tree,
+                           sampling=self.cfg.sampling,
+                           force_accept=self.cfg.force_accept)
+
+    def _ar(self, state: EngineState):
+        """One `_ar_step` with this engine's weights: (state, next token)."""
+        return _ar_step(state, self.params, cfg=self.cfg.model,
+                        sampling=self.cfg.sampling)
+
+    def resume_and_generate(self, state, history, extra_prompt,
+                            max_new_tokens: Optional[int] = None,
+                            eos_token_id: int = 2,
+                            return_state: bool = False):
+        """Multi-turn continuation with KV reuse
+        (`flowspec_tpu/runtime/engine.py:415-477`): append `extra_prompt`
+        to a finished generation and keep decoding, prefilling only the new
+        tokens. `history` is exactly the token list the previous
+        generate / resume_and_generate call on this `state` returned (pass
+        return_state=True there). The engine may have committed past that
+        stream, so the lengths roll back, on the device, to len(history)-1
+        committed tokens (committed KV row i holds history[i]), and the
+        boundary token history[-1] is re-forwarded as the first token of
+        the continuation chunk; the draft cache's length tracks commits one
+        for one and rolls back to the same mark. The pending pair buffers
+        are re-widened to a prefill chunk, or the continuation's pairs
+        would be cut."""
+        max_new = max_new_tokens or self.cfg.max_new_tokens
+        history = [int(t) for t in np.asarray(history).reshape(-1)]
+        extra = [int(t) for t in np.asarray(extra_prompt).reshape(-1)]
+        keep = len(history) - 1
+        if keep < 0 or not extra:
+            raise ValueError(f"resume_and_generate needs a history and an "
+                             f"extra prompt, got {len(history)} and "
+                             f"{len(extra)} tokens")
+        tc = self.cfg.tree
+        limit = min(self.cfg.max_seq_len,
+                    state.base_cache.max_len - tc.node_cap,
+                    state.draft_cache.max_len - self._max_levels * tc.top_k)
+        need = len(history) + len(extra) + max_new + tc.depth_cap + 1
+        if need > limit:
+            raise ValueError(
+                f"history+extra+max_new+depth_cap = {need} exceeds this "
+                f"state's budget {limit}; raise EngineConfig.max_seq_len")
+        dev = self.device
+        h = state.pending_hidden.shape[-1]
+        keep_t = device_scalar(keep, dev)
+        state = dataclasses.replace(
+            state,
+            base_cache=state.base_cache.with_length(keep_t),
+            draft_cache=state.draft_cache.with_length(keep_t.clone()),
+            commit_len=keep_t.clone(),
+            n_pending=torch.zeros((), dtype=torch.int32, device=dev),
+            pending_tokens=torch.zeros((self.ctx_pad,), dtype=torch.int32,
+                                       device=dev),
+            pending_hidden=torch.zeros((1, self.ctx_pad, h),
+                                       dtype=state.pending_hidden.dtype,
+                                       device=dev))
+        state = self.prefill(state, [history[-1]] + extra)
+        return self._decode_rounds(state, history + extra, max_new,
+                                   eos_token_id, return_state)
+
+    def generate_fused(self, prompt, max_new_tokens: Optional[int] = None,
+                       eos_token_id: int = 2, seed: int = 0):
+        """Like generate(), but the decode loop runs as the counterpart of
+        `_spec_decode_loop` (`runtime/graphs.py`): on the card one captured
+        CUDA graph of the round and its bookkeeping, replayed with one small
+        read a replay; on the CPU the same loop body. It captures and
+        replays or raises: it never falls back to the eager loop.
+
+        With cfg.kv_buckets set, the decode runs as a chain of segments: the
+        KV caches start in the smallest bucket that fits the prompt, and
+        when commit_len passes the bucket's budget the loop exits, the
+        caches are zero-padded to the next bucket and the next segment (the
+        next bucket's graph) continues."""
+        max_new = max_new_tokens or self.cfg.max_new_tokens
+        self._check_budget(prompt, max_new)
+        p_len = len(np.asarray(prompt).reshape(-1))
+        buckets = self._plan_buckets(p_len, max_new)
+        state = self.prefill(self.init_state(seed, max_seq=buckets[0]),
+                             prompt)
+        out = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        new_tokens = 0
+        rounds = 0
+        for i, seq in enumerate(buckets):
+            if i:
+                state = _grow_kv(state, *self._kv_rows(seq))
+            toks, seg_rounds, done, state = graphs.spec_decode_loop(
+                self, state, eos_token_id, max_new - new_tokens, seq,
+                max_out=max_new)
+            rounds += seg_rounds
+            # trim past eos / budget like the reference's outer loop
+            stop = False
+            for t in toks:
+                out.append(t)
+                new_tokens += 1
+                if t == eos_token_id or new_tokens >= max_new:
+                    stop = True
+                    break
+            if stop or done or new_tokens >= max_new:
+                break
+        return out, {"new_tokens": new_tokens, "rounds": rounds,
+                     "accept_per_round": new_tokens / max(rounds, 1),
+                     "kv_buckets_used": i + 1}
+
+    def generate_ar_fused(self, prompt, max_new_tokens: Optional[int] = None,
+                          eos_token_id: int = 2, seed: int = 0):
+        """generate_ar() through the counterpart of `_ar_decode_loop`: one
+        captured CUDA graph of the AR step on the card, the same body on
+        the CPU."""
+        max_new = max_new_tokens or self.cfg.max_new_tokens
+        self._check_budget(prompt, max_new)
+        state = self.prefill(self.init_state(seed), prompt)
+        toks = graphs.ar_decode_loop(self, state, eos_token_id,
+                                     max_out=max_new)
+        out = [int(t) for t in np.asarray(prompt).reshape(-1)] + toks
+        return out, {"new_tokens": len(toks)}
 
     def generate_ar(self, prompt, max_new_tokens: Optional[int] = None,
                     eos_token_id: int = 2, seed: int = 0):
@@ -233,8 +394,7 @@ class SpecEngine:
             new_tokens += 1
             if t == eos_token_id:
                 break
-            state, tok = _ar_step(state, self.params, cfg=self.cfg.model,
-                                  sampling=self.cfg.sampling)
+            state, tok = self._ar(state)
         return out, {"new_tokens": new_tokens}
 
 
@@ -277,8 +437,13 @@ def _prefill_chunk(state: EngineState, params: LlamaParams,
         dstate, base_cache=cache, commit_len=start + n_valid,
         pending_tokens=_pad_to(next_tokens, state.pending_tokens.shape[0]),
         pending_hidden=_pad_rows(normed, state.pending_hidden.shape[1]),
-        n_pending=n_valid)
+        n_pending=device_scalar(n_valid, dev))
     return new_state, last_logits
+
+
+def _last_pair(out: torch.Tensor, n_pending: torch.Tensor) -> torch.Tensor:
+    """out[0, clip(n_pending - 1, 0, T - 1)], indexed on the device."""
+    return take(out[0], (n_pending - 1).clamp(0, out.shape[1] - 1))
 
 
 def _finish_prefill(state: EngineState, draft: EagleParams, last_logits, *,
@@ -289,19 +454,20 @@ def _finish_prefill(state: EngineState, draft: EagleParams, last_logits, *,
     hidden, and shrink the pending buffers to depth_cap+1 rows."""
     root = sample_token(state.generator, last_logits, sampling,
                         is_probs=False)
-    pt = state.pending_tokens.clone()
-    pt[state.n_pending - 1] = root
+    slot = (state.n_pending - 1).remainder(state.pending_tokens.shape[0])
+    pt = state.pending_tokens.index_copy(0, slot.long().view(1),
+                                         root.view(1))
     state = dataclasses.replace(state, root_token=root, pending_tokens=pt)
     out, dcache = draft_context_forward(
         draft, state.draft_cache, state.pending_tokens, state.pending_hidden,
         state.draft_cache.length, state.n_pending, cfg)
-    rh = out[0, min(max(state.n_pending - 1, 0), out.shape[1] - 1)]
     h = state.pending_hidden.shape[-1]
     return dataclasses.replace(
-        state, draft_cache=dcache, root_hidden=rh,
+        state, draft_cache=dcache, root_hidden=_last_pair(out,
+                                                          state.n_pending),
         pending_tokens=state.pending_tokens.new_zeros((ctx_small,)),
         pending_hidden=state.pending_hidden.new_zeros((1, ctx_small, h)),
-        n_pending=0)
+        n_pending=torch.zeros_like(state.n_pending))
 
 
 def _drain_pending(state: EngineState, draft: EagleParams,
@@ -315,9 +481,17 @@ def _drain_pending(state: EngineState, draft: EagleParams,
 
 def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
                 beam_head=None, *, cfg: ModelConfig, tree_cfg: TreeConfig,
-                sampling: SamplingConfig):
+                sampling: SamplingConfig, force_accept: int = 0):
     """One draft -> verify -> accept round (ref eagle/ea_model.py:236-297).
-    Returns (state, accepted tokens as a list of ints)."""
+    Returns (state, accepted (depth_cap,) int32 with -1 padding,
+    n_accepted () int32), all on the device: a round reads nothing back,
+    so the eager loop and a captured CUDA graph run the same body.
+
+    `force_accept` > 0 is the synthetic-acceptance bench mode
+    (`flowspec_tpu/runtime/engine.py:729-743`): the deepest drafted path is
+    accepted for min(force_accept, its length) nodes whatever the verdict,
+    so every later stage does the work of a real acceptance of that length.
+    Measurement only: the tokens are not the base model's."""
     n_cap = tree_cfg.node_cap
     s_max = state.base_cache.max_len
     dev = state.root_token.device
@@ -328,11 +502,13 @@ def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
         state.draft_cache.length, state.n_pending, cfg)
     # n_pending == 0 only on the first round after prefill (the prefill
     # drain consumed the pairs and kept the root's hidden)
-    root_hidden = (out[0, min(state.n_pending - 1, out.shape[1] - 1)]
-                   if state.n_pending > 0 else state.root_hidden)
+    root_hidden = torch.where(state.n_pending > 0,
+                              _last_pair(out, state.n_pending),
+                              state.root_hidden)
     head = params.lm_head if beam_head is None else beam_head
     tree, _, dcache = topk_generate(draft, head, dcache, state.root_token,
-                                    root_hidden, tree_cfg, cfg)
+                                    root_hidden, tree_cfg, cfg,
+                                    force_deep_path=force_accept > 0)
 
     # 2. verify the whole tree in one chunk of node_cap tokens
     commit = state.commit_len
@@ -356,11 +532,22 @@ def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
             max_trials=min(2 * tree_cfg.top_k, tree_cfg.leaf_cap))
     new_root = sample_token(state.generator, res.sample_p, sampling,
                             is_probs=True)
-    n_acc = int(res.accept_len) + 1                      # the round's sync
+    best_leaf, accept_len = res.best_leaf, res.accept_len
+    if force_accept:
+        path_len = (tree.retrieve >= 0).sum(dim=1)
+        path_len = torch.where(tree.leaf_valid(), path_len, 0)
+        best_leaf = torch.argmax(path_len).to(torch.int32)
+        accept_len = torch.clamp(take(path_len, best_leaf) - 1,
+                                 max=force_accept).to(torch.int32)
+        last = take(tree.retrieve, best_leaf, accept_len).clamp(0, n_cap - 1)
+        p_last = torch.softmax(take(node_logits, last).float(), dim=-1)
+        new_root = sample_token(state.generator, p_last, sampling,
+                                is_probs=True)
 
     # 4. commit: path nodes [root, a_1..a_k]
     d_cap = tree_cfg.depth_cap
-    path = tree.retrieve[res.best_leaf.long()]           # (D,)
+    path = take(tree.retrieve, best_leaf)                # (D,)
+    n_acc = (accept_len + 1).to(torch.int32)
     d_idx = torch.arange(d_cap, device=dev)
     path_valid = d_idx < n_acc
     safe_path = path.clamp(0, n_cap - 1).long()
@@ -386,7 +573,17 @@ def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
         root_token=new_root, pending_tokens=_pad_to(pair_tok, ctx),
         pending_hidden=_pad_rows(pair_hidden, ctx), n_pending=n_acc,
         root_hidden=root_hidden, generator=state.generator)
-    return new_state, accepted_tokens[:n_acc].tolist()
+    return new_state, accepted_tokens.to(torch.int32), n_acc
+
+
+def _grow_kv(state: EngineState, draft_rows: int,
+             base_rows: int) -> EngineState:
+    """Move a request's KV caches to a larger bucket by zero-padding the
+    sequence axis (`flowspec_tpu/runtime/engine.py:812-828`); the lengths
+    and every other field carry over unchanged."""
+    return dataclasses.replace(
+        state, base_cache=grow_kv(state.base_cache, base_rows),
+        draft_cache=grow_kv(state.draft_cache, draft_rows))
 
 
 def _ar_step(state: EngineState, params: LlamaParams, *, cfg: ModelConfig,
@@ -397,7 +594,7 @@ def _ar_step(state: EngineState, params: LlamaParams, *, cfg: ModelConfig,
     dev = state.root_token.device
     hidden = embed_tokens(params, state.root_token.reshape(1, 1))
     bias = prefill_bias(commit, 1, s_max, device=dev)
-    positions = torch.full((1,), commit, device=dev)
+    positions = commit.reshape(1)
     out, cache = llama_forward(params, state.base_cache, hidden, positions,
                                bias, commit, cfg)
     cache = cache.with_length(commit + 1)

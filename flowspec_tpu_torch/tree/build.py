@@ -28,7 +28,7 @@ def select_topn(cand_scores: torch.Tensor, cand_valid: torch.Tensor,
     eligible = cand_valid
     if force_include is not None:
         eligible = eligible & ~force_include
-    neg_inf = torch.tensor(-torch.inf, device=cand_scores.device)
+    neg_inf = torch.full((), -torch.inf, device=cand_scores.device)
     masked = torch.where(eligible, cand_scores, neg_inf)
     rank = _rank(torch.argsort(-masked, stable=True))
     sel = eligible & (rank < num_select) & (masked > -torch.inf)
@@ -47,7 +47,7 @@ def build_tree(cand_tokens: torch.Tensor, cand_scores: torch.Tensor,
     node_cap-1 are dropped lowest-score first."""
     m = cand_tokens.shape[0]
     dev = cand_tokens.device
-    neg_inf = torch.tensor(-torch.inf, device=dev)
+    neg_inf = torch.full((), -torch.inf, device=dev)
 
     masked = torch.where(selected, cand_scores, neg_inf)
     rank = _rank(torch.argsort(-masked, stable=True))
@@ -74,9 +74,11 @@ def build_tree(cand_tokens: torch.Tensor, cand_scores: torch.Tensor,
     parents = torch.where(in_sel, parents, -1).to(torch.int32)
     scores = torch.where(in_sel, cand_scores[src], neg_inf)
 
-    tokens[0] = root_token
-    parents[0] = -1
-    scores[0] = 0.0
+    # fills and a device copy: a Python scalar assigned by index would be
+    # copied from the host, which a captured CUDA graph cannot do
+    tokens[0].copy_(root_token)
+    parents[0].fill_(-1)
+    scores[0].fill_(0.0)
     return finalize_tree(tokens, parents, scores, n_sel + 1, leaf_cap,
                          depth_cap)
 

@@ -17,7 +17,7 @@ import torch
 
 from flowspec_tpu_torch.config import SamplingConfig
 from flowspec_tpu_torch.tree.sampling import warp_logits
-from flowspec_tpu_torch.tree.types import TokenTree
+from flowspec_tpu_torch.tree.types import TokenTree, take
 
 
 class PosteriorResult(NamedTuple):
@@ -43,9 +43,8 @@ def evaluate_posterior_greedy(node_logits: torch.Tensor,
     accept_len = accept_lens.max().clamp_min(0).to(torch.int32)
     best = torch.where(accept_len == 0, 0,
                        torch.argmax(accept_lens)).to(torch.int32)
-    last_node = tree.retrieve[best.long(), accept_len.long()].clamp(
-        0, node_cap - 1).long()
-    sample_p = torch.softmax(node_logits[last_node].float(), dim=-1)
+    last_node = take(tree.retrieve, best, accept_len).clamp(0, node_cap - 1)
+    sample_p = torch.softmax(take(node_logits, last_node).float(), dim=-1)
     return PosteriorResult(best, accept_len, sample_p)
 
 
@@ -60,8 +59,12 @@ def evaluate_posterior_stochastic(
     rejection zero p(x) and renormalize. Trial tokens are distinct, so that
     is p(x_m) / (1 - sum_{j<m} p(x_j)) and one vector of uniforms decides a
     whole depth. If the walk ends on rejections, the residual distribution
-    is returned for sampling. The depth loop is a Python loop with one host
-    read per depth (the JAX package scans it on device)."""
+    is returned for sampling. Like the JAX scan (`flowspec_tpu/tree/
+    posterior.py:182`) the walk runs every depth with masks instead of
+    stopping, drawing all its uniforms at once: on the card it reads
+    nothing back to the host, so a round that samples can be captured as a
+    CUDA graph (on the CPU, where a read is free, it stops once the walk
+    has ended)."""
     node_cap, vocab = node_logits.shape
     leaf_cap, depth_cap = tree.retrieve.shape
     m_trials = leaf_cap if max_trials is None else min(max_trials, leaf_cap)
@@ -72,14 +75,22 @@ def evaluate_posterior_stochastic(
     rows = torch.arange(leaf_cap, device=dev)
     earlier = rows[None, :] < rows[:, None]
     slots = torch.arange(m_trials, device=dev)
+    uniforms = torch.rand((max(depth_cap - 1, 1), m_trials),
+                          generator=generator, device=dev)
+    no_mass = torch.zeros((1,), device=dev)
 
     is_eq = leaf_valid.clone()      # rows matching the accepted prefix
-    accept_len, best = 0, 0
-    residual = None                 # set iff the last depth tried ended rejected
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    accept_len = torch.zeros((), dtype=torch.int32, device=dev)
+    best = torch.zeros((), dtype=torch.int64, device=dev)
+    residual = torch.zeros((vocab,), device=dev)
+    ended_rejected = torch.zeros((), dtype=torch.bool, device=dev)
     for i in range(1, depth_cap):
+        if dev.type == "cpu" and not active:
+            break           # the depths left change nothing; a read is free
         fi = torch.argmax(is_eq.to(torch.int8))
-        path_node = tree.retrieve[fi, i - 1].clamp(0, node_cap - 1).long()
-        gtp0 = torch.softmax(warped[path_node], dim=-1)
+        path_node = take(tree.retrieve[:, i - 1], fi).clamp(0, node_cap - 1)
+        gtp0 = torch.softmax(take(warped, path_node), dim=-1)
 
         # first-occurrence dedup of sibling tokens among matching rows
         x = cand[:, i]
@@ -93,31 +104,29 @@ def evaluate_posterior_stochastic(
         t_tok = torch.where(t_valid, x[t_rows], 0).clamp(0, vocab - 1).long()
         p_t = torch.where(t_valid, gtp0[t_tok], 0.0)
 
-        r = torch.rand((m_trials,), generator=generator, device=dev)
         denom = (1.0 - (torch.cumsum(p_t, 0) - p_t)).clamp_min(1e-30)
-        acc = t_valid & (r * denom <= p_t)
+        acc = t_valid & (uniforms[i - 1] * denom <= p_t)
         first = torch.argmax(acc.to(torch.int8))
         any_acc = acc.any()
         rej = t_valid & (~any_acc | (slots < first))
-        any_elig, any_acc, first, any_rej = torch.stack(
-            [eligible.any(), any_acc, first, rej.any()]).tolist()
-        if not any_elig:
-            break
-        if not any_acc:
-            if any_rej:
-                residual = gtp0.index_fill(0, t_tok[rej], 0.0)
-                residual = residual / residual.sum().clamp_min(1e-30)
-            break
-        best = int(t_rows[first])
-        is_eq = is_eq & (x == x[best])
-        accept_len += 1
+        # the residual: rejected tokens zeroed (index vocab: a spare slot)
+        gtp_res = torch.cat([gtp0, no_mass]).index_fill(
+            0, torch.where(rej, t_tok, vocab), 0.0)[:vocab]
+        gtp_res = gtp_res / gtp_res.sum().clamp_min(1e-30)
 
-    if residual is not None and accept_len < depth_cap - 1:
-        sample_p = residual
-    else:
-        last_node = tree.retrieve[best, accept_len].clamp(
-            0, node_cap - 1).long()
-        sample_p = torch.softmax(warped[last_node], dim=-1)
-    return PosteriorResult(
-        torch.tensor(best, dtype=torch.int32, device=dev),
-        torch.tensor(accept_len, dtype=torch.int32, device=dev), sample_p)
+        step = active & eligible.any()
+        accepted = step & any_acc
+        stopped_rejected = step & ~any_acc & rej.any()
+        residual = torch.where(stopped_rejected, gtp_res, residual)
+        ended_rejected = torch.where(step, stopped_rejected, ended_rejected)
+        pick = take(t_rows, first)
+        best = torch.where(accepted, pick, best)
+        is_eq = torch.where(accepted, is_eq & (x == take(x, pick)), is_eq)
+        accept_len = accept_len + accepted.to(torch.int32)
+        active = accepted
+
+    last_node = take(tree.retrieve, best, accept_len).clamp(0, node_cap - 1)
+    p_node = torch.softmax(take(warped, last_node), dim=-1)
+    sample_p = torch.where(ended_rejected & (accept_len < depth_cap - 1),
+                           residual, p_node)
+    return PosteriorResult(best.to(torch.int32), accept_len, sample_p)

@@ -55,4 +55,8 @@ def sample_token(generator: torch.Generator | None,
     else:
         logp = warp_logits(probs_or_logits, cfg)
     p = torch.softmax(logp.float(), dim=-1)
-    return torch.multinomial(p, 1, generator=generator)[..., 0].to(torch.int32)
+    # a categorical draw as an exponential race, argmax p_i / E_i with
+    # E_i ~ Exp(1) (P(i) = p_i): unlike torch.multinomial it checks nothing
+    # on the host, so it can run inside a captured CUDA graph
+    race = torch.empty_like(p).exponential_(generator=generator)
+    return torch.argmax(p / race, dim=-1).to(torch.int32)

@@ -54,6 +54,13 @@ class TokenTree:
         return torch.where(self.retrieve >= 0, toks, -1)
 
 
+def take(x: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
+    """x[i, j, ...] for 0-d index tensors, gathered on the device. PyTorch
+    takes a 0-d tensor index for a Python int and reads it back to the
+    host, which a captured CUDA graph cannot do."""
+    return x[tuple(i.reshape(1).long() for i in index)][0]
+
+
 def ceil_log2(x: int) -> int:
     n = 0
     while (1 << n) < x:

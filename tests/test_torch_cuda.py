@@ -15,6 +15,13 @@ log-probs are f32 sums of H terms, compared at 1e-3. The split-K kernels
 attention must give equal bits on every launch (no atomics); all six are
 also held against their earlier versions (`*_strip`, `int4_matmul_splitk`,
 `tree_attention_simt`, `head_topk_strip`), whose launches count apart.
+The attention with a device n_valid (a grid for the whole allocation,
+splits past the live tiles empty) must give the bits of the host-n_valid
+grid; on a tiny model, a replayed CUDA graph of the decode loop's body must
+give the eager body's bits, replay after replay; the lm_head's f32-output
+GEMM must stay within f32 summation order of the f32 product (2e-3 abs,
+1e-3 relative: sums of H = 4096 exact bf16 products) and make no f32 copy
+of the head.
 """
 
 import pytest
@@ -394,3 +401,148 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
                            device="cuda"), q4, s4)
     # a refusal launches nothing, neither the kernel nor a stand-in for it
     assert [c.launches for c in counters] == before
+
+
+# the device n_valid against the host n_valid: one live tile (1, 63, 64),
+# a second (65), the verify's 209 and the whole allocation, at the two
+# allocations of the main path (4 and 8 splits, most of them empty early)
+@pytest.mark.parametrize("s_max", [256, 512])
+@pytest.mark.parametrize("n_valid", [1, 63, 64, 65, 209, "S"])
+@pytest.mark.parametrize("nkv,g,t", [(32, 1, 81), (8, 1, 10), (4, 4, 9)])
+def test_tree_attention_device_n_valid_equals_host_bits(cuda, s_max, n_valid,
+                                                        nkv, g, t):
+    n_valid = s_max if n_valid == "S" else n_valid
+    q, k, v, bias = _attn(cuda, nkv * g, nkv, max(t, 1), s_max, 128,
+                          max(n_valid, t))
+    if n_valid < t:                           # fewer live rows than queries
+        bias[:, n_valid:] = -1e9
+        bias[:, :n_valid] = 0.0
+    nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    before = tree_attention.launches
+    host = tree_attention(q, k, v, bias, n_valid)
+    dev = tree_attention(q, k, v, bias, nv)
+    want = tree_attention_plain(q, k, v, bias, live_keys(s_max, n_valid))
+    torch.cuda.synchronize()
+    assert tree_attention.launches == before + 2
+    assert attention_plan(nkv, g, t, s_max).splits == s_max // 64
+    assert torch.equal(dev, host), float((dev.float()
+                                         - host.float()).abs().max())
+    assert float((dev.float() - want.float()).abs().max()) <= 2e-2
+
+
+def _tiny_cuda_engine():
+    """A 2-layer int8 LLaMA (H 256, D 64, V 1024) and an int8 draft of the
+    same width, random from a seeded generator, on the card."""
+    from flowspec_tpu_torch.config import (
+        EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.draft.eagle import (
+        EagleParams, quantize_eagle_params)
+    from flowspec_tpu_torch.models.llama import random_llama_params
+    from flowspec_tpu_torch.runtime import SpecEngine
+    mc = ModelConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = random_llama_params(mc, gen, "cuda", "int8")
+    h, i = mc.hidden_size, mc.intermediate_size
+    w = lambda a, b: (torch.randn((a, b), generator=gen, device="cuda")
+                      * a ** -0.5).to(torch.bfloat16)
+    draft = quantize_eagle_params(EagleParams(
+        embed=params.embed, fc_w=w(2 * h, h),
+        fc_b=torch.zeros((h,), dtype=torch.bfloat16, device="cuda"),
+        wq=w(h, h), wk=w(h, h), wv=w(h, h), wo=w(h, h), w_gate=w(h, i),
+        w_up=w(h, i), w_down=w(i, h),
+        post_ln=torch.ones((h,), dtype=torch.bfloat16, device="cuda")),
+        "int8")
+    tc = TreeConfig(top_k=8, depth=4, total_tokens=24, node_cap=48,
+                    leaf_cap=48, depth_cap=12)
+    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                       max_seq_len=200, prefill_chunk=16)
+    return SpecEngine(params, draft, cfg)
+
+
+def test_graph_replay_equals_eager_round_bits(cuda):
+    """The decode loop's body captured once and replayed five times gives,
+    after every replay, the state and loop carry of the same body run
+    eagerly, bit for bit; the wrappers count the graph's launches once a
+    replay, and generate_fused's stream equals generate's."""
+    from flowspec_tpu_torch.ops import counted_wrappers
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_cuda_engine()
+    prompt = list(range(3, 40))
+    state = eng.prefill(eng.init_state(0), prompt)
+    loop = graphs._loop_buffers(64, -1, state.commit_len.device)
+    eager, eager_loop = graphs._clone(state), graphs._clone(loop)
+    g = graphs.DecodeGraph(eng, graphs._spec_body, state, loop)
+    assert g.launches["tree_attention"] == 2 + eng.cfg.tree.depth + 1
+    counters = counted_wrappers()
+    for _ in range(5):
+        before = {n: fn.launches for n, fn in counters.items()}
+        g.replay()
+        for n, fn in counters.items():
+            assert fn.launches - before[n] == g.launches.get(n, 0), n
+        eager = graphs._spec_body(eng, eager, eager_loop)
+        torch.cuda.synchronize()
+        for a, b in zip(graphs._fields(g.state), graphs._fields(eager)):
+            assert torch.equal(a, b)
+        for a, b in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
+            assert torch.equal(a, b)
+    spec, stats = eng.generate(prompt, max_new_tokens=40, eos_token_id=-1)
+    fused, fstats = eng.generate_fused(prompt, max_new_tokens=40,
+                                       eos_token_id=-1)
+    assert fused == spec and fstats["rounds"] == stats["rounds"]
+    ar, _ = eng.generate_ar(prompt, max_new_tokens=20, eos_token_id=-1)
+    ar_fused, _ = eng.generate_ar_fused(prompt, max_new_tokens=20,
+                                        eos_token_id=-1)
+    assert ar_fused == ar
+
+
+def test_lm_head_logits_no_f32_copy_of_the_head(cuda):
+    from flowspec_tpu_torch.models.llama import LlamaParams, lm_head_logits
+    h, v, t = 4096, 32000, 81
+    head = (torch.randn((h, v), generator=cuda, device="cuda")
+            * h ** -0.5).to(torch.bfloat16)
+    x = torch.randn((1, t, h), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    params = LlamaParams(embed=None, layers=None, final_norm=None,
+                         lm_head=head)
+    lm_head_logits(params, x)                    # cuBLAS set up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = lm_head_logits(params, x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert got.dtype == torch.float32 and got.shape == (1, t, v)
+    assert peak < h * v * 4, peak                 # one f32 head: 0.52 GB
+    want = x.float() @ head.float()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+def test_fused_sampling_replays_with_the_request_generator(cuda):
+    """Stochastic rounds captured with the sampling generator registered:
+    in-vocabulary tokens, the same stream for the same seed, another for
+    another seed (each request's generator state is loaded into the
+    graph's)."""
+    import dataclasses
+    from flowspec_tpu_torch.config import SamplingConfig
+    from flowspec_tpu_torch.runtime import SpecEngine
+    eng = _tiny_cuda_engine()
+    eng = SpecEngine(eng.params, eng.draft, dataclasses.replace(
+        eng.cfg, sampling=SamplingConfig(temperature=1.0)))
+    prompt = list(range(3, 40))
+    a, stats = eng.generate_fused(prompt, max_new_tokens=40,
+                                  eos_token_id=-1, seed=1)
+    b, _ = eng.generate_fused(prompt, max_new_tokens=40, eos_token_id=-1,
+                              seed=1)
+    c, _ = eng.generate_fused(prompt, max_new_tokens=40, eos_token_id=-1,
+                              seed=2)
+    assert a == b and a != c
+    assert len(a) == len(prompt) + 40 and all(0 <= t < 1024 for t in a)
+    assert stats["accept_per_round"] >= 1.0
+    d, _ = eng.generate_ar_fused(prompt, max_new_tokens=20, eos_token_id=-1,
+                                 seed=3)
+    e, _ = eng.generate_ar_fused(prompt, max_new_tokens=20, eos_token_id=-1,
+                                 seed=3)
+    assert d == e

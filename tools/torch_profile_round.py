@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile_round.py [--model 7b|13b]
                                          [--quant int8|nf4|int4|mixed]
-                                         [--old-turns]
+                                         [--fused] [--old-turns]
 
 Builds the chip_smoke.py serving setup (random base of the given model and
 quantization kind from a seeded torch.Generator, the committed thin draft,
@@ -11,14 +11,19 @@ bench.py's d8/tau0.2 tree; default 7b int8), runs one warm-up request, then
 profiles one request of 64 prompt + 128 new tokens with torch.profiler
 (CPU + CUDA activities). Prints one JSON line: wall time, summed
 device-kernel time, the device's idle share of the wall time, rounds, and
-device time by kernel family (this port's six CUDA kernels, the split-K
-reduce pass of int8 / nf4 / int4 as `matmul_reduce`, the head's merge pass
-as `head_select`; cuBLAS GEMMs (the f32 lm_head); sort/top-k; everything
-else). The wgmma int4 kernel runs under both `int4_matmul` and
-`int4_matmul_smallm` and is counted as `int4_matmul`.
+device time by kernel family (`chip_smoke.family`: this port's six CUDA
+kernels, the split-K reduce pass of int8 / nf4 / int4 as `matmul_reduce`,
+the head's merge pass as `head_select`; cuBLAS GEMMs (the lm_head);
+sort/top-k; everything else).
+
+`--fused` profiles `generate_fused` instead: the round as a replayed CUDA
+graph (one warm-up request captures it first). The line adds the graph's
+launches a replay as the wrappers counted them at capture, the profiler's
+kernels a replay by family, and the capture's seconds.
 
 `--old-turns` instead serves chip_smoke.py's three requests four times
-without the profiler, in turns (new, old, old, new): "old" routes the
+without the profiler (through `generate_fused` with `--fused`, each side
+with graphs of its own), in turns (new, old, old, new): "old" routes the
 products, the attention and the head of the serving path to the earlier
 versions of the six redesigned kernels (`int8_matmul_strip`,
 `nf4_matmul_strip`, `int4_matmul_strip` above 32 rows and
@@ -40,33 +45,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def family(name: str) -> str:
-    n = name.lower()
-    for key, fam in (("qmm_kernel<0", "int8_matmul"),
-                     ("qmm_kernel<1", "nf4_matmul"),
-                     ("qmm_kernel<2", "int4_matmul"),
-                     ("qmm_reduce", "matmul_reduce"),
-                     ("int8_matmul_kernel", "int8_matmul_strip"),
-                     ("p4_matmul_kernel<true", "nf4_matmul_strip"),
-                     ("p4_matmul_kernel<false", "int4_matmul_strip"),
-                     ("int4_splitk", "int4_matmul_splitk"),
-                     ("tree_attention_simt", "tree_attention_simt"),
-                     ("tree_attention_mma", "tree_attention"),
-                     ("head_wgmma_kernel", "head_topk"),
-                     ("head_select_kernel", "head_select"),
-                     ("head_partial_kernel", "head_topk_strip"),
-                     ("head_merge_kernel", "head_topk_strip"),
-                     ("gemm", "cublas_gemm"), ("sm90_xmma", "cublas_gemm"),
-                     ("cutlass", "cublas_gemm"), ("sort", "sort_topk"),
-                     ("topk", "sort_topk"), ("radix", "sort_topk")):
-        if key in n:
-            return fam
-    return "other"
-
-
-def old_turns(eng, prompts, new_tokens) -> dict:
+def old_turns(eng, prompts, new_tokens, fused=False) -> dict:
     """Serve `prompts` in turns new, old, old, new; per turn and per side
-    tok/s and wall ms per round (prefill included in the wall time)."""
+    tok/s and wall ms per round (prefill included in the wall time). With
+    `fused`, through generate_fused, each side with graphs of its own
+    (captured in the warm-up)."""
     import torch
     from flowspec_tpu_torch.draft import beam
     from flowspec_tpu_torch.models import llama
@@ -99,15 +82,19 @@ def old_turns(eng, prompts, new_tokens) -> dict:
            (llama, "tree_attention"): ta.tree_attention_simt,
            (beam, "head_topk"): head_old}
 
-    def serve(route):
-        for (mod, name), fn in route.items():
+    graphs = {"new": {}, "old": {}}
+    serve_fn = eng.generate_fused if fused else eng.generate
+
+    def serve(side):
+        for (mod, name), fn in (new if side == "new" else old).items():
             setattr(mod, name, fn)
+        eng._graphs = graphs[side]
         try:
             t0 = time.perf_counter()
             rounds = tokens = 0
             for p in prompts:
-                _, stats = eng.generate(p, max_new_tokens=new_tokens,
-                                        eos_token_id=-1)
+                _, stats = serve_fn(p, max_new_tokens=new_tokens,
+                                    eos_token_id=-1)
                 rounds += stats["rounds"]
                 tokens += stats["new_tokens"]
             torch.cuda.synchronize()
@@ -118,9 +105,9 @@ def old_turns(eng, prompts, new_tokens) -> dict:
         return {"tok_s": tokens / wall, "rounds": rounds,
                 "wall_ms_per_round": wall * 1e3 / rounds}
 
-    for route in (new, old):                         # warm-up of both
-        serve(route)
-    turns = [serve(r) for r in (new, old, old, new)]
+    for side in ("new", "old"):                      # warm-up of both
+        serve(side)
+    turns = [serve(side) for side in ("new", "old", "old", "new")]
     sides = {"new": [turns[0], turns[3]], "old": [turns[1], turns[2]]}
     return {"turns": dict(zip(("new_1", "old_1", "old_2", "new_2"),
                               turns)),
@@ -134,6 +121,8 @@ def main() -> int:
     ap.add_argument("--model", default="7b", choices=("7b", "13b"))
     ap.add_argument("--quant", default="int8",
                     choices=("int8", "nf4", "int4", "mixed"))
+    ap.add_argument("--fused", action="store_true",
+                    help="profile generate_fused (replayed CUDA graphs)")
     ap.add_argument("--old-turns", action="store_true",
                     help="serve with the new and the old kernels in turns")
     args = ap.parse_args()
@@ -143,47 +132,29 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     eng, prompts, _ = cs.make_engine(dev, args.model, args.quant)
+    head = {"model": args.model, "quant": args.quant,
+            "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": cs.nvidia_smi()}
     if args.old_turns:
         print(json.dumps({
-            "model": args.model, "quant": args.quant,
-            "device": torch.cuda.get_device_name(0),
-            "nvidia_smi": cs.nvidia_smi(), "requests": len(prompts),
-            "new_tokens_each": cs.NEW_TOKENS,
-            **old_turns(eng, prompts, cs.NEW_TOKENS)}))
+            **head, "requests": len(prompts),
+            "new_tokens_each": cs.NEW_TOKENS, "fused": args.fused,
+            **old_turns(eng, prompts, cs.NEW_TOKENS, args.fused)}))
         return 0
-    eng.generate(prompts[0], max_new_tokens=cs.NEW_TOKENS, eos_token_id=-1)
+    fn = eng.generate_fused if args.fused else eng.generate
+    fn(prompts[0], max_new_tokens=cs.NEW_TOKENS, eos_token_id=-1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, stats = eng.generate(prompts[1], max_new_tokens=cs.NEW_TOKENS,
-                                eos_token_id=-1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_family, n_kernels, device_s = {}, 0, 0.0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = ev.time_range.elapsed_us() / 1e6
-        fam = family(ev.name)
-        by_family[fam] = by_family.get(fam, 0.0) + dt
-        n_kernels += 1
-        device_s += dt
-    print(json.dumps({
-        "model": args.model, "quant": args.quant,
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": cs.nvidia_smi(), "wall_s": wall,
-        "rounds": stats["rounds"], "new_tokens": stats["new_tokens"],
-        "wall_ms_per_round": wall * 1e3 / stats["rounds"],
-        "device_busy_s": device_s, "device_idle_share": 1 - device_s / wall,
-        "device_kernels": n_kernels,
-        "kernels_per_round": n_kernels / stats["rounds"],
-        "device_s_by_family": by_family}))
+    row = {**head, "path": "fused" if args.fused else "eager",
+           **cs.profile_request(fn, prompts[1], cs.NEW_TOKENS)}
+    if args.fused:
+        (g,) = cs.graphs_of(eng, "spec")
+        row.update(graph_launches_per_replay=g.launches,
+                   graph_capture_s=g.capture_s)
+    print(json.dumps(row))
     return 0
 
 
