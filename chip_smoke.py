@@ -1057,6 +1057,8 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
         raise AssertionError(f"{tag}: the fused AR stream differs from the "
                              "eager one")
     prof_ar = profile_request(eng.generate_ar_fused, prompts[0], new_tokens)
+    # one AR step a token: the profile's "rounds" are its new tokens
+    confirm_by_profiler(tag + " fused AR", prof_ar, far_steps, prefill)
     emit({"phase": "fused_ar" + suffix, "card": smi,
           "ar_tok_s": ar_new / sum(ar_s),
           "fused_ar_tok_s": far_new / sum(far_s),
@@ -1075,7 +1077,8 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
 def bucket_and_force_runs(eng, prompts, ar_out, smi):
     """At 7B int8: generate_fused with kv_buckets=(128,) (max_seq_len 216:
     buckets 128 -> 216, base KV 256 -> 512 rows, two graphs), lossless
-    against AR under the near-tie rule; and force_accept=3, whose accepted
+    against AR under the near-tie rule, and a shorter request that reuses
+    those graphs; and force_accept=3, whose accepted
     tokens a round must reach 2.5."""
     import dataclasses
     from flowspec_tpu_torch.runtime import SpecEngine
@@ -1087,10 +1090,15 @@ def bucket_and_force_runs(eng, prompts, ar_out, smi):
     used = [st["kv_buckets_used"] for st in b_stats]
     rows = sorted(k[1] for k in beng._graphs if k[0] == "spec")
     matches, faults = divergences(eng, prompts, b_out, ar_out)
+    # graphs are keyed by bucket alone: another length captures none
+    n_graphs = len(beng._graphs)
+    serve_turn(beng.generate_fused, prompts[:1], new_tokens // 2)
     emit({"phase": "buckets", "card": smi, "kv_buckets": [128],
           "max_seq_len": eng.cfg.max_seq_len,
           "plan": beng._plan_buckets(PROMPT_LEN, new_tokens),
           "base_rows_of_graphs": rows, "kv_buckets_used": used,
+          "graphs": n_graphs,
+          "graphs_after_a_shorter_request": len(beng._graphs),
           "tok_s": b_new / sum(b_s), "request_s": b_s, "rounds": b_rounds,
           "graph_capture_s": sum(g.capture_s for g in beng._graphs.values()),
           "match_fraction": matches, "first_divergences": faults,
@@ -1098,6 +1106,9 @@ def bucket_and_force_runs(eng, prompts, ar_out, smi):
     if used != [2] * len(prompts) or rows != [256, 512]:
         raise AssertionError(f"buckets: {used} buckets used, graphs of "
                              f"{rows} rows")
+    if len(beng._graphs) != n_graphs:
+        raise AssertionError("buckets: a shorter request captured another "
+                             "graph")
     check_lossless("7b_int8 buckets", faults)
     del beng
     feng = SpecEngine(eng.params, eng.draft,

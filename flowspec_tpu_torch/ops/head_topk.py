@@ -70,8 +70,6 @@ def head_logits(x: torch.Tensor, head) -> torch.Tensor:
     if isinstance(head, Int8Tensor):
         y = torch.matmul(x.float(), head.q.to(x.dtype).float())
         return y * head.scale
-    if x.device.type == "cpu":
-        return torch.matmul(x.float(), head.to(x.dtype).float())
     return matmul_f32_out(x, head.to(x.dtype))
 
 

@@ -122,6 +122,7 @@ class SpecEngine:
         self.draft_kv_len, self.base_kv_len = self._kv_rows(cfg.max_seq_len)
         # captured decode loops, keyed by kind and shapes (runtime/graphs.py)
         self._graphs: dict = {}
+        self._graph_pool = None     # the memory pool its graphs share
 
     # ---- state setup -----------------------------------------------------
     def _kv_rows(self, max_seq: int):
@@ -349,8 +350,7 @@ class SpecEngine:
             if i:
                 state = _grow_kv(state, *self._kv_rows(seq))
             toks, seg_rounds, done, state = graphs.spec_decode_loop(
-                self, state, eos_token_id, max_new - new_tokens, seq,
-                max_out=max_new)
+                self, state, eos_token_id, max_new - new_tokens, seq)
             rounds += seg_rounds
             # trim past eos / budget like the reference's outer loop
             stop = False

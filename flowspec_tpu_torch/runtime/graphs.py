@@ -7,9 +7,9 @@ Port of `flowspec_tpu/runtime/engine.py:831-911` (`_spec_decode_loop`,
 `SpecEngine._round` (or `_ar` step) plus the bookkeeping of `:863-888`:
 the accepted tokens go into a device `out_buf` at `n_out`, then `n_out`,
 `done` (EOS) and `rounds` advance, all in place. On the card that body is
-captured once per KV bucket (the engine keys its graphs by the caches'
-rows and the output buffer's size) into a `torch.cuda.CUDAGraph` over
-static buffers, and the body writes the new state back into them with
+captured once per KV bucket (the engine keys its graphs by the kind and
+the caches' rows; the output buffer is sized for any request the engine
+takes) into a `torch.cuda.CUDAGraph` over static buffers, and the body writes the new state back into them with
 `copy_`, so the next replay reads it. The host replays and reads one small
 pinned buffer a replay (n_out, done, commit_len), and stops on the JAX
 loop's condition `~done & (n_out < budget) & (commit_len <= commit_cap)`.
@@ -21,7 +21,9 @@ first launch (`ops/_build.py`), and so do their plans and their opt-ins to
 large shared memory. A kernel wrapper counts a launch when its Python code
 issues it, which under capture is once for all replays; so the capture's
 counts are kept as the graph's launches per replay and taken back from the
-wrappers, and each replay adds them again.
+wrappers, and each replay adds them again. The graphs of one engine share
+one memory pool: they run one at a time, and what a body leaves for the
+next one lives in the static buffers, outside the pool.
 
 A capture that fails raises: there is no fallback to the eager loop.
 """
@@ -144,7 +146,8 @@ class DecodeGraph:
         self.graph = torch.cuda.CUDAGraph()
         # the sampling generator's draws advance with every replay
         self.graph.register_generator_state(self.state.generator)
-        with torch.no_grad(), torch.cuda.graph(self.graph):
+        with torch.no_grad(), torch.cuda.graph(self.graph,
+                                               pool=eng._graph_pool):
             _load(self.state, body(eng, self.state, self.loop))
             self.host.copy_(_readback(self.state, self.loop),
                             non_blocking=True)
@@ -153,6 +156,7 @@ class DecodeGraph:
                          if fn.launches != before[n]}
         for n, fn in wrappers.items():
             fn.launches = before[n]
+        eng._graph_pool = self.graph.pool()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
 
@@ -193,15 +197,18 @@ def _run(eng, key, body, state, loop: LoopBuffers, cond):
     return g.state, g.loop
 
 
-def spec_decode_loop(eng, state, eos_id: int, budget: int, commit_cap: int,
-                     *, max_out: int):
+def spec_decode_loop(eng, state, eos_id: int, budget: int,
+                     commit_cap: int):
     """The counterpart of `_spec_decode_loop`: rounds while no EOS was
     written, fewer than `budget` tokens were and commit_len <= commit_cap.
     Returns (tokens written, rounds, done, state): the state comes back so
-    a bucketed caller can grow it and go on."""
-    cap = max_out + eng.cfg.tree.depth_cap + 1   # a round overshoots <= d_cap
-    loop = _loop_buffers(cap, eos_id, state.commit_len.device)
-    key = ("spec", state.base_cache.max_len, state.draft_cache.max_len, cap)
+    a bucketed caller can grow it and go on. `budget` + depth_cap + 1 <=
+    max_seq_len (`SpecEngine._check_budget`), and a round writes at most
+    depth_cap + 1 tokens, so an output buffer of max_seq_len slots takes
+    any request."""
+    loop = _loop_buffers(eng.cfg.max_seq_len, eos_id,
+                         state.commit_len.device)
+    key = ("spec", state.base_cache.max_len, state.draft_cache.max_len)
     state, loop = _run(
         eng, key, _spec_body, state, loop,
         lambda n, done, commit: not done and n < budget
@@ -214,8 +221,9 @@ def spec_decode_loop(eng, state, eos_id: int, budget: int, commit_cap: int,
 def ar_decode_loop(eng, state, eos_id: int, *, max_out: int) -> list:
     """The counterpart of `_ar_decode_loop`: steps while no EOS was written
     and fewer than `max_out` tokens were. Returns the tokens written."""
-    loop = _loop_buffers(max_out, eos_id, state.commit_len.device)
-    key = ("ar", state.base_cache.max_len, max_out)
+    loop = _loop_buffers(eng.cfg.max_seq_len, eos_id,
+                         state.commit_len.device)   # max_out < max_seq_len
+    key = ("ar", state.base_cache.max_len)
     _, loop = _run(eng, key, _ar_body, state, loop,
                    lambda n, done, commit: not done and n < max_out)
     return loop.out_buf[:int(loop.n_out)].tolist()

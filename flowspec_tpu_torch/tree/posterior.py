@@ -63,8 +63,7 @@ def evaluate_posterior_stochastic(
     posterior.py:182`) the walk runs every depth with masks instead of
     stopping, drawing all its uniforms at once: on the card it reads
     nothing back to the host, so a round that samples can be captured as a
-    CUDA graph (on the CPU, where a read is free, it stops once the walk
-    has ended)."""
+    CUDA graph; the CPU runs the same body."""
     node_cap, vocab = node_logits.shape
     leaf_cap, depth_cap = tree.retrieve.shape
     m_trials = leaf_cap if max_trials is None else min(max_trials, leaf_cap)
@@ -86,8 +85,6 @@ def evaluate_posterior_stochastic(
     residual = torch.zeros((vocab,), device=dev)
     ended_rejected = torch.zeros((), dtype=torch.bool, device=dev)
     for i in range(1, depth_cap):
-        if dev.type == "cpu" and not active:
-            break           # the depths left change nothing; a read is free
         fi = torch.argmax(is_eq.to(torch.int8))
         path_node = take(tree.retrieve[:, i - 1], fi).clamp(0, node_cap - 1)
         gtp0 = torch.softmax(take(warped, path_node), dim=-1)

@@ -466,7 +466,8 @@ def test_graph_replay_equals_eager_round_bits(cuda):
     """The decode loop's body captured once and replayed five times gives,
     after every replay, the state and loop carry of the same body run
     eagerly, bit for bit; the wrappers count the graph's launches once a
-    replay, and generate_fused's stream equals generate's."""
+    replay, generate_fused's stream equals generate's, and another
+    request length reuses its graph."""
     from flowspec_tpu_torch.ops import counted_wrappers
     from flowspec_tpu_torch.runtime import graphs
     eng = _tiny_cuda_engine()
@@ -492,6 +493,9 @@ def test_graph_replay_equals_eager_round_bits(cuda):
     fused, fstats = eng.generate_fused(prompt, max_new_tokens=40,
                                        eos_token_id=-1)
     assert fused == spec and fstats["rounds"] == stats["rounds"]
+    n_graphs = len(eng._graphs)        # keyed by bucket, not by length
+    eng.generate_fused(prompt, max_new_tokens=24, eos_token_id=-1)
+    assert len(eng._graphs) == n_graphs
     ar, _ = eng.generate_ar(prompt, max_new_tokens=20, eos_token_id=-1)
     ar_fused, _ = eng.generate_ar_fused(prompt, max_new_tokens=20,
                                         eos_token_id=-1)
