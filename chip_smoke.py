@@ -37,7 +37,8 @@ Phases, one JSON line each on stdout:
      and with suffix _7b_nf4                7B, base and thin draft nf4.
      Each at full width and depth: random base from a seeded
      torch.Generator, the committed thin draft, 64-token prompts, 3
-     requests x 128 new tokens, served in turns in one process: eager
+     requests x 128 new tokens at 7B int8 (2 at 13B mixed and 7B nf4 since
+     the families came in), served in turns in one process: eager
      SpecEngine.generate, generate_fused twice (the CUDA graph of the
      round; the first turn captures it), generate again; then generate_ar
      and generate_ar_fused (its graph captured first). Every kernel's
@@ -47,10 +48,14 @@ Phases, one JSON line each on stdout:
      less its prefills over its rounds; they must equal what the code
      implies (305 / 41 / 9 at 7B), each captured graph must launch exactly
      that a replay, the profiler must see that many of each kernel a
-     replay, and the comparison-only entry points must not launch at all.
+     replay (a trace short of kernels, as the profiler can lose records, is
+     taken again, up to 3 requests; one with more fails at once), and the
+     comparison-only entry points must not launch at all.
      The fused streams must equal the eager ones token for token (the same
      round body on the same allocation); spec against AR fails the run at
-     a first divergence whose AR top-2 logit gap is >= 0.05. One eager and
+     a first divergence whose AR top-2 logit gap is >= 0.05 (for an MoE
+     base, unless the same prefix forwarded at the verify's row count puts
+     the spec token within 0.05 of its maximum). One eager and
      one fused request of each run under torch.profiler: the device's idle
      share and each kernel family's ms a round, eager and inside the graph.
      Each serve line carries `round_ms`: per kernel, the sum over the
@@ -61,9 +66,36 @@ Phases, one JSON line each on stdout:
      kv_buckets=(128,) (buckets 128 -> 216: 256 -> 512 base KV rows, two
      graphs), lossless against AR under the near-tie rule; force_accept=3,
      at least 2.5 tokens a round.
-  6. lm_head   the verify-width lm_head at 7B within f32 summation order of
-     the f32 product, one call's peak memory below one f32 head.
-Every line of phases 4-6 carries the card's name and power limit.
+  6. the model families, the same four lines each with suffix
+     _qwen2_7b_int8       Qwen2-7B (Qwen/Qwen2-7B config.json: 28/4 heads,
+                          G 7, V 152064, qkv biases, rope 1e6) at full
+                          width and depth, int8 base, qkv biases N(0, 0.1);
+     _mixtral_8x7b_bf16   Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1: 8
+                          experts top-2, 32/8 heads) in bf16 at full width,
+                          cut to 16 of 32 layers (`reduced` in its line: 32
+                          layers of bf16 experts are 92.8 GB);
+     both random from a seeded generator with a random full-width int8
+     draft (so the beam head is int8), 2 requests x 64 new tokens, served
+     and checked as in 4, the fused request profiled (not the eager one);
+     Mixtral's expert products are a profile family of their own
+     (`moe_experts`, the GEMM kernels `moe_gemm_names` finds);
+  7. lm_head   the verify-width lm_head at 7B within f32 summation order of
+     the f32 product, one call's peak memory below one f32 head;
+  8. loader    Qwen2-7B at full width cut to 2 layers, bf16 with biases,
+     written as a 2-shard HF checkpoint (a writer of this script's own),
+     loaded by `models/loader.py` (seconds, GB/s) bit for bit; one request
+     from the loaded and one from the source params, equal tokens; the int8
+     quantization through `save_params` / `load_params`, bit-equal; an
+     engine state saved after 4 rounds and resumed, equal to the
+     uninterrupted stream.
+Phases 4-6 run each configuration in a process of its own (`serve_child`,
+`python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
+the run with the kernel phase's rows), so no process opens more than a few
+profiler sessions. Every line of phases 4-8 carries the card's name and
+power limit. The kernel phase also holds the families' shapes: attention
+at G 7 (4 KV heads) and G 4 (8 KV heads), head top-k at V 152064 (and a
+tie across its strips), int8 at Qwen2-7B's widths (In 3584 and 18944) and
+the full-width drafts' (M 10).
 Then the `kernels` line (each kernel of the path, with its comparison-only
 old entry point under "old") and, last, {"ok": true,
 "device": {...}}. Per-shape
@@ -88,6 +120,7 @@ BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 3
 NEAR_TIE_GAP = 0.05
+PROFILE_TRIES = 3                # profiled requests before a short trace fails
 HEAD_START = 40                  # flushes queued before a timed loop (~4 ms)
 TOLERANCE = "|err| <= 1e-2*|plain| + 1e-2"
 
@@ -105,7 +138,17 @@ INT8_SHAPES = (
     + [(f"13b_{w}_M{m}", m, i, o) for m in (1, 64, 81)
        for w, i, o in (("w_gate", 5120, 13824), ("w_down", 13824, 5120))]
     + [(f"13b_draft_{w}_M10", 10, i, o)
-       for w, i, o in (("fc", 10240, 1024), ("w_out", 1024, 5120))])
+       for w, i, o in (("fc", 10240, 1024), ("w_out", 1024, 5120))]
+    # Qwen2-7B's int8 base at the AR step, the prefill chunk and the verify
+    # (wo has wq's shape, wv wk's, w_up w_gate's; w_down: 296 K tiles), and
+    # the full-width int8 drafts of Qwen2-7B and Mixtral-8x7B at M 10
+    + [(f"qwen2_{w}_M{m}", m, i, o) for m in (1, 64, 81)
+       for w, i, o in (("wq", 3584, 3584), ("wk", 3584, 512),
+                       ("w_gate", 3584, 18944), ("w_down", 18944, 3584))]
+    + [(f"{fam}_draft_{w}_M10", 10, i, o) for fam, h, kv, inter in (
+        ("qwen2", 3584, 512, 18944), ("mixtral", 4096, 1024, 14336))
+       for w, i, o in (("fc", 2 * h, h), ("wq", h, h), ("wk", h, kv),
+                       ("w_gate", h, inter), ("w_down", inter, h))])
 BASE_7B = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
            ("w_down", 11008, 4096))
 # packed 4-bit shapes: nf4 on the 7B nf4 path (base at M 1 / 64 / 81, the
@@ -145,12 +188,24 @@ ATTN_SHAPES = [("verify_T81", 32, 32, 81, 512, 64 + 64 + 81),
                ("13b_verify_T81", 40, 40, 81, 512, 64 + 64 + 81),
                ("13b_verify_T81_late", 40, 40, 81, 512, 64 + 128 + 81),
                ("13b_prefill_T64", 40, 40, 64, 512, 64),
-               ("13b_ar_T1", 40, 40, 1, 512, 200)]
-# head top-k: (name, T, H), V 32000, k 10; then untimed checks (name, T, H,
-# V, k): the width boundary, 17 strips, k 1, and k 32 (64 KB of keys a row:
-# the merge reads them from device memory instead of staging them)
-HEAD_SHAPES = [("root_T1", 1, 4096), ("beam_T10", 10, 4096),
-               ("13b_root_T1", 1, 5120), ("13b_beam_T10", 10, 5120)]
+               ("13b_ar_T1", 40, 40, 1, 512, 200)] + [
+    # Qwen2-7B: 28 query heads on 4 KV heads (G 7: 567 rows a KV head at
+    # verify); Mixtral-8x7B: 32 on 8 (G 4); their full-width drafts the same
+    (f"{fam}_{name}", nq, nkv, t, 512, n_valid)
+    for fam, nq, nkv in (("qwen2", 28, 4), ("mixtral", 32, 8))
+    for name, t, n_valid in (("verify_T81", 81, 64 + 64 + 81),
+                             ("verify_T81_late", 81, 64 + 128 + 81),
+                             ("prefill_T64", 64, 64), ("ar_T1", 1, 200),
+                             ("draft_T10", 10, 150 + 80))]
+# head top-k: (name, T, H, V), k 10 (Qwen2-7B's V 152064: 1188 strips, 95 KB
+# of keys a row, merged from device memory); then untimed checks (name, T,
+# H, V, k): the width boundary, 17 strips, k 1, and k 32 (64 KB of keys a
+# row: the merge reads them from device memory instead of staging them)
+HEAD_SHAPES = [("root_T1", 1, 4096, 32000), ("beam_T10", 10, 4096, 32000),
+               ("13b_root_T1", 1, 5120, 32000),
+               ("13b_beam_T10", 10, 5120, 32000),
+               ("qwen2_root_T1", 1, 3584, 152064),
+               ("qwen2_beam_T10", 10, 3584, 152064)]
 HEAD_CHECKS = [("T16", 16, 4096, 32000, 10), ("T17", 17, 4096, 32000, 10),
                ("V2176", 10, 4096, 2176, 10), ("k1", 10, 4096, 32000, 1),
                ("k32", 4, 4096, 32000, 32)]
@@ -173,21 +228,69 @@ OLD = {"int8_matmul": "int8_matmul_strip", "nf4_matmul": "nf4_matmul_strip",
        "head_topk": "head_topk_strip",
        "int4_matmul_smallm": "int4_matmul_splitk"}
 BASE_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Mixtral-8x7B's 32 layers of bf16 experts (2.90 GB a layer, 92.8 GB) do not
+# fit the card's 80 GB: the served Mixtral keeps 16
+MIXTRAL_LAYERS = 16
+FAMILY_REQUESTS, FAMILY_NEW_TOKENS = 2, 64
+# configurations whose eager request is profiled too (the families profile
+# their fused request only: with a random draft a request runs ~64 rounds,
+# and an eager profile of that many takes a minute to read)
+EAGER_PROFILED = ("7b_int8", "13b_mixed", "7b_nf4")
 # configurations served: (tag, model, quant, requests, new tokens), then the
 # kernels whose launch count must be > 0 on generate, and on generate_ar
 CONFIGS = {
     "7b_int8": ("7b", "int8", N_REQUESTS, NEW_TOKENS),
-    "13b_mixed": ("13b", "mixed", N_REQUESTS, NEW_TOKENS),
-    "7b_nf4": ("7b", "nf4", N_REQUESTS, NEW_TOKENS),
+    # 2 requests each since the families' phases came in (the run's time)
+    "13b_mixed": ("13b", "mixed", 2, NEW_TOKENS),
+    "7b_nf4": ("7b", "nf4", 2, NEW_TOKENS),
+    "qwen2_7b_int8": ("qwen2", "int8", FAMILY_REQUESTS, FAMILY_NEW_TOKENS),
+    "mixtral_8x7b_bf16": ("mixtral", "bf16", FAMILY_REQUESTS,
+                          FAMILY_NEW_TOKENS),
 }
 ON_SPEC = {"7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
            "13b_mixed": ("int8_matmul", "int4_matmul", "tree_attention",
                          "head_topk"),
-           "7b_nf4": ("nf4_matmul", "tree_attention", "head_topk")}
+           "7b_nf4": ("nf4_matmul", "tree_attention", "head_topk"),
+           "qwen2_7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
+           # the bf16 base launches no matmul kernel; the int8 draft does
+           "mixtral_8x7b_bf16": ("int8_matmul", "tree_attention",
+                                 "head_topk")}
 ON_AR = {"7b_int8": ("int8_matmul", "tree_attention"),
          "13b_mixed": ("int8_matmul", "int4_matmul", "int4_matmul_smallm",
                        "tree_attention"),
-         "7b_nf4": ("nf4_matmul", "tree_attention")}
+         "7b_nf4": ("nf4_matmul", "tree_attention"),
+         "qwen2_7b_int8": ("int8_matmul", "tree_attention"),
+         "mixtral_8x7b_bf16": ("tree_attention",)}
+# each configuration's measured kernel rows: attention at the verify, the
+# draft's context pass, a beam level and the AR step; the head at the root
+# and a beam level
+_LLAMA_ROWS = {"verify": "verify_T81", "ctx": "draft_ctx_T9",
+               "beam": "beam_T10", "ar": "ar_T1", "root": "root_T1",
+               "head": "beam_T10"}
+ROWS = {"7b_int8": _LLAMA_ROWS, "7b_nf4": _LLAMA_ROWS,
+        "13b_mixed": {**_LLAMA_ROWS, "verify": "13b_verify_T81",
+                      "ar": "13b_ar_T1", "root": "13b_root_T1",
+                      "head": "13b_beam_T10"},
+        "qwen2_7b_int8": {"verify": "qwen2_verify_T81",
+                          "ctx": "qwen2_draft_T10", "beam": "qwen2_draft_T10",
+                          "ar": "qwen2_ar_T1", "root": "qwen2_root_T1",
+                          "head": "qwen2_beam_T10"},
+        "mixtral_8x7b_bf16": {**_LLAMA_ROWS, "verify": "mixtral_verify_T81",
+                              "ctx": "mixtral_draft_T10",
+                              "beam": "mixtral_draft_T10",
+                              "ar": "mixtral_ar_T1"}}
+# what each configuration serves, for its lines
+DESCRIBE = {
+    "qwen2_7b_int8": {
+        "model": "ModelConfig.qwen2_7b() (Qwen/Qwen2-7B config.json) int8, "
+                 "random, seeded; qkv biases N(0, 0.1)",
+        "draft": "init_eagle_params full width (int8)", "reduced": None},
+    "mixtral_8x7b_bf16": {
+        "model": "ModelConfig.mixtral_8x7b() (mistralai/Mixtral-8x7B-v0.1 "
+                 "config.json) bf16, random, seeded",
+        "draft": "init_eagle_params full width (int8)",
+        "reduced": f"32 -> {MIXTRAL_LAYERS} layers: 32 layers of bf16 "
+                   "experts are 92.8 GB, more than the card's 80 GB"}}
 
 
 def emit(obj) -> None:
@@ -558,7 +661,8 @@ def _head_tie(x, q, s, dup):
 
 def check_head(dev, gen, flush, details):
     """Head top-k at every HEAD_SHAPES row (timed) and HEAD_CHECKS row
-    (untimed), then the two ties."""
+    (untimed), then the ties (inside a strip, across strips at V 32000 and
+    at Qwen2's V 152064)."""
     import torch
 
     def operands(t, h, v):
@@ -570,8 +674,8 @@ def check_head(dev, gen, flush, details):
         return x, q, s
 
     rows = {}
-    for name, t, h in HEAD_SHAPES:
-        x, q, s = operands(t, h, 32000)
+    for name, t, h, v in HEAD_SHAPES:
+        x, q, s = operands(t, h, v)
         rows[name] = _head_row(name, x, q, s, 10, flush)
         details.append(rows[name])
     for name, t, h, v, k in HEAD_CHECKS:
@@ -581,42 +685,70 @@ def check_head(dev, gen, flush, details):
                 *operands(1, 4096, 32000),
                 lambda b: b - b % 128 + (b % 128 + 37) % 128),
             "across_strips": _head_tie(
-                *operands(1, 4096, 32000), lambda b: (b + 128 * 97) % 32000)}
+                *operands(1, 4096, 32000), lambda b: (b + 128 * 97) % 32000),
+            "across_strips_V152064": _head_tie(
+                *operands(1, 3584, 152064),
+                lambda b: (b + 128 * 601) % 152064)}
     details.append({"kernel": "head_topk", "shape": "ties", **ties,
                     "ok": True})
     return rows
 
 
+def engine_config(mc, new_tokens: int = NEW_TOKENS):
+    """bench.py's trained-draft tree: depth 8, score_temperature 0.2,
+    node_cap 96; max_seq = prompt + 128 + 24 (bench.py:347)."""
+    from flowspec_tpu_torch.config import (
+        EngineConfig, SamplingConfig, TreeConfig)
+    tc = TreeConfig(node_cap=96, leaf_cap=96, depth=8, depth_cap=16,
+                    score_temperature=0.2)
+    return EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                        max_new_tokens=new_tokens,
+                        max_seq_len=PROMPT_LEN + NEW_TOKENS + 24)
+
+
 def make_engine(dev, model: str = "7b", quant: str = "int8",
                 n_requests: int = N_REQUESTS, new_tokens: int = NEW_TOKENS):
-    """(engine, prompts, seconds to build it): LLaMA `model` ("7b", "13b")
-    at full width and depth with a random base of kind `quant` from a
-    seeded generator, and the committed thin draft of that scale quantized
-    the same way ("mixed" keeps the draft int8)."""
+    """(engine, prompts, seconds to build it), at full width, the base
+    random from a seeded generator: LLaMA `model` ("7b", "13b") at full
+    depth of kind `quant` with the committed thin draft of that scale
+    quantized the same way ("mixed" keeps the draft int8); "qwen2"
+    (Qwen2-7B, full depth, int8, its qkv biases N(0, 0.1) so that the bias
+    add runs) and "mixtral" (Mixtral-8x7B in bf16, cut to MIXTRAL_LAYERS
+    layers) with a random full-width draft in int8, so the beam head is
+    int8 too."""
+    import dataclasses
     import torch
-    from flowspec_tpu_torch.config import (
-        EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.config import ModelConfig
     from flowspec_tpu_torch.draft.eagle import (
-        load_thin_draft, quantize_eagle_params)
+        init_eagle_params, load_thin_draft, quantize_eagle_params)
     from flowspec_tpu_torch.models.llama import random_llama_params
+    from flowspec_tpu_torch.models.mixtral import random_mixtral_params
     from flowspec_tpu_torch.runtime import SpecEngine
 
-    mc = {"7b": ModelConfig.llama_7b, "13b": ModelConfig.llama_13b}[model]()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    params = random_llama_params(mc, gen, dev, quant)
-    draft = load_thin_draft(str(ROOT / "checkpoints" /
-                                f"draft_{model}_thin_fp16.npz"), params.embed)
-    draft = quantize_eagle_params(draft, quant)
-    # bench.py's trained-draft tree: depth 8, score_temperature 0.2,
-    # node_cap 96; max_seq = prompt + new + 24 (bench.py:347)
-    tc = TreeConfig(node_cap=96, leaf_cap=96, depth=8, depth_cap=16,
-                    score_temperature=0.2)
-    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
-                       max_new_tokens=new_tokens,
-                       max_seq_len=PROMPT_LEN + NEW_TOKENS + 24)
-    eng = SpecEngine(params, draft, cfg)
+    if model == "mixtral":
+        mc = dataclasses.replace(ModelConfig.mixtral_8x7b(),
+                                 num_hidden_layers=MIXTRAL_LAYERS)
+        params = random_mixtral_params(mc, gen, dev)
+    else:
+        mc = {"7b": ModelConfig.llama_7b, "13b": ModelConfig.llama_13b,
+              "qwen2": ModelConfig.qwen2_7b}[model]()
+        params = random_llama_params(mc, gen, dev, quant)
+    if model == "qwen2":
+        params = dataclasses.replace(params, layers=dataclasses.replace(
+            params.layers, **{f: torch.empty_like(
+                getattr(params.layers, f)).normal_(0.0, 0.1, generator=gen)
+                for f in ("bq", "bk", "bv")}))
+    if model in ("7b", "13b"):
+        draft = quantize_eagle_params(load_thin_draft(
+            str(ROOT / "checkpoints" / f"draft_{model}_thin_fp16.npz"),
+            params.embed), quant)
+    else:
+        draft = quantize_eagle_params(
+            init_eagle_params(gen, mc, embed=params.embed), "int8")
+    eng = SpecEngine(params, draft, engine_config(mc, new_tokens))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rng = torch.Generator().manual_seed(SEED)
@@ -698,7 +830,7 @@ def _matmul_items(kernel_rows, items, w, m, launches):
     raise AssertionError(f"no measured {kernel} row at (M, In, Out) = {key}")
 
 
-def round_sums(eng, kernel_rows, per_round) -> dict:
+def round_sums(tag, eng, kernel_rows, per_round) -> dict:
     """Per kernel, one speculative round of `eng` as the sum over its shapes
     of launches x the measured row: {kernel: {"launches", "ms", "bound_ms",
     "old_ms" (its old version's ms)}}. A base verify pass runs the 7
@@ -710,6 +842,7 @@ def round_sums(eng, kernel_rows, per_round) -> dict:
     on the serve path; a shape without a measured row raises."""
     tree, mc = eng.cfg.tree, eng.cfg.model
     n_layers, depth = mc.num_hidden_layers, tree.depth
+    rows = ROWS[tag]
     items = []                                   # (kernel, row, launches)
     for f in BASE_PROJ:
         _matmul_items(kernel_rows, items, getattr(eng.params.layers, f),
@@ -718,14 +851,12 @@ def round_sums(eng, kernel_rows, per_round) -> dict:
               "w_out"):
         _matmul_items(kernel_rows, items, getattr(eng.draft, f), tree.top_k,
                       depth + 1)
-    pre = "" if mc.hidden_size == 4096 else "13b_"
     attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
-    items += [("tree_attention", attn[f"{pre}verify_T{tree.node_cap}"],
-               n_layers),
-              ("tree_attention", attn["draft_ctx_T9"], 1),
-              ("tree_attention", attn[f"beam_T{tree.top_k}"], depth),
-              ("head_topk", head[f"{pre}root_T1"], 1),
-              ("head_topk", head[f"{pre}beam_T{tree.top_k}"], depth)]
+    items += [("tree_attention", attn[rows["verify"]], n_layers),
+              ("tree_attention", attn[rows["ctx"]], 1),
+              ("tree_attention", attn[rows["beam"]], depth),
+              ("head_topk", head[rows["root"]], 1),
+              ("head_topk", head[rows["head"]], depth)]
     return _sums(items, per_round, "round_sums")
 
 
@@ -741,16 +872,15 @@ def expected_per_ar_step(eng) -> dict:
     return out
 
 
-def ar_step_sums(eng, kernel_rows, per_step) -> dict:
+def ar_step_sums(tag, eng, kernel_rows, per_step) -> dict:
     """`round_sums` for one autoregressive step: the base pass at M 1."""
     mc = eng.cfg.model
     items = []
     for f in BASE_PROJ:
         _matmul_items(kernel_rows, items, getattr(eng.params.layers, f), 1,
                       mc.num_hidden_layers)
-    pre = "" if mc.hidden_size == 4096 else "13b_"
     items.append(("tree_attention", kernel_rows["tree_attention"][
-        f"{pre}ar_T1"], mc.num_hidden_layers))
+        ROWS[tag]["ar"]], mc.num_hidden_layers))
     return _sums(items, per_step, "ar_step_sums")
 
 
@@ -797,13 +927,20 @@ def counts(counters) -> dict:
     return {n: fn.launches for n, fn in counters.items()}
 
 
-def family(name: str) -> str:
+GEMM_KEYS = ("gemm", "sm90_xmma", "nvjet", "cutlass")
+
+
+def family(name: str, moe=frozenset()) -> str:
     """The kernel family of a device kernel's name in a profiler trace: this
     port's six CUDA kernels, the split-K reduce pass of int8 / nf4 / int4
-    as `matmul_reduce`, the head's merge pass as `head_select`, cuBLAS
-    GEMMs (the lm_head), sort/top-k, everything else. The wgmma int4 kernel
-    runs under both `int4_matmul` and `int4_matmul_smallm` and counts as
+    as `matmul_reduce`, the head's merge pass as `head_select`, the GEMMs
+    named in `moe` (Mixtral's expert products, `moe_gemm_names`) as
+    `moe_experts`, the other cuBLAS GEMMs (the lm_head, a bf16 base's
+    projections), sort/top-k, everything else. The wgmma int4 kernel runs
+    under both `int4_matmul` and `int4_matmul_smallm` and counts as
     `int4_matmul`."""
+    if name in moe:
+        return "moe_experts"
     n = name.lower()
     for key, fam in (("qmm_kernel<0", "int8_matmul"),
                      ("qmm_kernel<1", "nf4_matmul"),
@@ -828,11 +965,55 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_request(fn, prompt, new_tokens) -> dict:
+def moe_gemm_names(eng) -> tuple:
+    """(the GEMM kernels of Mixtral's expert products, the GEMM kernels
+    they share with the other bf16 products): names of the GEMMs one
+    layer's `moe_block` launches at the round's row counts (AR step,
+    prefill chunk, verify) under the profiler, less those of the layer's
+    attention projections, its router and the lm_head at the same rows. A
+    shared name stays in the cuBLAS family, so the MoE family is never
+    overstated. A trace without a GEMM, which each of these calls
+    launches, fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from flowspec_tpu_torch.models.llama import lm_head_logits
+    from flowspec_tpu_torch.models.mixtral import moe_block
+    from flowspec_tpu_torch.ops.quant import matmul_f32_out, qmatmul
+    mc = eng.cfg.model
+    lp = eng.params.layers.layer(0)
+
+    def gemms(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in ev.name.lower() for k in GEMM_KEYS)}
+        if not names:
+            raise AssertionError("moe_gemm_names: no GEMM kernel in the "
+                                 "trace")
+        return names
+
+    xs = [torch.randn((1, t, mc.hidden_size), device=eng.device).to(
+        torch.bfloat16) for t in (1, PROMPT_LEN, eng.cfg.tree.node_cap)]
+    moe = gemms(lambda: [moe_block(x, lp, mc) for x in xs])
+    dense = gemms(lambda: [([qmatmul(x, w) for w in (lp.wq, lp.wk, lp.wo)],
+                            matmul_f32_out(x, lp.router),
+                            lm_head_logits(eng.params, x)) for x in xs])
+    if not moe - dense:
+        raise AssertionError("moe_gemm_names: every GEMM kernel of the "
+                             f"expert products is a dense one's: {moe}")
+    return frozenset(moe - dense), sorted(moe & dense)
+
+
+def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
     """One request through `fn` under torch.profiler (CPU + CUDA): wall
     time, device kernel time and the device's idle share of the wall time,
     and per round (per step for a request without rounds) the kernels and
-    the device ms of each family, and of the ten costliest "other" ones."""
+    the device ms of each family (`moe`: the MoE GEMMs' names), and of the
+    ten costliest "other" ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -848,7 +1029,7 @@ def profile_request(fn, prompt, new_tokens) -> dict:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dt = ev.time_range.elapsed_us() / 1e6
-        fam = family(ev.name)
+        fam = family(ev.name, moe)
         ms[fam] = ms.get(fam, 0.0) + dt * 1e3 / rounds
         n[fam] = n.get(fam, 0) + 1
         if fam == "other":
@@ -882,38 +1063,96 @@ def check_graph_launches(tag, eng, kind, expected):
                                  f"{g.launches} a replay, expected {expected}")
 
 
-def confirm_by_profiler(tag, prof, per_round, prefill):
-    """The profiler's kernels of each kernel family in a profiled request
-    equal the wrappers' counts: one prefill and `per_round` a round (the
-    wgmma int4 kernel of both int4 entry points is one family)."""
-    want = {k: prefill.get(k, 0) + prof["rounds"] * n
-            for k, n in per_round.items()}
-    want["int4_matmul"] = (want.get("int4_matmul", 0)
-                           + want.pop("int4_matmul_smallm", 0))
-    seen = prof["kernels_by_family"]
-    bad = {k: (seen.get(k, 0), n) for k, n in want.items()
-           if n and seen.get(k, 0) != n}
-    if bad:
-        raise AssertionError(f"{tag}: profiler kernels a round vs counted "
-                             f"launches: {bad}")
+def confirmed_profile(tag, fn, prompt, new_tokens, per_round, prefill,
+                      moe=frozenset()) -> dict:
+    """`profile_request` through `fn`, its trace held to the wrappers'
+    counts: each kernel family's kernels equal one prefill and `per_round`
+    a round (the wgmma int4 kernel of both int4 entry points is one
+    family). The profiler can lose activity records: the same replayed
+    request has come back short by part of one AR step's kernels, and by a
+    whole replay's, with the counts unchanged and the stream right. So a
+    trace that shows fewer kernels than were counted (never more) is taken
+    again, up to PROFILE_TRIES requests, and the run fails unless one shows
+    every counted kernel; the confirmed profile lists the short traces
+    under "short_traces"."""
+    short = []
+    for _ in range(PROFILE_TRIES):
+        prof = profile_request(fn, prompt, new_tokens, moe)
+        want = {k: prefill.get(k, 0) + prof["rounds"] * n
+                for k, n in per_round.items()}
+        want["int4_matmul"] = (want.get("int4_matmul", 0)
+                               + want.pop("int4_matmul_smallm", 0))
+        seen = prof["kernels_by_family"]
+        bad = {k: (seen.get(k, 0), n) for k, n in want.items()
+               if n and seen.get(k, 0) != n}
+        if not bad:
+            prof["short_traces"] = short
+            return prof
+        short.append(bad)
+        if any(s > n for s, n in bad.values()):
+            break
+    raise AssertionError(f"{tag}: profiler kernels vs counted launches "
+                         f"(seen, counted): {short}")
 
 
 def divergences(eng, prompts, spec_out, ar_out):
     """Spec against AR, request by request: the match fraction and, at the
-    first differing position, the base model's top-2 gap there."""
+    first differing position i, the base model's top-2 gap after the AR
+    prefix (a fresh prefill); for an MoE base also a second witness, the
+    logits after the same prefix from `verify_width_logits`: how far the
+    spec token and the AR token at i lie below their maximum."""
+    from flowspec_tpu_torch.models.mixtral import MixtralParams
     matches, faults = [], []
     for p, spec, ar in zip(prompts, spec_out, ar_out):
         same = [a == b for a, b in zip(spec, ar)]
         matches.append(sum(same) / len(same))
         if not all(same):
             i = same.index(False)
-            faults.append({"position": i,
-                           "top2_gap": top2_gap(eng, p + ar[:i])})
+            fault = {"position": i, "top2_gap": top2_gap(eng, p + ar[:i])}
+            if isinstance(eng.params, MixtralParams):
+                w = verify_width_logits(eng, p, ar[:i])
+                top = float(w.max())
+                fault["verify_width"] = {
+                    "spec_below_max": top - float(w[spec[i]]),
+                    "ar_below_max": top - float(w[ar[i]])}
+            faults.append(fault)
     return matches, faults
 
 
+def verify_width_logits(eng, prompt, tokens):
+    """The base model's logits after `prompt` + `tokens` (f32, (V,)): the
+    prompt prefilled in `prefill_chunk` chunks as both decode paths do,
+    then `tokens` in chunks of the verify's `node_cap` rows, zero-padded,
+    so that every product runs at the row count of the verify that chose
+    the spec token (the AR step runs one row)."""
+    import torch
+    from flowspec_tpu_torch.runtime.engine import _prefill_chunk
+    state, logits = eng._prefill_chunks(eng.init_state(), prompt)
+    n = eng.cfg.tree.node_cap
+    for c in range(0, len(tokens), n):
+        chunk = tokens[c:c + n]
+        toks = torch.zeros((n,), dtype=torch.int32)
+        toks[:len(chunk)] = torch.tensor(chunk, dtype=torch.int32)
+        toks = toks.to(eng.device)
+        state, logits = _prefill_chunk(state, eng.params, eng.draft, toks,
+                                       toks, len(chunk), cfg=eng.cfg.model,
+                                       fwd=eng.forward_fn)
+    return logits.float()
+
+
 def check_lossless(tag, faults):
-    real = [f for f in faults if f["top2_gap"] >= NEAR_TIE_GAP]
+    """Spec may differ from AR only at a near-tie: a first divergence whose
+    AR top-2 logit gap is below NEAR_TIE_GAP, or, for an MoE base, one at
+    which the verify-width forward (`verify_width_logits`) sides with the
+    spec token, within NEAR_TIE_GAP of its maximum (rounding that differs
+    with the forward's row count can flip a router near-tie, and a flipped
+    expert set moves that token's hidden state by more than a logit
+    near-tie)."""
+    def excused(f):
+        return (f["top2_gap"] < NEAR_TIE_GAP
+                or f.get("verify_width", {}).get("spec_below_max",
+                                                 NEAR_TIE_GAP) < NEAR_TIE_GAP)
+    real = [f for f in faults if not excused(f)]
     if real:
         raise AssertionError(f"{tag}: spec diverges from AR off a near-tie: "
                              f"{real}")
@@ -932,10 +1171,20 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
     the fused stream differs from the eager one, or if spec diverges from
     AR off a near-tie."""
     import torch
+    from flowspec_tpu_torch.models.mixtral import MixtralParams
     model, quant, n_requests, new_tokens = CONFIGS[tag]
     suffix = "" if tag == "7b_int8" else "_" + tag
     eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
                                          new_tokens)
+    draft_kind = "int8" if quant == "mixed" else quant
+    about = DESCRIBE.get(tag, {
+        "model": f"llama_{model} {quant} (random, seeded)",
+        "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
+        "reduced": None})
+    # Mixtral's expert products are cuBLAS GEMMs, told apart by name
+    moe, moe_shared = (moe_gemm_names(eng)
+                       if isinstance(eng.params, MixtralParams)
+                       else (frozenset(), []))
     torch.cuda.reset_peak_memory_stats()
     zero(counters)
     eng.prefill(eng.init_state(), prompts[0])    # every prompt has one length
@@ -951,10 +1200,7 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
     per_round = launches_per_round(tag, launches, prefill, len(prompts),
                                    rounds, expected)
     eager_mem = torch.cuda.max_memory_allocated()
-    draft_kind = "int8" if quant == "mixed" else quant
-    emit({"phase": "serve" + suffix, "card": smi,
-          "model": f"llama_{model} {quant} (random, seeded)",
-          "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
+    emit({"phase": "serve" + suffix, "card": smi, **about,
           "beam_head": type(eng.beam_head).__name__,
           "requests": len(prompts), "prompt_len": PROMPT_LEN,
           "new_tokens": new, "rounds": rounds,
@@ -963,7 +1209,8 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
           "max_memory_allocated": eager_mem,
           "launches": launches, "prefill_launches": prefill,
           "launches_per_round": per_round,
-          "round_ms": (sums := round_sums(eng, kernel_rows, per_round))})
+          "round_ms": (sums := round_sums(tag, eng, kernel_rows,
+                                          per_round))})
     missing = [n for n in ON_SPEC[tag] if launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: generate never launched {missing}")
@@ -994,9 +1241,11 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
                              "eager one")
     if any(st["kv_buckets_used"] != 1 for st in f_stats):
         raise AssertionError(f"{tag}: buckets engaged without kv_buckets")
-    prof_eager = profile_request(eng.generate, prompts[0], new_tokens)
-    prof_fused = profile_request(eng.generate_fused, prompts[0], new_tokens)
-    confirm_by_profiler(tag + " fused", prof_fused, f_per_round, prefill)
+    prof_eager = (profile_request(eng.generate, prompts[0], new_tokens, moe)
+                  if tag in EAGER_PROFILED else None)
+    prof_fused = confirmed_profile(tag + " fused", eng.generate_fused,
+                                   prompts[0], new_tokens, f_per_round,
+                                   prefill, moe)
     eager_tok_s = [new / sum(req_s), e2_new / sum(e2_s)]
     emit({"phase": "fused" + suffix, "card": smi,
           "turns": ["eager", "fused", "fused", "eager"],
@@ -1010,9 +1259,12 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
           "equal_to_eager": True,
           "launches": f_launches, "launches_per_replay": f_per_round,
           "expected_per_round": expected,
-          "eager_device_idle_share": prof_eager["device_idle_share"],
+          "eager_device_idle_share": (prof_eager or {}).get(
+              "device_idle_share"),
           "fused_device_idle_share": prof_fused["device_idle_share"],
           "eager_profile": prof_eager, "fused_profile": prof_fused,
+          "moe_gemm_kernels": sorted(moe),
+          "moe_gemm_kernels_shared_with_dense": moe_shared,
           "max_memory_allocated": fused_mem,
           "eager_max_memory_allocated": eager_mem})
 
@@ -1032,7 +1284,7 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
           "first_divergences": faults, "ar_tok_s": ar_new / sum(ar_s),
           "ar_request_s": ar_s, "near_tie_gap": NEAR_TIE_GAP,
           "ar_launches": ar_launches, "ar_launches_per_step": per_step,
-          "ar_step_ms": (ar_sums := ar_step_sums(eng, kernel_rows,
+          "ar_step_ms": (ar_sums := ar_step_sums(tag, eng, kernel_rows,
                                                  per_step))})
     missing = [n for n in ON_AR[tag] if ar_launches[n] == 0]
     if missing:
@@ -1056,9 +1308,10 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
     if far_out != ar_out:
         raise AssertionError(f"{tag}: the fused AR stream differs from the "
                              "eager one")
-    prof_ar = profile_request(eng.generate_ar_fused, prompts[0], new_tokens)
     # one AR step a token: the profile's "rounds" are its new tokens
-    confirm_by_profiler(tag + " fused AR", prof_ar, far_steps, prefill)
+    prof_ar = confirmed_profile(tag + " fused AR", eng.generate_ar_fused,
+                                prompts[0], new_tokens, far_steps, prefill,
+                                moe)
     emit({"phase": "fused_ar" + suffix, "card": smi,
           "ar_tok_s": ar_new / sum(ar_s),
           "fused_ar_tok_s": far_new / sum(far_s),
@@ -1069,7 +1322,8 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
           "fused_ar_profile": prof_ar})
     return ({n: launches[n] + f_launches[n] + ar_launches[n]
              + far_launches[n] for n in counters}, sums, ar_sums,
-            {"eager": prof_eager["device_ms_per_round_by_family"],
+            {"eager": (prof_eager or {}).get(
+                "device_ms_per_round_by_family", {}),
              "fused": prof_fused["device_ms_per_round_by_family"]},
             (eng, prompts, ar_out))
 
@@ -1150,6 +1404,222 @@ def lm_head_check(dev, gen, smi):
         raise AssertionError(f"lm_head: {row}")
 
 
+LOADER_LAYERS = 2          # the loader phase's Qwen2-7B, cut in depth only
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """Write {name: tensor} (bf16 here) as one safetensors file, tensor by
+    tensor from the card: 8-byte little-endian header length, the JSON
+    header padded to 8 bytes, the raw bytes. The card's machine has no
+    `safetensors` package; this writer belongs to the smoke run, not to the
+    port. Returns the bytes written."""
+    import struct
+    import torch
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for n, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[n] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + size]}
+        off += size
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(h) + off
+
+
+def write_hf_qwen2(params, mc, out: Path) -> int:
+    """`params` (bf16 LlamaParams with biases) as an HF Qwen2 checkpoint:
+    config.json, (out, in) weights, two shards named by
+    model.safetensors.index.json (the embedding and layer 0; the rest).
+    Returns the bytes of the shards."""
+    out.mkdir(parents=True)
+    lp = params.layers
+    hf = {"model.embed_tokens.weight": params.embed}
+    shards = [("model-00001-of-00002.safetensors", hf)]
+    for i in range(mc.num_hidden_layers):
+        if i == 1:
+            hf = {}
+            shards.append(("model-00002-of-00002.safetensors", hf))
+        pre = f"model.layers.{i}."
+        for f, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                        ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                        ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                        ("w_down", "mlp.down_proj")):
+            hf[pre + name + ".weight"] = getattr(lp, f)[i].T
+        for f, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            hf[pre + f"self_attn.{name}.bias"] = getattr(lp, f)[i]
+        hf[pre + "input_layernorm.weight"] = lp.input_ln[i]
+        hf[pre + "post_attention_layernorm.weight"] = lp.post_ln[i]
+    hf["model.norm.weight"] = params.final_norm
+    hf["lm_head.weight"] = params.lm_head.T
+    n_bytes = sum(write_safetensors(out / f, t) for f, t in shards)
+    (out / "model.safetensors.index.json").write_text(json.dumps({
+        "metadata": {"total_size": n_bytes},
+        "weight_map": {n: f for f, t in shards for n in t}}))
+    (out / "config.json").write_text(json.dumps({
+        "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
+        "vocab_size": mc.vocab_size, "hidden_size": mc.hidden_size,
+        "intermediate_size": mc.intermediate_size,
+        "num_hidden_layers": mc.num_hidden_layers,
+        "num_attention_heads": mc.num_attention_heads,
+        "num_key_value_heads": mc.num_key_value_heads,
+        "rms_norm_eps": mc.rms_norm_eps, "rope_theta": mc.rope_theta,
+        "max_position_embeddings": mc.max_position_embeddings,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+    return n_bytes
+
+
+def tensors_of(tree, prefix=""):
+    """{path: tensor} of a dataclass tree (quantized containers included)."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(tensors_of(v, f"{prefix}{f.name}."))
+        elif v is not None:
+            out[prefix + f.name] = v
+    return out
+
+
+def unequal(a, b) -> list:
+    """The paths where two trees differ in any bit (or in their paths)."""
+    import torch
+    ta, tb = tensors_of(a), tensors_of(b)
+    if sorted(ta) != sorted(tb):
+        return sorted(set(ta) ^ set(tb))
+    return [k for k in ta if not (ta[k].dtype == tb[k].dtype
+                                  and torch.equal(ta[k], tb[k]))]
+
+
+def loader_phase(dev, smi):
+    """Qwen2-7B at full width cut to LOADER_LAYERS layers, bf16, random from
+    a seeded generator (biases and norms too): written as an HF checkpoint
+    in two shards, loaded by the port's `load_model_config` /
+    `load_llama_params` onto the card (seconds and GB/s, from the page
+    cache the write left) and held bit for bit to its source; one request
+    served from each through generate_fused, equal tokens; the int8
+    quantization through `save_params` / `load_params`, bit-equal; and an
+    engine state saved after 4 rounds, loaded and finished, equal to the
+    uninterrupted stream. The files live in a directory of the checkout
+    removed at the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from flowspec_tpu_torch.config import ModelConfig
+    from flowspec_tpu_torch.draft.eagle import (
+        init_eagle_params, quantize_eagle_params)
+    from flowspec_tpu_torch.models import checkpoint, loader
+    from flowspec_tpu_torch.models.llama import (
+        LlamaLayerParams, LlamaParams, quantize_llama_params)
+    from flowspec_tpu_torch.runtime import SpecEngine
+
+    mc = dataclasses.replace(ModelConfig.qwen2_7b(),
+                             num_hidden_layers=LOADER_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    h, i, n = mc.hidden_size, mc.intermediate_size, LOADER_LAYERS
+    qd, kvd = mc.num_attention_heads * mc.head_dim_, \
+        mc.num_key_value_heads * mc.head_dim_
+
+    def r(shape, mean, std):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(
+            mean, std, generator=gen)
+
+    src = LlamaParams(
+        embed=r((mc.vocab_size, h), 0.0, 0.02),
+        layers=LlamaLayerParams(
+            wq=r((n, h, qd), 0.0, h ** -0.5), wk=r((n, h, kvd), 0.0, h ** -0.5),
+            wv=r((n, h, kvd), 0.0, h ** -0.5), wo=r((n, qd, h), 0.0, qd ** -0.5),
+            w_gate=r((n, h, i), 0.0, h ** -0.5),
+            w_up=r((n, h, i), 0.0, h ** -0.5),
+            w_down=r((n, i, h), 0.0, i ** -0.5),
+            input_ln=r((n, h), 1.0, 0.05), post_ln=r((n, h), 1.0, 0.05),
+            bq=r((n, qd), 0.0, 0.1), bk=r((n, kvd), 0.0, 0.1),
+            bv=r((n, kvd), 0.0, 0.1)),
+        final_norm=r((h,), 1.0, 0.05), lm_head=r((h, mc.vocab_size), 0.0,
+                                                 h ** -0.5))
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT))
+    try:
+        t0 = time.perf_counter()
+        n_bytes = write_hf_qwen2(src, mc, tmp / "hf")
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg = loader.load_model_config(str(tmp / "hf"))
+        params = loader.load_llama_params(str(tmp / "hf"), cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        config_equal = dataclasses.asdict(cfg) == dataclasses.asdict(mc)
+        bad = unequal(params, src)
+        shutil.rmtree(tmp / "hf")
+
+        draft = quantize_eagle_params(init_eagle_params(
+            gen, mc, embed=src.embed), "int8")
+        ecfg = engine_config(mc, FAMILY_NEW_TOKENS)
+        rng = torch.Generator().manual_seed(SEED + 1)
+        prompt = torch.randint(3, mc.vocab_size, (PROMPT_LEN,),
+                               generator=rng).tolist()
+        eng_src = SpecEngine(src, draft, ecfg, device=dev)
+        from_src, _ = eng_src.generate_fused(prompt, FAMILY_NEW_TOKENS,
+                                             eos_token_id=-1)
+        del eng_src
+        eng = SpecEngine(params, dataclasses.replace(draft,
+                                                     embed=params.embed),
+                         ecfg, device=dev)
+        from_loaded, _ = eng.generate_fused(prompt, FAMILY_NEW_TOKENS,
+                                            eos_token_id=-1)
+
+        q = quantize_llama_params(src, "int8")
+        t0 = time.perf_counter()
+        checkpoint.save_params(q, str(tmp / "int8"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load_params(str(tmp / "int8"), device=dev)
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        bad_int8 = unequal(back, q)
+        del q, back
+        shutil.rmtree(tmp / "int8")
+
+        full, _ = eng.generate(prompt, FAMILY_NEW_TOKENS, eos_token_id=-1)
+        st = eng.prefill(eng.init_state(0), prompt)
+        out = list(prompt)
+        for _ in range(4):
+            st, acc, n_acc = eng._round(st)
+            out += acc[:int(n_acc)].tolist()
+        checkpoint.save_state(st, str(tmp / "state"))
+        st = checkpoint.load_state(str(tmp / "state"), device=dev)
+        while len(out) < len(prompt) + FAMILY_NEW_TOKENS:
+            st, acc, n_acc = eng._round(st)
+            out += acc[:int(n_acc)].tolist()
+        resumed = out[:len(prompt) + FAMILY_NEW_TOKENS]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "loader", "card": smi,
+           "model": "ModelConfig.qwen2_7b() bf16 with qkv biases, random, "
+                    "seeded, untied head",
+           "reduced": f"28 -> {LOADER_LAYERS} layers (a checkpoint written "
+                      "and read within the run)",
+           "shards": 2, "checkpoint_bytes": n_bytes, "write_s": write_s,
+           "load_s": load_s, "load_GB_s": n_bytes / load_s / 1e9,
+           "config_equal": config_equal, "tensors_unequal": bad,
+           "served_tokens_equal": from_loaded == from_src,
+           "fused_equals_eager": full == from_loaded,
+           "int8_save_s": save_s, "int8_load_s": reload_s,
+           "int8_tensors_unequal": bad_int8,
+           "state_resume_equal": resumed == full}
+    emit(row)
+    if (bad or bad_int8 or not config_equal or from_loaded != from_src
+            or resumed != full or full != from_loaded):
+        raise AssertionError(f"loader: {row}")
+
+
 def old_entry(kernel, rows, launches):
     """The "old" record of a redesigned kernel's line in `kernels`: its
     comparison-only entry point, its time at the kernel's main shape, its
@@ -1174,7 +1644,32 @@ def top2_gap(eng, prefix) -> float:
     return float(top[0] - top[1])
 
 
+def serve_child(tag: str, rows_path: str, out_path: str) -> int:
+    """One configuration's serve phases (`serve_config`; at 7B int8 also
+    `bucket_and_force_runs`) in a process of their own, started by `main`
+    with the kernel phase's rows; writes (launches, round_sums,
+    ar_step_sums, profiled ms by family) as JSON to `out_path`. A process a
+    configuration keeps each one's profiler sessions few: in one process
+    the profiler lost more kernel records the more sessions came before
+    (PERF.md, section 6)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernel_rows = json.loads(Path(rows_path).read_text())
+    smi = nvidia_smi()
+    *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
+                                    smi)
+    if tag == "7b_int8":
+        bucket_and_force_runs(*served, smi)
+    Path(out_path).write_text(json.dumps(results))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--serve"]:
+        return serve_child(*sys.argv[2:5])
     try:
         import torch
     except ImportError:
@@ -1237,18 +1732,25 @@ def main() -> int:
           "all_ok": all(r["ok"] for r in details),
           "main_shapes": {n: kernel_rows[n][s] for n, s in MAIN.items()}})
 
-    # 4. the three configurations through the entry points, one at a time;
-    # at 7B int8 also KV buckets and force_accept, then the lm_head
+    # 4-6. the configurations through the entry points, each in a process
+    # of its own (`serve_child`), one after another; then the lm_head
     counters = launch_counts()
+    rows_path = OUT_DIR / "chip_smoke_rows.json"
+    rows_path.write_text(json.dumps(kernel_rows))
+    torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
     for tag in CONFIGS:
-        (by_config[tag], sums[tag], ar_sums[tag], profiled[tag],
-         served) = serve_config(tag, dev, counters, kernel_rows, smi)
-        if tag == "7b_int8":
-            bucket_and_force_runs(*served, smi)
-        del served
-        torch.cuda.empty_cache()
+        out = OUT_DIR / f"chip_smoke_{tag}.json"
+        out.unlink(missing_ok=True)
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--serve", tag, str(rows_path),
+                             str(out)]).returncode
+        if rc != 0:
+            raise AssertionError(f"{tag}: its serve process exited with {rc}")
+        by_config[tag], sums[tag], ar_sums[tag], profiled[tag] = json.loads(
+            out.read_text())
     lm_head_check(dev, gen, smi)
+    loader_phase(dev, smi)
     launches = {n: sum(c[n] for c in by_config.values()) for n in counters}
     missing = [n for n in _build.KERNELS if launches[n] == 0]
     if missing:

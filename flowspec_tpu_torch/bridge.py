@@ -23,6 +23,9 @@ import torch
 from flowspec_tpu_torch.draft.eagle import EagleParams
 from flowspec_tpu_torch.models.kv_cache import KVCache, device_scalar
 from flowspec_tpu_torch.models.llama import LlamaLayerParams, LlamaParams
+from flowspec_tpu_torch.models.mixtral import (
+    MixtralLayerParams, MixtralParams,
+)
 from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
 from flowspec_tpu_torch.runtime.engine import resolve_device
 
@@ -77,6 +80,15 @@ def llama_params(d: dict, device=None) -> LlamaParams:
     return LlamaParams(embed=tensor(d["embed"], device), layers=layers,
                        final_norm=tensor(d["final_norm"], device),
                        lm_head=tensor(d["lm_head"], device))
+
+
+def mixtral_params(d: dict, device=None) -> MixtralParams:
+    device = resolve_device(device)
+    layers = MixtralLayerParams(**{
+        f: tensor(v, device) for f, v in d["layers"].items()})
+    return MixtralParams(embed=tensor(d["embed"], device), layers=layers,
+                         final_norm=tensor(d["final_norm"], device),
+                         lm_head=tensor(d["lm_head"], device))
 
 
 def eagle_params(d: dict, device=None) -> EagleParams:

@@ -4,12 +4,15 @@ Port of `flowspec_tpu/draft/eagle.py`: frozen base embeddings, `fc: 2H ->
 W` fusion, one LLaMA decoder layer whose input layernorm is skipped, and
 (thin drafts, W < H) a `w_out: (W, H)` residual projection back to the base
 hidden space. The draft geometry is derived from the parameter shapes
-(`draft_view`), so no second config is threaded through.
+(`draft_view`), so no second config is threaded through. Drafts come from
+`init_eagle_params` (random, full width or thin), `load_eagle_params` (an
+HF EAGLE head) or `load_thin_draft` (the repo's npz drafts).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -139,3 +142,91 @@ def load_thin_draft(path: str, embed: torch.Tensor,
         kw = {f: torch.from_numpy(z[f].astype(np.float32)).to(
             device=embed.device, dtype=dtype) for f in z.files}
     return EagleParams(embed=embed, **kw)
+
+
+def init_eagle_params(generator: torch.Generator, cfg: ModelConfig,
+                      embed: torch.Tensor | None = None, dtype=None,
+                      width: int | None = None, n_heads: int | None = None,
+                      n_kv_heads: int | None = None,
+                      inter: int | None = None, device=None) -> EagleParams:
+    """Random draft (`flowspec_tpu/draft/eagle.py:158-198`), drawn from
+    `generator` on `device` (embed's device when an embed is given, else
+    `cuda` unless named). By default the reference's full-width layout (W
+    == H); `width` / `n_heads` / `n_kv_heads` / `inter` make a thin draft
+    with a w_out: (W, H) projection, head_dim the base's. Weights are
+    N(0, 1) x In^-1/2 drawn in place in `dtype` (the embedding N(0, 0.02)):
+    the law of the JAX package's draw, not its bits."""
+    from flowspec_tpu_torch.runtime.engine import resolve_device
+    dt = dtype or getattr(torch, cfg.dtype)
+    device = (embed.device if device is None and embed is not None
+              else resolve_device(device))
+    h, v = cfg.hidden_size, cfg.vocab_size
+    d = cfg.head_dim_
+    w = width or h
+    i = inter or (cfg.intermediate_size if w == h else
+                  int(2.75 * w) // 256 * 256 or w * 2)
+    nq = n_heads or (cfg.num_attention_heads if w == h else max(w // d, 1))
+    nkv = n_kv_heads or (cfg.num_key_value_heads if w == h
+                         else max(w // d, 1))
+    thin = (w != h or nq != cfg.num_attention_heads
+            or nkv != cfg.num_key_value_heads or i != cfg.intermediate_size)
+
+    def init(shape, std=None):
+        return torch.empty(shape, dtype=dt, device=device).normal_(
+            0.0, shape[0] ** -0.5 if std is None else std,
+            generator=generator)
+
+    return EagleParams(
+        embed=embed if embed is not None else init((v, h), 0.02),
+        fc_w=init((2 * h, w)),
+        fc_b=torch.zeros((w,), dtype=dt, device=device),
+        wq=init((w, nq * d)), wk=init((w, nkv * d)), wv=init((w, nkv * d)),
+        wo=init((nq * d, w)),
+        w_gate=init((w, i)), w_up=init((w, i)), w_down=init((i, w)),
+        post_ln=torch.ones((w,), dtype=dt, device=device),
+        w_out=init((w, h)) if thin else None)
+
+
+def load_eagle_params(draft_dir: str, embed: torch.Tensor,
+                      dtype=torch.bfloat16) -> EagleParams:
+    """An EAGLE head in the HF layout of the reference (`fc.*`,
+    `layers.0.*`; `flowspec_tpu/draft/eagle.py:213-252`) from the
+    `*.safetensors` files of `draft_dir` (the port's reader), else from its
+    `*.bin` files (`torch.load(..., weights_only=True)`), on embed's device:
+    (out, in) weights transposed there, one tensor at a time. The
+    embeddings are the base model's."""
+    from flowspec_tpu_torch.models.loader import SafetensorsFile, tensor_to
+
+    files = sorted(os.listdir(draft_dir))
+    source = {}                     # tensor name -> the file that holds it
+    for f in files:
+        if f.endswith(".safetensors"):
+            h = SafetensorsFile(os.path.join(draft_dir, f))
+            source.update({name: h for name in h.keys()})
+    if not source:
+        for f in files:
+            if f.endswith(".bin"):
+                sd = torch.load(os.path.join(draft_dir, f),
+                                map_location="cpu", weights_only=True)
+                source.update({name: sd for name in sd})
+    get = lambda name: source[name][name]
+    dev = embed.device
+
+    def g(name):
+        return tensor_to(get(name), dtype, dev, transpose=True)
+
+    pre = "layers.0."
+    fc_w = g("fc.weight")
+    return EagleParams(
+        embed=embed, fc_w=fc_w,
+        fc_b=(tensor_to(get("fc.bias"), dtype, dev) if "fc.bias" in source
+              else torch.zeros((fc_w.shape[1],), dtype=dtype, device=dev)),
+        wq=g(pre + "self_attn.q_proj.weight"),
+        wk=g(pre + "self_attn.k_proj.weight"),
+        wv=g(pre + "self_attn.v_proj.weight"),
+        wo=g(pre + "self_attn.o_proj.weight"),
+        w_gate=g(pre + "mlp.gate_proj.weight"),
+        w_up=g(pre + "mlp.up_proj.weight"),
+        w_down=g(pre + "mlp.down_proj.weight"),
+        post_ln=tensor_to(get(pre + "post_attention_layernorm.weight"),
+                          dtype, dev))

@@ -1,0 +1,38 @@
+"""Model layer: transformer families with tree-masked attention.
+
+Port of `flowspec_tpu/models/__init__.py`: LLaMA / Vicuna / Qwen2 share
+`LlamaParams` (Qwen2 differs by its qkv biases, a config flag), Mixtral has
+`MixtralParams`; `model_forward` picks the family from the type of the
+parameters. The HF loaders are in `models/loader.py` and
+`models/mixtral.py`, the checkpoints of params and engine states in
+`models/checkpoint.py`.
+"""
+
+from flowspec_tpu_torch.models.bias import prefill_bias, tree_bias
+from flowspec_tpu_torch.models.kv_cache import KVCache, init_kv_cache
+from flowspec_tpu_torch.models.llama import (
+    LlamaParams, embed_tokens, final_hidden, llama_forward, lm_head_logits,
+    random_llama_params,
+)
+from flowspec_tpu_torch.models.mixtral import (
+    MixtralParams, mixtral_forward, random_mixtral_params,
+)
+
+
+def model_forward(params, cache, hidden, positions, bias, write_start, cfg):
+    """The base model's forward for the family of `params`
+    (`flowspec_tpu/models/__init__.py:21-28`): (hidden, cache)."""
+    if isinstance(params, MixtralParams):
+        return mixtral_forward(params, cache, hidden, positions, bias,
+                               write_start, cfg)
+    return llama_forward(params, cache, hidden, positions, bias,
+                         write_start, cfg)
+
+
+__all__ = [
+    "KVCache", "init_kv_cache",
+    "LlamaParams", "random_llama_params", "llama_forward", "final_hidden",
+    "MixtralParams", "random_mixtral_params", "mixtral_forward",
+    "model_forward", "embed_tokens", "lm_head_logits",
+    "prefill_bias", "tree_bias",
+]

@@ -225,9 +225,10 @@ def random_llama_params(cfg: ModelConfig, generator: torch.Generator,
     copy), with the distributions of the JAX bench (`bench.py:138-218`):
     int8 codes uniform in [-127, 127] with scale In^-1/2 / 127; packed 4-bit
     bytes uniform in [0, 255] with block scale In^-1/2 (nf4) or In^-1/2 / 7
-    (int4); embed N(0, 0.02), lm_head N(0, 1) * H^-1/2, unit norms.
-    `jax.random`'s bits cannot be reproduced here, so this is the same
-    distribution, not the same weights."""
+    (int4); embed N(0, 0.02), lm_head N(0, 1) * H^-1/2, unit norms; with
+    `cfg.attention_bias` (Qwen2) zero qkv biases, as `init_llama_params`
+    gives. `jax.random`'s bits cannot be reproduced here, so this is the
+    same distribution, not the same weights."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     n, d = cfg.num_hidden_layers, cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -266,6 +267,11 @@ def random_llama_params(cfg: ModelConfig, generator: torch.Generator,
         w_down=q_of("w_down", i, h),
         input_ln=torch.ones((n, h), dtype=dt, device=device),
         post_ln=torch.ones((n, h), dtype=dt, device=device))
+    if cfg.attention_bias:
+        layers = dataclasses.replace(layers, **{
+            f: torch.zeros((n, width), dtype=dt, device=device)
+            for f, width in (("bq", nq * d), ("bk", nkv * d),
+                             ("bv", nkv * d))})
     return LlamaParams(embed=normal((v, h), 0.02), layers=layers,
                        final_norm=torch.ones((h,), dtype=dt, device=device),
                        lm_head=normal((h, v), h ** -0.5))

@@ -17,8 +17,10 @@ Two decode paths share that round body, as the JAX package's do:
 `kv_buckets` (`_plan_buckets`, `_grow_kv`), `resume_and_generate` and the
 `force_accept` bench mode are ported too; greedy and stochastic rounds
 alike read nothing back (`tree/posterior.py` walks every depth with masks,
-as the JAX scan does). Not ported yet (ROADMAP.md, Queue 1): batched
-serving (`serve`).
+as the JAX scan does). The base model is any family of
+`models/__init__.py model_forward` (LLaMA / Qwen2 `LlamaParams`, Mixtral
+`MixtralParams`), or the caller's `forward_fn`. Not ported yet
+(ROADMAP.md, Queue 1): batched serving (`serve`).
 """
 
 from __future__ import annotations
@@ -36,13 +38,15 @@ from flowspec_tpu_torch.draft.beam import topk_generate
 from flowspec_tpu_torch.draft.eagle import (
     EagleParams, draft_context_forward, draft_view,
 )
+from flowspec_tpu_torch.models import model_forward
 from flowspec_tpu_torch.models.bias import prefill_bias, tree_bias
 from flowspec_tpu_torch.models.kv_cache import (
     KVCache, device_scalar, grow_kv, init_kv_cache,
 )
 from flowspec_tpu_torch.models.llama import (
-    LlamaParams, embed_tokens, final_hidden, lm_head_logits, llama_forward,
+    LlamaParams, embed_tokens, final_hidden, lm_head_logits,
 )
+from flowspec_tpu_torch.models.mixtral import MixtralParams
 from flowspec_tpu_torch.ops.quant import Int8Tensor, NF4Tensor, quantize_int8
 from flowspec_tpu_torch.runtime import graphs
 from flowspec_tpu_torch.tree.posterior import (
@@ -62,7 +66,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def make_beam_head(params: LlamaParams, draft: EagleParams,
+def make_beam_head(params: LlamaParams | MixtralParams, draft: EagleParams,
                    cfg: EngineConfig):
     """The lm_head copy the draft beam scores proposals with
     (EngineConfig.beam_head_quant; "auto" = int8 for an int8 or nf4 draft,
@@ -95,9 +99,13 @@ class EngineState:
 class SpecEngine:
     """Owns params and the step functions for one (base, draft) pair."""
 
-    def __init__(self, params: LlamaParams, draft: EagleParams,
-                 cfg: EngineConfig, device=None):
+    def __init__(self, params: LlamaParams | MixtralParams,
+                 draft: EagleParams, cfg: EngineConfig, device=None,
+                 forward_fn=None):
+        """`forward_fn` swaps the base model's forward (`model_forward`'s
+        signature), as in the JAX package."""
         self.device = resolve_device(device)
+        self.forward_fn = forward_fn or model_forward
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"engine on {self.device}")
@@ -199,7 +207,7 @@ class SpecEngine:
                 state, self.params, self.draft,
                 torch.from_numpy(padded[i * c:(i + 1) * c]).to(dev),
                 torch.from_numpy(nxt[i * c:(i + 1) * c]).to(dev),
-                min(c, p - i * c), cfg=self.cfg.model)
+                min(c, p - i * c), cfg=self.cfg.model, fwd=self.forward_fn)
         return state, last_logits
 
     def prefill(self, state: EngineState, prompt) -> EngineState:
@@ -265,12 +273,13 @@ class SpecEngine:
         return _spec_round(state, self.params, self.draft, self.beam_head,
                            cfg=self.cfg.model, tree_cfg=self.cfg.tree,
                            sampling=self.cfg.sampling,
-                           force_accept=self.cfg.force_accept)
+                           force_accept=self.cfg.force_accept,
+                           fwd=self.forward_fn)
 
     def _ar(self, state: EngineState):
         """One `_ar_step` with this engine's weights: (state, next token)."""
         return _ar_step(state, self.params, cfg=self.cfg.model,
-                        sampling=self.cfg.sampling)
+                        sampling=self.cfg.sampling, fwd=self.forward_fn)
 
     def resume_and_generate(self, state, history, extra_prompt,
                             max_new_tokens: Optional[int] = None,
@@ -414,9 +423,9 @@ def _pad_rows(h: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([h, h.new_zeros((b, n - c, d))], dim=1)
 
 
-def _prefill_chunk(state: EngineState, params: LlamaParams,
-                   draft: EagleParams, tokens, next_tokens, n_valid: int, *,
-                   cfg: ModelConfig):
+def _prefill_chunk(state: EngineState, params, draft: EagleParams, tokens,
+                   next_tokens, n_valid: int, *, cfg: ModelConfig,
+                   fwd=model_forward):
     c = tokens.shape[0]
     start = state.commit_len
     dev = tokens.device
@@ -424,8 +433,8 @@ def _prefill_chunk(state: EngineState, params: LlamaParams,
     hidden = embed_tokens(params, tokens[None])
     bias = prefill_bias(start, c, s_max, device=dev)
     positions = start + torch.arange(c, device=dev)
-    out, cache = llama_forward(params, state.base_cache, hidden, positions,
-                               bias, start, cfg)
+    out, cache = fwd(params, state.base_cache, hidden, positions, bias,
+                     start, cfg)
     cache = cache.with_length(start + n_valid)
     normed = final_hidden(params, out, cfg)
 
@@ -479,9 +488,10 @@ def _drain_pending(state: EngineState, draft: EagleParams,
     return dataclasses.replace(state, draft_cache=dcache)
 
 
-def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
+def _spec_round(state: EngineState, params, draft: EagleParams,
                 beam_head=None, *, cfg: ModelConfig, tree_cfg: TreeConfig,
-                sampling: SamplingConfig, force_accept: int = 0):
+                sampling: SamplingConfig, force_accept: int = 0,
+                fwd=model_forward):
     """One draft -> verify -> accept round (ref eagle/ea_model.py:236-297).
     Returns (state, accepted (depth_cap,) int32 with -1 padding,
     n_accepted () int32), all on the device: a round reads nothing back,
@@ -518,8 +528,8 @@ def _spec_round(state: EngineState, params: LlamaParams, draft: EagleParams,
     toks = torch.where(tree.tokens >= 0, tree.tokens, 0)
     hidden = embed_tokens(params, toks[None])
     positions = commit + tree.depth
-    b_out, bcache = llama_forward(params, state.base_cache, hidden,
-                                  positions, bias, commit, cfg)
+    b_out, bcache = fwd(params, state.base_cache, hidden, positions, bias,
+                        commit, cfg)
     normed = final_hidden(params, b_out, cfg)            # (1, N, H)
     node_logits = lm_head_logits(params, normed[0])      # (N, V) f32
 
@@ -586,8 +596,8 @@ def _grow_kv(state: EngineState, draft_rows: int,
         draft_cache=grow_kv(state.draft_cache, draft_rows))
 
 
-def _ar_step(state: EngineState, params: LlamaParams, *, cfg: ModelConfig,
-             sampling: SamplingConfig):
+def _ar_step(state: EngineState, params, *, cfg: ModelConfig,
+             sampling: SamplingConfig, fwd=model_forward):
     """Decode one token autoregressively (baseline)."""
     s_max = state.base_cache.max_len
     commit = state.commit_len
@@ -595,8 +605,8 @@ def _ar_step(state: EngineState, params: LlamaParams, *, cfg: ModelConfig,
     hidden = embed_tokens(params, state.root_token.reshape(1, 1))
     bias = prefill_bias(commit, 1, s_max, device=dev)
     positions = commit.reshape(1)
-    out, cache = llama_forward(params, state.base_cache, hidden, positions,
-                               bias, commit, cfg)
+    out, cache = fwd(params, state.base_cache, hidden, positions, bias,
+                     commit, cfg)
     cache = cache.with_length(commit + 1)
     logits = lm_head_logits(params, final_hidden(params, out, cfg))[0, 0]
     tok = sample_token(state.generator, logits, sampling, is_probs=False)

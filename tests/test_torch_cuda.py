@@ -21,7 +21,12 @@ grid; on a tiny model, a replayed CUDA graph of the decode loop's body must
 give the eager body's bits, replay after replay; the lm_head's f32-output
 GEMM must stay within f32 summation order of the f32 product (2e-3 abs,
 1e-3 relative: sums of H = 4096 exact bf16 products) and make no f32 copy
-of the head.
+of the head. The model families' shapes: attention at Qwen2-7B's G 7 (4 KV
+heads) and Mixtral's G 4 (8 KV heads), head top-k at Qwen2's V 152064 (1188
+strips, keys merged from device memory) with a tie across strips; a tiny
+Mixtral's round captured and replayed with the eager round's bits; the
+loaders and checkpoints put every tensor on the card when no device is
+named.
 """
 
 import pytest
@@ -550,3 +555,147 @@ def test_fused_sampling_replays_with_the_request_generator(cuda):
     e, _ = eng.generate_ar_fused(prompt, max_new_tokens=20, eos_token_id=-1,
                                  seed=3)
     assert d == e
+
+
+# the families' attention shapes at S 512: Qwen2-7B (nkv 4, G 7: 567 rows a
+# KV head at verify) and Mixtral (nkv 8, G 4), at verify, prefill, AR and
+# the draft's T 10; the device n_valid must give the host n_valid's bits
+@pytest.mark.parametrize("nkv,g", [(4, 7), (8, 4)])
+@pytest.mark.parametrize("t,n_valid", [(81, 209), (81, 273), (64, 64),
+                                       (1, 200), (10, 150)])
+def test_tree_attention_family_shapes_match_plain(cuda, nkv, g, t, n_valid):
+    s_max = 512
+    q, k, v, bias = _attn(cuda, nkv * g, nkv, t, s_max, 128, n_valid)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    before = tree_attention.launches
+    dev = tree_attention(q, k, v, bias, nv)
+    host = tree_attention(q, k, v, bias, n_valid)
+    want = tree_attention_plain(q, k, v, bias, live_keys(s_max, n_valid))
+    torch.cuda.synchronize()
+    assert tree_attention.launches == before + 2
+    plan = attention_plan(nkv, g, t, s_max)
+    assert float((dev.float() - want.float()).abs().max()) <= 2e-2, plan
+    assert torch.equal(dev, host)
+
+
+@pytest.mark.parametrize("t", [1, 10])
+def test_head_topk_qwen2_vocab_matches_plain(cuda, t):
+    """V 152064 at H 3584, k 10: 11880 keys a row, past the merge's
+    staging limit, so the merge reads them from device memory."""
+    h, v, k = 3584, 152064, 10
+    x, q, s = _head(cuda, t, h, v)
+    lp, tok = head_topk_int8(x, q, s, k)
+    lp2, tok2 = head_topk_int8(x, q, s, k)
+    want_lp, _ = head_topk_plain(x, q, s, k)
+    torch.cuda.synchronize()
+    assert float((lp - want_lp).abs().max()) <= 1e-3, head_plan(t, h, v)
+    assert float((_plain_lp_of(x, q, s, tok) - want_lp).abs().max()) <= 1e-3
+    assert torch.equal(lp, lp2) and torch.equal(tok, tok2)
+    best = int(head_logits(x, Int8Tensor(q=q, scale=s))[0].argmax())
+    dup = (best + 128 * 601) % v                # another strip, far away
+    q[:, dup], s[dup] = q[:, best], s[best]
+    lp, tok = head_topk_int8(x, q, s, k)
+    _, want_tok = head_topk_plain(x, q, s, k)
+    torch.cuda.synchronize()
+    assert torch.equal(tok[0], want_tok[0])
+    assert tok[0, :2].tolist() == sorted([best, dup]) and lp[0, 0] == lp[0, 1]
+
+
+def _tiny_mixtral_engine():
+    """A 2-layer bf16 Mixtral (H 256, 4 experts top-2, 4/2 heads, V 1024)
+    and a full-width int8 draft, random from a seeded generator."""
+    from flowspec_tpu_torch.config import (
+        EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.draft.eagle import (
+        init_eagle_params, quantize_eagle_params)
+    from flowspec_tpu_torch.models.mixtral import random_mixtral_params
+    from flowspec_tpu_torch.runtime import SpecEngine
+    mc = ModelConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, num_local_experts=4,
+                     num_experts_per_tok=2, rope_theta=1e6)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    params = random_mixtral_params(mc, gen, "cuda")
+    draft = quantize_eagle_params(init_eagle_params(
+        gen, mc, embed=params.embed), "int8")
+    tc = TreeConfig(top_k=8, depth=4, total_tokens=24, node_cap=48,
+                    leaf_cap=48, depth_cap=12)
+    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                       max_seq_len=200, prefill_chunk=16)
+    return SpecEngine(params, draft, cfg)
+
+
+def test_mixtral_graph_replay_equals_eager_round_bits(cuda):
+    """A Mixtral round (MoE through batched products, the router's top-k by
+    a stable sort, the mixture scattered into zeros) captures and replays
+    with the eager round's bits; fused streams equal eager ones, spec and
+    AR."""
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_mixtral_engine()
+    prompt = list(range(3, 40))
+    state = eng.prefill(eng.init_state(0), prompt)
+    loop = graphs._loop_buffers(64, -1, state.commit_len.device)
+    eager, eager_loop = graphs._clone(state), graphs._clone(loop)
+    g = graphs.DecodeGraph(eng, graphs._spec_body, state, loop)
+    assert "int8_matmul" in g.launches and "head_topk" in g.launches
+    for _ in range(3):
+        g.replay()
+        eager = graphs._spec_body(eng, eager, eager_loop)
+        torch.cuda.synchronize()
+        for a, b in zip(graphs._fields(g.state), graphs._fields(eager)):
+            assert torch.equal(a, b)
+        for a, b in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
+            assert torch.equal(a, b)
+    spec, stats = eng.generate(prompt, max_new_tokens=30, eos_token_id=-1)
+    fused, fstats = eng.generate_fused(prompt, max_new_tokens=30,
+                                       eos_token_id=-1)
+    assert fused == spec and fstats["rounds"] == stats["rounds"]
+    ar, _ = eng.generate_ar(prompt, max_new_tokens=16, eos_token_id=-1)
+    ar_fused, _ = eng.generate_ar_fused(prompt, max_new_tokens=16,
+                                        eos_token_id=-1)
+    assert ar_fused == ar
+
+
+def test_loaders_and_checkpoints_default_to_the_card(cuda, tmp_path):
+    import json
+    from chip_smoke import write_safetensors
+    from flowspec_tpu_torch.models import checkpoint, loader
+    h, i, v, n = 64, 128, 256, 2
+    cfg = {"model_type": "qwen2", "vocab_size": v, "hidden_size": h,
+           "intermediate_size": i, "num_hidden_layers": n,
+           "num_attention_heads": 4, "num_key_value_heads": 2}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    r = lambda *shape: torch.randn(shape, generator=cuda, device="cuda")
+    t = {"model.embed_tokens.weight": r(v, h), "model.norm.weight": r(h),
+         "lm_head.weight": r(v, h)}
+    for layer in range(n):
+        pre = f"model.layers.{layer}."
+        for name, shape in (("self_attn.q_proj", (h, h)),
+                            ("self_attn.k_proj", (h // 2, h)),
+                            ("self_attn.v_proj", (h // 2, h)),
+                            ("self_attn.o_proj", (h, h)),
+                            ("mlp.gate_proj", (i, h)), ("mlp.up_proj", (i, h)),
+                            ("mlp.down_proj", (h, i))):
+            t[pre + name + ".weight"] = r(*shape)
+        for name, width in (("q_proj", h), ("k_proj", h // 2),
+                            ("v_proj", h // 2)):
+            t[pre + f"self_attn.{name}.bias"] = r(width)
+        t[pre + "input_layernorm.weight"] = r(h)
+        t[pre + "post_attention_layernorm.weight"] = r(h)
+    write_safetensors(tmp_path / "model.safetensors",
+                      {k: x.to(torch.bfloat16) for k, x in t.items()})
+    p = loader.load_llama_params(str(tmp_path))
+    assert torch.equal(p.layers.wk[1],
+                       t["model.layers.1.self_attn.k_proj.weight"].to(
+                           torch.bfloat16).T)
+    assert torch.equal(p.lm_head, t["lm_head.weight"].to(torch.bfloat16).T)
+    checkpoint.save_params(p, str(tmp_path / "ckpt"))
+    back = checkpoint.load_params(str(tmp_path / "ckpt"))
+    for tree in (p, back):
+        leaves = [getattr(x, f) for x in (tree, tree.layers)
+                  for f in vars(x) if isinstance(getattr(x, f),
+                                                 torch.Tensor)]
+        assert len(leaves) == 3 + 12
+        assert all(x.device.type == "cuda" for x in leaves)
+    assert torch.equal(back.layers.bv, p.layers.bv)

@@ -43,3 +43,7 @@ def port_cache(cache):
 def np_of(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().numpy() if t.is_floating_point() \
         else t.detach().numpy()
+
+
+def port_mixtral(params):
+    return bridge.mixtral_params(to_numpy_dict(params), device="cpu")
