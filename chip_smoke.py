@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each on stdout:
+Phases, one JSON line each on stdout (each with the wall clock at its
+emission, `clock_s`):
   1. device   the card, and `nvidia-smi` name + power limit on a line of its
               own; exits non-zero without a CUDA card or outside the repo;
   2. build    the six CUDA kernels from csrc/ (one nvcc each, in parallel);
@@ -36,9 +37,10 @@ Phases, one JSON line each on stdout:
                                   the 13B thin draft in int8;
      and with suffix _7b_nf4                7B, base and thin draft nf4.
      Each at full width and depth: random base from a seeded
-     torch.Generator, the committed thin draft, 64-token prompts, 3
-     requests x 128 new tokens at 7B int8 (2 at 13B mixed and 7B nf4 since
-     the families came in), served in turns in one process: eager
+     torch.Generator, the committed thin draft, 64-token prompts, 2
+     requests x 128 new tokens (3 at 7B int8 before the batched phase came
+     in, and at 13B mixed and 7B nf4 before the families), served in turns
+     in one process: eager
      SpecEngine.generate, generate_fused twice (the CUDA graph of the
      round; the first turn captures it), generate again; then generate_ar
      and generate_ar_fused (its graph captured first). Every kernel's
@@ -88,7 +90,35 @@ Phases, one JSON line each on stdout:
      quantization through `save_params` / `load_params`, bit-equal; an
      engine state saved after 4 rounds and resumed, equal to the
      uninterrupted stream.
-Phases 4-6 run each configuration in a process of its own (`serve_child`,
+  9. batched   7B int8 at full width and depth with the committed thin
+     draft in int8, served by BatchedSpecEngine over 4 lanes (adapt_tree:
+     32-node trees a lane), max_seq_len 480 (512 base KV rows):
+     `batched`: generate_batch eager and generate_batch_fused (the gated
+     lane loop's CUDA graph) on 4 prompts x 128 tokens in turns (eager,
+     fused, fused, eager; fused lanes must equal eager lanes), beside solo
+     generate_fused on the same prompts in turns (B 4, B 1, B 1, B 4);
+     launches a batched round counted on the path must equal one lane's
+     round's (the lanes ride the rows, not the launches), and so must each
+     lane graph's replay; `batched_lossless`: every lane against its AR
+     stream and against its solo generate_fused stream under the near-tie
+     rule, the lanes that left their solo stream counted; `batched_serve`:
+     8 requests, budgets 32-192, fifo then lpt (the serve graph's refills
+     on the card), every stream against its AR stream, slot_utilization
+     and latency_rounds; `batched_prefix`: a 192-token shared prefix and 8
+     suffixes of 16-48 tokens, streams against the prefix-less serve's
+     under the near-tie rule, in fewer rounds; `batched_conversation`: two
+     conversations, two turns through a ConversationStore, turn 2 against
+     a solo resume_and_generate; `batched_profile`: one fused batch request
+     and one solo fused request under torch.profiler (idle share, ms a
+     round by family, kernels a round), peak memory. The kernel phase holds
+     the lanes' shapes: attention over 4 lanes at the verify (T 32, 512
+     rows), the draft context and a beam level (T 10, 768 rows), each with
+     four different live-row counts, lane b bit-equal to a one-lane launch
+     of it; int8 and nf4 at M 128 and 256 on 7B widths (the 4-lane verify
+     is 128 rows), int4 at M 128 and 256, int8 on the draft's widths at M
+     40 (4 lanes x 10), head top-k at T 4 and T 40.
+Phases 4-6 and 9 run each configuration in a process of its own
+(`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
 profiler sessions. Every line of phases 4-8 carries the card's name and
@@ -118,7 +148,7 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
 SEED = 0
-PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 3
+PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 2
 NEAR_TIE_GAP = 0.05
 PROFILE_TRIES = 3                # profiled requests before a short trace fails
 HEAD_START = 40                  # flushes queued before a timed loop (~4 ms)
@@ -239,10 +269,11 @@ EAGER_PROFILED = ("7b_int8", "13b_mixed", "7b_nf4")
 # configurations served: (tag, model, quant, requests, new tokens), then the
 # kernels whose launch count must be > 0 on generate, and on generate_ar
 CONFIGS = {
+    # 2 requests each (3 before the families' and the batched phases came
+    # in: the run's time)
     "7b_int8": ("7b", "int8", N_REQUESTS, NEW_TOKENS),
-    # 2 requests each since the families' phases came in (the run's time)
-    "13b_mixed": ("13b", "mixed", 2, NEW_TOKENS),
-    "7b_nf4": ("7b", "nf4", 2, NEW_TOKENS),
+    "13b_mixed": ("13b", "mixed", N_REQUESTS, NEW_TOKENS),
+    "7b_nf4": ("7b", "nf4", N_REQUESTS, NEW_TOKENS),
     "qwen2_7b_int8": ("qwen2", "int8", FAMILY_REQUESTS, FAMILY_NEW_TOKENS),
     "mixtral_8x7b_bf16": ("mixtral", "bf16", FAMILY_REQUESTS,
                           FAMILY_NEW_TOKENS),
@@ -261,6 +292,33 @@ ON_AR = {"7b_int8": ("int8_matmul", "tree_attention"),
          "7b_nf4": ("nf4_matmul", "tree_attention"),
          "qwen2_7b_int8": ("int8_matmul", "tree_attention"),
          "mixtral_8x7b_bf16": ("tree_attention",)}
+# the batched phase: 4 lanes of 7B int8 (adapt_tree: 32-node trees a lane),
+# max_seq 480 + 32 node rows = 512 base KV rows; serve budgets 32-192
+# (different per request); a 192-token shared prefix with suffixes of 16-48
+BATCHED_TAG = "batched_7b_int8"
+BATCH, BATCH_MAX_SEQ = 4, 480
+SERVE_BUDGETS = [32, 160, 64, 192, 48, 96, 128, 80]
+PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_NEW = 192, [16, 24, 32, 40, 48, 20, 28,
+                                                36], 48
+CONV_NEW, CONV_EXTRA = 48, 16
+INT8_SHAPES += (
+    [(f"base_{w}_M{m}", m, i, o) for m in (128, 256) for w, i, o in BASE_7B]
+    + [(f"draft_{w}_M40", 40, i, o)
+       for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
+                       ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
+                       ("w_out", 1024, 4096))])
+NF4_SHAPES += [(f"base_{w}_M{m}", m, i, o) for m in (128, 256)
+               for w, i, o in BASE_7B]
+INT4_SHAPES += [(f"7b_{w}_M{m}", m, i, o) for m in (128, 256)
+                for w, i, o in (("wq", 4096, 4096), ("w_gate", 4096, 11008))]
+HEAD_SHAPES += [("lanes4_root_T4", 4, 4096, 32000),
+                ("lanes4_beam_T40", 40, 4096, 32000)]
+# attention over 4 lanes: (name, lanes, nq, nkv, T, S, n_valid per lane),
+# early and late lanes side by side
+LANE_ATTN_SHAPES = [
+    ("lanes4_verify_T32", 4, 32, 32, 32, 512, [96, 200, 330, 500]),
+    ("lanes4_draft_ctx_T10", 4, 8, 8, 10, 768, [70, 190, 300, 460]),
+    ("lanes4_beam_T10", 4, 8, 8, 10, 768, [150, 270, 380, 600])]
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -294,6 +352,11 @@ DESCRIBE = {
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase line carries the wall clock at its
+    emission (`clock_s`, seconds since the epoch), so that the phases'
+    durations read off the output."""
+    if "phase" in obj:
+        obj = {**obj, "clock_s": round(time.time(), 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -569,6 +632,80 @@ def check_attention(dev, gen, flush, details):
                    lambda: F.scaled_dot_product_attention(
                        q, kr, vr, attn_mask=mask), flush, iters=10),
                "bound_ms": b, "bound_by": by}
+        details.append(row)
+        rows[name] = row
+        if not ok:
+            raise AssertionError(f"tree_attention disagrees at {name}: {row}")
+    return rows
+
+
+def check_attention_lanes(dev, gen, flush, details):
+    """Tree attention over the lanes of LANE_ATTN_SHAPES: one launch with a
+    (B, T, S) bias and a (B,) device n_valid against plain lane by lane,
+    lane b bit-equal to a one-lane launch of lane b, equal bits on two
+    launches; timed beside plain and SDPA (over the most rows a lane
+    reads, each lane's mask), bound over every lane's live rows. The old
+    kernel, `tree_attention_simt`, takes one lane (it is for comparison
+    only): these rows time the four one-lane launches of the new kernel
+    instead (`one_lane_launches_ms`)."""
+    import torch
+    import torch.nn.functional as F
+    from flowspec_tpu_torch.ops.tree_attention import (
+        attention_plan, kernel_keys, live_keys, tree_attention,
+        tree_attention_plain)
+    rows = {}
+    d = 128
+    for name, b, nq, nkv, t, s_max, n_valid in LANE_ATTN_SHAPES:
+        parts = [attention_inputs(gen, dev, nq, nkv, t, s_max, n, d)
+                 for n in n_valid]
+        q, k, v = (torch.cat([p[i] for p in parts]) for i in range(3))
+        bias = torch.stack([p[3] for p in parts])
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        before = tree_attention.launches
+        got = tree_attention(q, k, v, bias, nv)
+        again = tree_attention(q, k, v, bias, nv)
+        ones = [tree_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], bias[i],
+                               nv[i:i + 1]) for i in range(b)]
+        if tree_attention.launches != before + 2 + b:
+            raise AssertionError(f"tree_attention did not launch at {name}")
+        want = [tree_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     bias[i], live_keys(s_max, n))
+                for i, n in enumerate(n_valid)]
+        torch.cuda.synchronize()
+        err = max(float((got[i:i + 1].float() - w.float()).abs().max())
+                  for i, w in enumerate(want))
+        lane_bits = [bool(torch.equal(got[i:i + 1], o))
+                     for i, o in enumerate(ones)]
+        equal = bool(torch.equal(got, again))
+        ok = err <= 2e-2 and equal and all(lane_bits)
+        n_read = max(kernel_keys(s_max, n) for n in n_valid)
+        b_ms, by = bound_ms(
+            sum(2 * nkv * n * d * 2 + t * n * 4 for n in n_valid)
+            + b * 2 * nq * t * d * 2, sum(4.0 * nq * t * n * d
+                                          for n in n_valid))
+        kr = k[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
+        vr = v[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
+        mask = bias[:, None, :, :n_read].to(torch.bfloat16).contiguous()
+        row = {"kernel": "tree_attention", "shape": name, "lanes": b,
+               "nq": nq, "nkv": nkv, "T": t, "S": s_max,
+               "n_valid": n_valid,
+               "plan": attention_plan(nkv, nq // nkv, t, s_max,
+                                      lanes=b)._asdict(),
+               "max_abs_err": err, "equal_bits": equal,
+               "lane_equal_bits_to_one_lane_launch": lane_bits,
+               "tolerance": "2e-2 abs (bf16 outputs)", "ok": ok,
+               "ms": time_ms(lambda: tree_attention(q, k, v, bias, nv),
+                             flush),
+               "one_lane_launches_ms": time_ms(lambda: [tree_attention(
+                   q[i:i + 1], k[i:i + 1], v[i:i + 1], bias[i], nv[i:i + 1])
+                   for i in range(b)], flush),
+               "plain_ms": time_ms(
+                   lambda: tree_attention_plain(q, k, v, bias, nv.cpu()),
+                   flush, iters=5),
+               "library_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, kr, vr, attn_mask=mask), flush, iters=10),
+               "bound_ms": b_ms, "bound_by": by}
         details.append(row)
         rows[name] = row
         if not ok:
@@ -1376,6 +1513,265 @@ def bucket_and_force_runs(eng, prompts, ar_out, smi):
         raise AssertionError(f"force_accept=3: {f_new / f_rounds} a round")
 
 
+def make_batched_engine(dev):
+    """(BatchedSpecEngine over BATCH lanes, its 4 prompts, build seconds):
+    7B int8 at full width and depth and the committed thin draft in int8,
+    as `make_engine` builds them, max_seq_len BATCH_MAX_SEQ, adapt_tree on
+    (32-node trees a lane)."""
+    import dataclasses
+    from flowspec_tpu_torch.runtime import BatchedSpecEngine
+    eng, prompts, build_s = make_engine(dev, "7b", "int8", BATCH, NEW_TOKENS)
+    beng = BatchedSpecEngine(
+        eng.params, eng.draft,
+        dataclasses.replace(eng.cfg, max_seq_len=BATCH_MAX_SEQ),
+        batch_size=BATCH)
+    return beng, prompts, build_s
+
+
+def batch_turn(fn, prompts, new_tokens, **kw):
+    """One batched call: (outputs past the prompts, seconds, stats)."""
+    import torch
+    t0 = time.perf_counter()
+    outs, stats = fn(prompts, max_new_tokens=new_tokens, eos_token_id=-1,
+                     **kw)
+    torch.cuda.synchronize()
+    return ([o[len(p):] for o, p in zip(outs, prompts)],
+            time.perf_counter() - t0, stats)
+
+
+def random_prompts(vocab, lengths, seed):
+    import torch
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(3, vocab, (n,), generator=rng).tolist()
+            for n in lengths]
+
+
+def batched_config(dev, counters, smi):
+    """The batched phase (module docstring, 9) in its own process: returns
+    its launches over the counted turns and the profiled fused batch
+    request's device ms a round by family. Raises if fused lanes differ
+    from eager ones, if a lane or a served request leaves its AR stream
+    (or a lane its solo stream, or a prefixed stream the prefix-less one)
+    off a near-tie, if a batched round or replay launches other than one
+    lane's round, if the prefix saves no rounds, if a conversation does not
+    resume, or if a second serve captures a graph."""
+    import torch
+    from flowspec_tpu_torch.runtime import ConversationStore
+    beng, prompts, params_s = make_batched_engine(dev)
+    mc = beng.cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    beng.prefill(beng.init_state(), prompts[0])
+    torch.cuda.synchronize()
+    prefill = counts(counters)
+    expected = expected_per_round(beng)
+    b = len(prompts)
+    total = {n: 0 for n in counters}
+
+    def add(c):
+        for n in total:
+            total[n] += c[n]
+
+    # eager, fused (captures), then B 4 / B 1 fused in turns, then eager
+    zero(counters)
+    e_out, e_s, e_stats = batch_turn(beng.generate_batch, prompts,
+                                     NEW_TOKENS)
+    e_launches = counts(counters)
+    add(e_launches)
+    per_round = launches_per_round("batched", e_launches, prefill, b,
+                                   e_stats["rounds"], expected)
+    t0 = time.perf_counter()
+    f1_out, _, f1_stats = batch_turn(beng.generate_batch_fused, prompts,
+                                     NEW_TOKENS)
+    first_fused_s = time.perf_counter() - t0
+    serve_turn(beng.generate_fused, prompts[:1], NEW_TOKENS)  # B 1 capture
+    capture_s = sum(g.capture_s for g in graphs_of(beng, "lanes"))
+    zero(counters)
+    f_out, f_s, f_stats = batch_turn(beng.generate_batch_fused, prompts,
+                                     NEW_TOKENS)
+    f_launches = counts(counters)
+    add(f_launches)
+    solo_out, solo_s, _, solo_new, _ = serve_turn(beng.generate_fused,
+                                                  prompts, NEW_TOKENS)
+    _, solo2_s, _, solo2_new, _ = serve_turn(beng.generate_fused, prompts,
+                                             NEW_TOKENS)
+    f2_out, f2_s, _ = batch_turn(beng.generate_batch_fused, prompts,
+                                 NEW_TOKENS)
+    e2_out, e2_s, _ = batch_turn(beng.generate_batch, prompts, NEW_TOKENS)
+    check_graph_launches("batched", beng, "lanes", expected)
+    f_per_round = launches_per_round("batched fused", f_launches, prefill,
+                                     b, f_stats["rounds"], expected)
+    if not (f_out == e_out == f1_out == f2_out == e2_out
+            and f_stats["rounds"] == e_stats["rounds"]
+            == f1_stats["rounds"]):
+        raise AssertionError("batched: fused lanes differ from eager ones")
+    new = e_stats["new_tokens"]
+    batch_mem = torch.cuda.max_memory_allocated()
+    emit({"phase": "batched", "card": smi,
+          "model": "llama_7b int8 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": None, "lanes": b, "tree": {
+              "total_tokens": beng.cfg.tree.total_tokens,
+              "node_cap": beng.cfg.tree.node_cap,
+              "depth_cap": beng.cfg.tree.depth_cap},
+          "max_seq_len": beng.cfg.max_seq_len,
+          "base_kv_rows": beng.base_kv_len, "prompt_len": PROMPT_LEN,
+          "new_tokens": new, "rounds": e_stats["rounds"],
+          "accept_per_lane_round": new / (e_stats["rounds"] * b),
+          "turns": ["eager", "fused", "B1 fused", "B1 fused", "fused",
+                    "eager"],
+          "eager_tok_s": [new / e_s, new / e2_s],
+          "fused_tok_s": [new / f_s, new / f2_s],
+          "b1_fused_tok_s": [solo_new / sum(solo_s),
+                             solo2_new / sum(solo2_s)],
+          "first_fused_s": first_fused_s, "graph_capture_s": capture_s,
+          "equal_to_eager": True, "param_build_s": params_s,
+          "launches": e_launches, "prefill_launches": prefill,
+          "launches_per_round": per_round,
+          "fused_launches_per_replay": f_per_round,
+          "expected_per_round": expected,
+          "max_memory_allocated": batch_mem})
+
+    # lossless: every lane against its AR stream and its solo stream
+    ar_out, ar_s, _, ar_new, _ = serve_turn(beng.generate_ar_fused, prompts,
+                                            NEW_TOKENS)
+    matches, faults = divergences(beng, prompts, e_out, ar_out)
+    s_matches, s_faults = divergences(beng, prompts, e_out, solo_out)
+    emit({"phase": "batched_lossless", "card": smi,
+          "match_fraction_vs_ar": matches, "first_divergences_vs_ar": faults,
+          "match_fraction_vs_solo": s_matches,
+          "first_divergences_vs_solo": s_faults,
+          "lanes_off_their_solo_stream": len(s_faults),
+          "near_tie_gap": NEAR_TIE_GAP, "ar_tok_s": ar_new / sum(ar_s)})
+    check_lossless("batched vs AR", faults)
+    check_lossless("batched vs solo", s_faults)
+
+    # serve: 8 requests, different budgets, fifo then lpt
+    sprompts = random_prompts(mc.vocab_size, [PROMPT_LEN] * 8, SEED + 1)
+    s_ar = [beng.generate_ar_fused(p, max_new_tokens=m, eos_token_id=-1)[0][
+        len(p):] for p, m in zip(sprompts, SERVE_BUDGETS)]
+    beng.serve(sprompts[:2], max_new_tokens=4, eos_token_id=-1)  # capture
+    serve_graphs = dict(beng._graphs)
+    serve_lines = {}
+    for policy in ("fifo", "lpt"):
+        zero(counters)
+        out, sec, st = batch_turn(beng.serve, sprompts, SERVE_BUDGETS,
+                                  queue_order=policy)
+        launches = counts(counters)
+        add(launches)
+        if any(launches[n] != st["rounds"] * expected.get(n, 0)
+               for n in launches):
+            raise AssertionError(f"batched serve {policy}: {launches} over "
+                                 f"{st['rounds']} rounds, expected "
+                                 f"{expected} a round")
+        m, fl = divergences(beng, sprompts, out, s_ar)
+        check_lossless(f"batched serve {policy}", fl)
+        serve_lines[policy] = {
+            "tok_s": st["new_tokens"] / sec, "seconds": sec,
+            "rounds": st["rounds"], "per_request": st["per_request"],
+            "latency_rounds": st["latency_rounds"],
+            "admit_rounds": st["admit_rounds"],
+            "slot_utilization": st["slot_utilization"],
+            "accept_per_round": st["accept_per_round"],
+            "match_fraction_vs_ar": m, "first_divergences_vs_ar": fl}
+    check_graph_launches("batched serve", beng, "serve", expected)
+    if beng._graphs != serve_graphs:
+        raise AssertionError("batched serve: a second serve captured a "
+                             "graph")
+    emit({"phase": "batched_serve", "card": smi, "requests": 8,
+          "budgets": SERVE_BUDGETS, "prompt_len": PROMPT_LEN,
+          "serve_graphs": len(graphs_of(beng, "serve")),
+          "serve_capture_s": sum(g.capture_s
+                                 for g in graphs_of(beng, "serve")),
+          **serve_lines})
+
+    # shared prefix: 192 tokens, 8 suffixes of 16-48
+    prefix = random_prompts(mc.vocab_size, [PREFIX_LEN], SEED + 2)[0]
+    pprompts = [prefix + sfx for sfx in random_prompts(
+        mc.vocab_size, PREFIX_SUFFIXES, SEED + 3)]
+    plain, plain_s, plain_st = batch_turn(beng.serve, pprompts, PREFIX_NEW)
+    t0 = time.perf_counter()
+    beng._prefix_template(prefix, SEED)
+    template_s = time.perf_counter() - t0
+    zero(counters)
+    pre, pre_s, pre_st = batch_turn(beng.serve, pprompts, PREFIX_NEW,
+                                    shared_prefix=prefix)
+    add(counts(counters))
+    m, fl = divergences(beng, pprompts, pre, plain)
+    emit({"phase": "batched_prefix", "card": smi, "prefix_len": PREFIX_LEN,
+          "suffix_lens": PREFIX_SUFFIXES, "new_tokens": PREFIX_NEW,
+          "rounds_without_prefix": plain_st["rounds"],
+          "rounds_with_prefix": pre_st["rounds"],
+          "tok_s_without_prefix": plain_st["new_tokens"] / plain_s,
+          "tok_s_with_prefix": pre_st["new_tokens"] / pre_s,
+          "template_s": template_s,
+          "latency_rounds_without_prefix": plain_st["latency_rounds"],
+          "latency_rounds_with_prefix": pre_st["latency_rounds"],
+          "match_fraction_vs_prefixless": m,
+          "first_divergences_vs_prefixless": fl})
+    check_lossless("batched prefix", fl)
+    if pre_st["rounds"] >= plain_st["rounds"]:
+        raise AssertionError("batched prefix: no rounds saved")
+
+    # two conversations, two turns through a ConversationStore
+    store = ConversationStore()
+    ids = ["a", "b"]
+    t1 = prompts[:2]
+    o1, _, st1 = batch_turn(beng.serve, t1, CONV_NEW, conversations=store,
+                            conversation_ids=ids, rounds_per_dispatch=16)
+    extras = random_prompts(mc.vocab_size, [CONV_EXTRA] * 2, SEED + 4)
+    t2 = [p + o + x for p, o, x in zip(t1, o1, extras)]
+    o2, _, st2 = batch_turn(beng.serve, t2, CONV_NEW, conversations=store,
+                            conversation_ids=ids, rounds_per_dispatch=16)
+    refs, how = [], []
+    for p, o, x, full in zip(t1, o1, extras, t2):
+        hist, _, state = beng.generate(p, max_new_tokens=CONV_NEW,
+                                       eos_token_id=-1, return_state=True)
+        if hist == p + o:
+            ref, _ = beng.resume_and_generate(state, hist, x,
+                                              max_new_tokens=CONV_NEW,
+                                              eos_token_id=-1)
+            how.append("resume_and_generate")
+        else:             # turn 1 left the solo stream at a near-tie
+            ref, _ = beng.generate(full, max_new_tokens=CONV_NEW,
+                                   eos_token_id=-1)
+            how.append("generate over the whole turn-2 prompt")
+        refs.append(ref[len(full):])
+    m, fl = divergences(beng, t2, o2, refs)
+    emit({"phase": "batched_conversation", "card": smi, "conversations": 2,
+          "turn_new_tokens": CONV_NEW, "extra_tokens": CONV_EXTRA,
+          "resumed_turns": st2.get("resumed_turns"),
+          "turn1_rounds": st1["rounds"], "turn2_rounds": st2["rounds"],
+          "turn2_latency_rounds": st2["latency_rounds"],
+          "reference": how, "match_fraction": m, "first_divergences": fl})
+    check_lossless("batched conversation", fl)
+    if st2.get("resumed_turns") != 2:
+        raise AssertionError(f"batched conversation: {st2}")
+
+    # one fused batch request and one solo fused request under the profiler
+    prefill_b = {n: b * c for n, c in prefill.items()}
+    prof = confirmed_profile(
+        "batched fused",
+        lambda p, max_new_tokens, eos_token_id: beng.generate_batch_fused(
+            prompts, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id),
+        prompts[0], NEW_TOKENS, f_per_round, prefill_b)
+    prof_solo = confirmed_profile("batched solo fused", beng.generate_fused,
+                                  prompts[0], NEW_TOKENS, f_per_round,
+                                  prefill)
+    emit({"phase": "batched_profile", "card": smi,
+          "batch_fused_profile": prof, "solo_fused_profile": prof_solo,
+          "batch_device_idle_share": prof["device_idle_share"],
+          "solo_device_idle_share": prof_solo["device_idle_share"],
+          "batch_kernels_per_round": prof["kernels_per_round"],
+          "solo_kernels_per_round": prof_solo["kernels_per_round"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "kv_bytes_a_lane": 2 * beng.base_kv_len * mc.num_hidden_layers
+          * mc.num_key_value_heads * mc.head_dim_ * 2})
+    # only a fused batch request was profiled: no eager numbers
+    return total, {"fused": prof["device_ms_per_round_by_family"]}
+
+
 def lm_head_check(dev, gen, smi):
     """lm_head_logits at verify width (81 rows) at 7B: within f32 summation
     order of the f32 product, and one call's peak memory below one f32 copy
@@ -1632,8 +2028,10 @@ def old_entry(kernel, rows, launches):
             "source": f"flowspec_tpu_torch/csrc/{kernel}.cu",
             "comparison_only": True, "launches": launches[OLD[kernel]],
             "ms": main["old_ms"],
+            # the lane rows have none: the old kernel takes one lane
             "max_abs_err_vs_new": max(r["vs_old_max_abs_err"]
-                                      for r in rows.values())}
+                                      for r in rows.values()
+                                      if "vs_old_max_abs_err" in r)}
 
 
 def top2_gap(eng, prefix) -> float:
@@ -1659,6 +2057,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
     dev = torch.device("cuda")
     kernel_rows = json.loads(Path(rows_path).read_text())
     smi = nvidia_smi()
+    if tag == BATCHED_TAG:
+        launches, profiled = batched_config(dev, launch_counts(), smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, profiled]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -1714,7 +2116,9 @@ def main() -> int:
     details = []
     kernel_rows = {
         "int8_matmul": check_int8(dev, gen, flush, details),
-        "tree_attention": check_attention(dev, gen, flush, details),
+        "tree_attention": {**check_attention(dev, gen, flush, details),
+                           **check_attention_lanes(dev, gen, flush,
+                                                   details)},
         "head_topk": check_head(dev, gen, flush, details),
         "nf4_matmul": check_packed4("nf4_matmul", NF4_SHAPES, dev, gen,
                                     flush, details),
@@ -1739,7 +2143,7 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in CONFIGS:
+    for tag in list(CONFIGS) + [BATCHED_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1772,9 +2176,11 @@ def main() -> int:
          # per configuration: one round's launches x ms, bounds, old ms
          "round_ms": {t: v[n] for t, v in sums.items() if n in v},
          # per configuration: device ms a round of the kernel's family
-         # under torch.profiler, eager and inside the replayed graph
+         # under torch.profiler, eager and inside the replayed graph, for
+         # the requests profiled where the family ran (nothing is filled
+         # in for a request that was not profiled)
          "profiled_round_ms": {
-             t: {m: p[m].get(n, 0.0) for m in ("eager", "fused")}
+             t: {m: fam[n] for m, fam in p.items() if n in fam}
              for t, p in profiled.items()},
          "ar_step_ms": {t: v[n] for t, v in ar_sums.items() if n in v},
          # a redesigned kernel's earlier version, an entry point of the same

@@ -9,6 +9,12 @@ the two packed 4-bit containers have the same fields, dtypes and shapes, so
 the caller, who knows the JAX class, names the kind. This module imports no
 JAX: the tests do the JAX -> numpy step.
 
+Lane states: the JAX package stacks B lanes' states in front ((B, L, 1, H,
+S, D) KV, (B,) lengths, (B, 1, CTX, H) pending hiddens); the port keeps the
+lane inside the cache ((L, B, H, S, D) KV, (B,) lengths) and the pending
+hiddens as (B, CTX, H). `lane_state` turns the one into the other and
+`lane_state_numpy` back.
+
 Every function builds on the engine's device: `cuda` unless the caller
 names another (`device="cpu"` for the plain PyTorch versions of the
 kernels); without a card the default raises (`runtime/engine.py
@@ -100,3 +106,57 @@ def kv_cache(d: dict, device=None) -> KVCache:
     device = resolve_device(device)
     return KVCache(k=tensor(d["k"], device), v=tensor(d["v"], device),
                    length=device_scalar(int(d["length"]), device))
+
+
+def lane_cache(d: dict, device=None) -> KVCache:
+    """A JAX lane-stacked cache {"k", "v": (B, L, 1, H, S, D), "length":
+    (B,)} as the port's (L, B, H, S, D) lane cache with (B,) lengths."""
+    device = resolve_device(device)
+    k = np.asarray(d["k"])
+    move = lambda a: np.moveaxis(np.asarray(a)[:, :, 0], 0, 1)
+    return KVCache(k=tensor(move(k), device), v=tensor(move(d["v"]), device),
+                   length=tensor(np.asarray(d["length"], np.int32), device))
+
+
+def lane_state(d: dict, seeds=None, device=None):
+    """A JAX lane-stacked `EngineState` (numpy dict; its "key" is ignored)
+    as the port's lane `EngineState`, each lane's draw stream seeded from
+    `seeds` (default 0, 1, ...)."""
+    from flowspec_tpu_torch.runtime.engine import EngineState
+    from flowspec_tpu_torch.tree.sampling import lane_rng
+    device = resolve_device(device)
+    i32 = lambda a: tensor(np.asarray(a, np.int32), device)
+    b = np.asarray(d["commit_len"]).shape[0]
+    seeds = list(range(b)) if seeds is None else list(seeds)
+    return EngineState(
+        base_cache=lane_cache(d["base_cache"], device),
+        draft_cache=lane_cache(d["draft_cache"], device),
+        commit_len=i32(d["commit_len"]), root_token=i32(d["root_token"]),
+        pending_tokens=i32(d["pending_tokens"]),
+        pending_hidden=tensor(np.asarray(d["pending_hidden"])[:, 0], device),
+        n_pending=i32(d["n_pending"]),
+        root_hidden=tensor(d["root_hidden"], device),
+        rng=lane_rng(torch.tensor(seeds).to(device)))
+
+
+def lane_state_numpy(state) -> dict:
+    """A port lane `EngineState` in the JAX package's lane-stacked layout,
+    as numpy (no "key": the draw streams have no JAX counterpart)."""
+    def arr(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    def cache(c: KVCache) -> dict:
+        stack = lambda x: np.moveaxis(arr(x), 1, 0)[:, :, None]
+        return {"k": stack(c.k), "v": stack(c.v), "length": arr(c.length)}
+    return {"base_cache": cache(state.base_cache),
+            "draft_cache": cache(state.draft_cache),
+            "commit_len": arr(state.commit_len),
+            "root_token": arr(state.root_token),
+            "pending_tokens": arr(state.pending_tokens),
+            "pending_hidden": arr(state.pending_hidden)[:, None],
+            "n_pending": arr(state.n_pending),
+            "root_hidden": arr(state.root_hidden)}

@@ -6,16 +6,21 @@
 // O = softmax(Q K^T * D^-1/2 + bias) V for q (nkv*G*T, D) grouped per KV
 // head (G = nq / nkv query heads share one KV head; row r of a group is
 // query head r / T at position r % T), k/v (nkv, S, D) bf16, bias (T, S)
-// f32 -> O bf16 in q's layout.
+// f32 -> O bf16 in q's layout, for each of `lanes` independent lanes
+// (requests served together) stacked in front: q (lanes, nkv*G*T, D), k/v
+// (lanes, nkv, S, D), bias (lanes, T, S), one live-row count a lane. The
+// lane is folded into grid z (z = lane * nkv + head), so a lane's rows are
+// computed by the same blocks, splits and order as a one-lane launch.
 //
 // Numerics follow the Pallas kernel: f32 scores (scale, then bias), online
 // softmax (m, l, acc) with P rounded to bf16 before the PV product and l
 // summed from the f32 P, f32 accumulation, acc / max(l, 1e-30) at the end.
 //
 // Live keys. The grid covers n_keys KV rows (a multiple of 64, at most S).
-// Given a device pointer `n_valid` (the live rows, an int32 the serving
-// path keeps on the card so that a replayed CUDA graph sees this round's
-// value), every block reads it and works through the first
+// Given a device pointer `n_valid` (the live rows, one int32 a lane, which
+// the serving path keeps on the card so that a replayed CUDA graph sees
+// this round's values), every block reads its lane's and works through the
+// first
 // ceil(n_valid / 64) 64-key tiles only (at least one, at most n_keys / 64);
 // a split whose tiles all lie past them is empty. Given a null pointer, all
 // n_keys rows are live (the caller sized the grid to them). Under the
@@ -199,11 +204,13 @@ __device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
 
 // Requires D in {64, 128}, n_keys % KT == 0, n_keys <= S, 16-byte aligned
 // q/k/v/bias/out, S % 4 == 0, blockDim.x == 32 * warps (warps <=
-// MAX_WARPS), gridDim = (splits, ceil(G*T / (16 * warps)), nkv) launched as
+// MAX_WARPS), gridDim = (splits, ceil(G*T / (16 * warps)), lanes * nkv)
+// launched as
 // clusters of (splits, 1, 1), splits <= MAX_SPLITS, every split non-empty
 // at n_keys: (splits - 1) * tps < n_keys / KT <= splits * tps, and
 // smem_bytes<D>(warps, tps > 1 ? 2 : 1) of dynamic shared memory. `n_valid`
-// (device, may be null) cuts the live tiles, emptying the last splits.
+// (device, one a lane, may be null) cuts the live tiles, emptying the last
+// splits.
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -211,8 +218,8 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ v,
                           const float* __restrict__ bias,
                           const int* __restrict__ n_valid,
-                          __nv_bfloat16* __restrict__ out, int G, int T,
-                          int S, int n_keys, int tps, float scale) {
+                          __nv_bfloat16* __restrict__ out, int nkv, int G,
+                          int T, int S, int n_keys, int tps, float scale) {
   constexpr int DP = D + 8;     // bf16 row stride of a K / V / Q tile
   constexpr int DA = D + 8;     // f32 row stride of the combine area
   constexpr int KS = D / 16;    // k16 steps of QK^T
@@ -225,13 +232,16 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int R = nthreads / 2;                       // 16 rows a warp
   const int split = blockIdx.x, splits = gridDim.x;
-  const int h = blockIdx.z;
+  // h: the (lane, KV head) pair; q, k, v and out are contiguous over it
+  const int h = blockIdx.z, lane_id = blockIdx.z / nkv;
   const int rows = G * T;
   const int r0 = blockIdx.y * R;
   const bool live = r0 + warp * 16 < rows;
   const int n_tiles =
-      n_valid == nullptr ? n_keys / KT
-                         : min(n_keys / KT, max(1, (*n_valid + KT - 1) / KT));
+      n_valid == nullptr
+          ? n_keys / KT
+          : min(n_keys / KT, max(1, (n_valid[lane_id] + KT - 1) / KT));
+  bias += (size_t)lane_id * T * S;
   const int t_begin = split * tps;
   const int nt = min(t_begin + tps, n_tiles) - t_begin;
   const int sbytes = stage_bytes<D>(nwarps);
@@ -528,7 +538,8 @@ tree_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias,
-               const void* n_valid, void* out, int nkv, int G, int T, int S,
+               const void* n_valid, void* out, int lanes, int nkv, int G,
+               int T, int S,
                int n_keys, int warps,
                int splits, int tps, float scale, cudaStream_t st) {
   // dynamic shared memory above 48 KB is an opt-in per kernel and device,
@@ -545,7 +556,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* bias,
     if (dev >= 0 && dev < 64) allowed[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (G * T + 16 * warps - 1) / (16 * warps), nkv);
+  cfg.gridDim =
+      dim3(splits, (G * T + 16 * warps - 1) / (16 * warps), lanes * nkv);
   cfg.blockDim = dim3(32 * warps);
   cfg.dynamicSmemBytes = smem_bytes<D>(warps, tps > 1 ? 2 : 1);
   cfg.stream = st;
@@ -562,8 +574,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* bias,
                          static_cast<const __nv_bfloat16*>(v),
                          static_cast<const float*>(bias),
                          static_cast<const int*>(n_valid),
-                         static_cast<__nv_bfloat16*>(out), G, T, S, n_keys,
-                         tps, scale);
+                         static_cast<__nv_bfloat16*>(out), nkv, G, T, S,
+                         n_keys, tps, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -707,21 +719,23 @@ extern "C" int tree_attention_set_stamps(void* buf) {
 }
 #endif
 
-// q (nkv*G*T, D), k/v (nkv, S, D) bf16, bias (T, S) f32 -> out like q, by
-// the plan (warps, splits, tiles_per_split) of `ops/tree_attention.py
-// attention_plan` for a grid of n_keys keys; n_valid (a device int32, or
-// null for n_keys) the live rows. Needs D in {64, 128}, n_keys % 64 == 0,
+// q (lanes, nkv*G*T, D), k/v (lanes, nkv, S, D) bf16, bias (lanes, T, S)
+// f32 -> out like q, by the plan (warps, splits, tiles_per_split) of
+// `ops/tree_attention.py attention_plan` for a grid of n_keys keys; n_valid
+// (lanes device int32s, or null for n_keys) the live rows of each lane.
+// Needs lanes * nkv <= 65535, D in {64, 128}, n_keys % 64 == 0,
 // n_keys <= S, S % 4 == 0 and 16-byte aligned q/k/v/bias/out (the Python
 // wrapper checks). Returns the first CUDA error, or cudaErrorInvalidValue
 // for a plan the kernel does not take.
 extern "C" int tree_attention(const void* q, const void* k, const void* v,
                               const void* bias, const void* n_valid,
-                              void* out, int nkv, int G,
+                              void* out, int lanes, int nkv, int G,
                               int T, int S, int D, int n_keys, int warps,
                               int splits, int tiles_per_split, float scale,
                               void* stream) {
   const int n_tiles = n_keys / KT;
-  if (nkv < 1 || G < 1 || T < 1 || n_keys < KT || n_keys % KT ||
+  if (lanes < 1 || nkv < 1 || (long long)lanes * nkv > 65535 || G < 1 ||
+      T < 1 || n_keys < KT || n_keys % KT ||
       n_keys > S || warps < 1 || warps > MAX_WARPS || splits < 1 ||
       splits > MAX_SPLITS || tiles_per_split < 1 ||
       (long long)splits * tiles_per_split < n_tiles ||
@@ -729,15 +743,15 @@ extern "C" int tree_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch_mma<128>(q, k, v, bias, n_valid, out, nkv, G, T, S, n_keys,
-                           warps, splits, tiles_per_split, scale, st);
+    return launch_mma<128>(q, k, v, bias, n_valid, out, lanes, nkv, G, T, S,
+                           n_keys, warps, splits, tiles_per_split, scale, st);
   if (D == 64)
-    return launch_mma<64>(q, k, v, bias, n_valid, out, nkv, G, T, S, n_keys,
-                          warps, splits, tiles_per_split, scale, st);
+    return launch_mma<64>(q, k, v, bias, n_valid, out, lanes, nkv, G, T, S,
+                          n_keys, warps, splits, tiles_per_split, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The earlier kernel: same operands, no plan. Needs D in {64, 128},
+// The earlier kernel: the operands of one lane, no plan. Needs D in {64, 128},
 // n_keys % 32 == 0, n_keys <= S, 16-byte aligned q/k/v. Returns
 // cudaGetLastError().
 extern "C" int tree_attention_simt(const void* q, const void* k,

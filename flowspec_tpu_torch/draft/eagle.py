@@ -22,7 +22,7 @@ from flowspec_tpu_torch.config import ModelConfig
 from flowspec_tpu_torch.models.bias import prefill_bias
 from flowspec_tpu_torch.models.kv_cache import KVCache, device_scalar
 from flowspec_tpu_torch.models.llama import (
-    QUANT_KINDS, QUANTIZERS, attention_block, rms_norm,
+    QUANT_KINDS, QUANTIZERS, attention_block, kv_write, rms_norm,
 )
 from flowspec_tpu_torch.ops.quant import qmatmul
 
@@ -77,10 +77,14 @@ def project_out(p: EagleParams, x: torch.Tensor,
 
 def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
                 positions: torch.Tensor, bias: torch.Tensor, write_start,
-                cfg: ModelConfig) -> torch.Tensor:
-    """x (1, T, W) already fc-fused; no input RMSNorm. k/v_cache are the
-    draft layer's (1, nkv, S, D) buffers, appended in place at
-    `write_start` (host int or device scalar)."""
+                cfg: ModelConfig,
+                live: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, T, W) already fc-fused; no input RMSNorm. k/v_cache are the
+    draft layer's (B, nkv, S, D) buffers, appended in place at
+    `write_start` (host int, device scalar or (B,) per lane; `live` as in
+    `models/kv_cache.py`)."""
+    if live is not None:
+        write_start = kv_write(write_start, x.shape[1], k_cache, live)
     res = x
     x = res + attention_block(x, p.wq, p.wk, p.wv, p.wo, k_cache, v_cache,
                               positions, bias, write_start, cfg)
@@ -115,22 +119,27 @@ def quantize_eagle_params(p: EagleParams, kind: str) -> EagleParams:
 
 def draft_context_forward(p: EagleParams, cache: KVCache,
                           tokens: torch.Tensor, hidden: torch.Tensor,
-                          start, n_valid, cfg: ModelConfig):
+                          start, n_valid, cfg: ModelConfig,
+                          live: torch.Tensor | None = None):
     """Advance the draft KV over context pairs (token_{i+1}, base_hidden_i).
 
     tokens (T,), hidden (1, T, H) padded to a static T; pairs [0, n_valid)
-    are real; `start` and `n_valid` are host ints or device scalars. Returns
-    (out_hidden (1, T, H), cache with length start + n_valid — the
+    are real; `start` and `n_valid` are host ints or device scalars. Per
+    lane: tokens (B, T), hidden (B, T, H), (B,) start and n_valid, each
+    lane over its own draft KV (`live` as in `models/kv_cache.py`). Returns
+    (out_hidden (B, T, H), cache with length start + n_valid — the
     reference's `stable_kv`).
     """
     dc = draft_view(p, cfg)
-    t = tokens.shape[0]
+    t = tokens.shape[-1]
     dev = tokens.device
     start = device_scalar(start, dev)
-    x = fuse(p, tokens[None], hidden)
-    positions = start + torch.arange(t, device=dev)
+    x = fuse(p, tokens.reshape(-1, t), hidden)
+    steps = torch.arange(t, device=dev)
+    positions = start[:, None] + steps if start.dim() else start + steps
     bias = prefill_bias(start, t, cache.max_len, device=dev)
-    out = eagle_layer(x, p, cache.k[0], cache.v[0], positions, bias, start, dc)
+    out = eagle_layer(x, p, cache.k[0], cache.v[0], positions, bias, start,
+                      dc, live)
     return project_out(p, out, hidden), cache.with_length(start + n_valid)
 
 

@@ -19,14 +19,16 @@ from flowspec_tpu_torch.models.mixtral import (
 )
 
 
-def model_forward(params, cache, hidden, positions, bias, write_start, cfg):
+def model_forward(params, cache, hidden, positions, bias, write_start, cfg,
+                  live=None):
     """The base model's forward for the family of `params`
-    (`flowspec_tpu/models/__init__.py:21-28`): (hidden, cache)."""
+    (`flowspec_tpu/models/__init__.py:21-28`): (hidden, cache). Lanes and
+    `live` as in `llama_forward`."""
     if isinstance(params, MixtralParams):
         return mixtral_forward(params, cache, hidden, positions, bias,
-                               write_start, cfg)
+                               write_start, cfg, live)
     return llama_forward(params, cache, hidden, positions, bias,
-                         write_start, cfg)
+                         write_start, cfg, live)
 
 
 __all__ = [

@@ -11,12 +11,13 @@ name (`LlamaParams`, `LlamaLayerParams`, `MixtralParams`,
 `Int4Tensor`, `KVCache`, `EngineState`); the JAX pipeline's `PipeState`
 has no counterpart until the pipeline is ported, and is refused.
 
-An engine state's 0-d lengths are saved as 0-d int32 leaves, and its
-sampling generator as the bytes of `torch.Generator.get_state()` (field
-`generator`); it loads on a device of the type it was saved from. A state
-saved by the JAX package carries a PRNG key (field `key`, its raw uint32
-key data) instead: it seeds a fresh generator, so a greedy state resumes
-token for token, while `jax.random`'s draws of a stochastic one are not
+An engine state is saved with its lane axis ((B,) lengths) and its draw
+streams (field `rng`, (B, 2) int64). A one-request state saved by the JAX
+package has 0-d lengths and a PRNG key (field `key`, its raw uint32 key
+data) instead, and a port state saved before the lane axis has 0-d lengths
+and the bytes of a `torch.Generator` state (field `generator`): either
+loads as one lane whose draw stream is seeded from those words, so a greedy
+state resumes token for token, while the draws of a stochastic one are not
 reproduced.
 """
 
@@ -36,6 +37,7 @@ from flowspec_tpu_torch.models.mixtral import (
     MixtralLayerParams, MixtralParams,
 )
 from flowspec_tpu_torch.ops.quant import Int4Tensor, Int8Tensor, NF4Tensor
+from flowspec_tpu_torch.tree.sampling import lane_rng
 
 
 def _classes() -> dict:
@@ -55,8 +57,6 @@ def _encode(obj, leaves: dict, prefix: str):
                 "fields": {f.name: _encode(getattr(obj, f.name), leaves,
                                            f"{prefix}.{f.name}")
                            for f in dataclasses.fields(obj)}}
-    if isinstance(obj, torch.Generator):
-        obj = obj.get_state()
     leaves[prefix] = obj.detach().cpu().contiguous()
     return {"__leaf__": prefix}
 
@@ -71,27 +71,38 @@ def _decode(node, load_leaf, device):
     if name not in classes:
         raise ValueError(f"checkpoint: no counterpart of {name} in the port")
     fields = dict(node["fields"])
-    gen = key = None
+    seed_words = None
     if name == "EngineState":
-        # the sampling generator: the port's saved state, or a JAX key
-        gen, key = fields.pop("generator", None), fields.pop("key", None)
+        # a JAX key, or an earlier port state's generator bytes
+        key, gen = fields.pop("key", None), fields.pop("generator", None)
+        seed_words = key if key is not None else gen
     out = {k: _decode(v, load_leaf, device) for k, v in fields.items()}
     if name == "EngineState":
-        out["generator"] = _generator(gen, key, load_leaf, device)
+        out = _one_lane(out, seed_words, load_leaf, device)
     return classes[name](**out)
 
 
-def _generator(gen, key, load_leaf, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    if gen is not None:
-        g.set_state(load_leaf(gen["__leaf__"]))
-    elif key is not None:
-        words = load_leaf(key["__leaf__"]).reshape(-1).tolist()
+def _one_lane(f: dict, seed_words, load_leaf, device) -> dict:
+    """An engine state's fields with its lane axis: a one-request state
+    (0-d lengths) becomes one lane, with a draw stream seeded from the
+    words of `seed_words` (a leaf) when it has no `rng`."""
+    if f["commit_len"].dim() == 0:
+        one = lambda x: x.reshape(1)
+        for c in ("base_cache", "draft_cache"):
+            f[c] = f[c].with_length(one(f[c].length))
+        for k in ("commit_len", "root_token", "n_pending"):
+            f[k] = one(f[k])
+        f["pending_tokens"] = f["pending_tokens"][None]
+        f["root_hidden"] = f["root_hidden"][None]
+    if "rng" not in f:
         seed = 0
-        for w in words:
-            seed = (seed << 32 | (w & 0xFFFFFFFF)) & (2 ** 63 - 1)
-        g.manual_seed(seed)
-    return g
+        if seed_words is not None:
+            for w in load_leaf(seed_words["__leaf__"]).reshape(-1).tolist():
+                seed = (seed * 0x100000001B3 ^ (w & 0xFFFFFFFF)) \
+                    & (2 ** 63 - 1)
+        f["rng"] = lane_rng(torch.full((1,), seed, dtype=torch.int64,
+                                       device=device))
+    return f
 
 
 def save_params(params, out_dir: str) -> None:
@@ -131,11 +142,11 @@ def load_params(out_dir: str, device=None):
 
 def save_state(state, out_dir: str) -> None:
     """Persist a mid-generation `EngineState` (KV caches, pending draft
-    pairs, lengths, the sampling generator) for resume."""
+    pairs, lengths, the draw streams) for resume."""
     save_params(state, out_dir)
 
 
 def load_state(out_dir: str, device=None):
     """An `EngineState` saved by the port's or the JAX package's
-    `save_state` (see the module's note on the generator)."""
+    `save_state` (see the module's note on the draw streams)."""
     return load_params(out_dir, device)

@@ -11,6 +11,12 @@ follow the JAX package: rms_norm and rope in f32 then cast, probs cast to
 q's dtype. Write starts are host ints or 0-d device tensors: the K/V rows
 and the attention's live-row count derive from them on the device
 (`kv_write`), so a replayed CUDA graph follows each round's lengths.
+
+Lanes: a (B, T, H) chunk runs B requests at once, each over its own rows of
+the (L, B, nkv, S, D) cache, with (B, T) positions, a (B, T, S) bias and a
+(B,) write start. Every projection sees the B*T rows as one matrix, the
+K/V append is one scatter over all lanes, and one attention launch a layer
+serves them all (`ops/tree_attention.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import NamedTuple
 
 from flowspec_tpu_torch.config import ModelConfig
 from flowspec_tpu_torch.models.kv_cache import (
-    KVCache, device_scalar, write_rows,
+    KVCache, device_scalar, flat_rows, lane_tensor, write_rows,
 )
 from flowspec_tpu_torch.ops.quant import (
     NF4_BLOCK, Int4Tensor, Int8Tensor, NF4Tensor, matmul_f32_out, qmatmul,
@@ -75,39 +81,46 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
-    """HF-style rotary: x (B, H, T, D), positions (T,) int."""
+    """HF-style rotary: x (B, H, T, D), positions (T,) or (B, T) int."""
     d = x.shape[-1]
     inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                              device=x.device) / d))
-    ang = positions.float()[:, None] * inv_freq[None, :]       # (T, D/2)
-    cos = torch.cat([ang.cos(), ang.cos()], dim=-1)[None, None]
-    sin = torch.cat([ang.sin(), ang.sin()], dim=-1)[None, None]
+    ang = positions.float()[..., None] * inv_freq             # (.., T, D/2)
+    lead = (slice(None), None) if positions.dim() == 2 else (None, None)
+    cos = torch.cat([ang.cos(), ang.cos()], dim=-1)[lead]
+    sin = torch.cat([ang.sin(), ang.sin()], dim=-1)[lead]
     x1, x2 = x.chunk(2, dim=-1)
     rotated = torch.cat([-x2, x1], dim=-1)
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
 def attention(q, k_all, v_all, bias, n_valid=None):
-    """q (1, nq, T, D); k_all/v_all (1, nkv, S, D); bias (T, S) additive;
-    `n_valid` live KV rows (rows at or past it carry a -1e9 bias), a host
-    int or a device scalar. The tree-attention kernel on a CUDA tensor, its
-    plain version on the CPU."""
+    """q (B, nq, T, D); k_all/v_all (B, nkv, S, D); bias (T, S) or (B, T,
+    S) additive; `n_valid` live KV rows (rows at or past it carry a -1e9
+    bias), a host int, a device scalar or one a lane. The tree-attention
+    kernel on a CUDA tensor, its plain version on the CPU."""
     return tree_attention(q, k_all, v_all, bias.float(), n_valid)
 
 
 class KVWrite(NamedTuple):
-    """Where a T-token chunk goes in an S-row cache: the rows (clamped
-    like `dynamic_update_slice`) and the live rows after the write."""
-    rows: torch.Tensor       # (T,) int64
-    n_valid: torch.Tensor    # () int32
+    """Where a T-token chunk goes in one layer's (B, nkv, S, D) cache: the
+    rows of every lane and head in the cache viewed as (B*nkv*S, D) rows
+    (clamped like `dynamic_update_slice`, a dead lane's at its last row),
+    and the live rows after the write (0-d, or one a lane)."""
+    flat: torch.Tensor       # (B*nkv*T,) int64
+    n_valid: torch.Tensor    # () or (B,) int32
 
 
-def kv_write(write_start, t: int, s_max: int, device) -> KVWrite:
-    """The `KVWrite` of a chunk at `write_start` (host int or device
-    scalar), computed once per forward and shared by its layers."""
-    start = device_scalar(write_start, device)
-    return KVWrite(rows=write_rows(start, t, s_max, device),
-                   n_valid=start + t)
+def kv_write(write_start, t: int, layer_cache: torch.Tensor,
+             live: torch.Tensor | None = None) -> KVWrite:
+    """The `KVWrite` of a chunk at `write_start` (host int, device scalar or
+    (B,) per lane) into caches shaped like `layer_cache` (B, nkv, S, D),
+    computed once per forward and shared by its layers."""
+    b, h, s_max, _ = layer_cache.shape
+    dev = layer_cache.device
+    start = device_scalar(write_start, dev)
+    rows = write_rows(lane_tensor(start, b, dev), t, s_max, live)
+    return KVWrite(flat=flat_rows(rows, h, s_max), n_valid=start + t)
 
 
 def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
@@ -115,11 +128,12 @@ def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
                     bv=None):
     """qkv projections (+optional bias), rope, KV-cache append (in place,
     start clamped like `dynamic_update_slice`), masked attention, output
-    projection. k_cache/v_cache are one layer's (1, nkv, S, D) buffers;
-    `write_start` a host int, a device scalar or the forward's `KVWrite`."""
+    projection. k_cache/v_cache are one layer's (B, nkv, S, D) buffers;
+    `write_start` a host int, a device scalar, one a lane or the forward's
+    `KVWrite`."""
     b, t, _ = x.shape
     if not isinstance(write_start, KVWrite):
-        write_start = kv_write(write_start, t, k_cache.shape[2], x.device)
+        write_start = kv_write(write_start, t, k_cache)
     d = cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
 
@@ -134,8 +148,10 @@ def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
              cfg.rope_theta)
     v = v.reshape(b, t, nkv, d).transpose(1, 2)
 
-    k_cache.index_copy_(2, write_start.rows, k.to(k_cache.dtype))
-    v_cache.index_copy_(2, write_start.rows, v.to(v_cache.dtype))
+    k_cache.view(-1, d).index_copy_(0, write_start.flat,
+                                    k.to(k_cache.dtype).reshape(-1, d))
+    v_cache.view(-1, d).index_copy_(0, write_start.flat,
+                                    v.to(v_cache.dtype).reshape(-1, d))
 
     attn = attention(q.contiguous(), k_cache, v_cache, bias,
                      n_valid=write_start.n_valid)
@@ -145,7 +161,7 @@ def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
 
 def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
                   write_start, cfg: ModelConfig):
-    """One decoder layer over one layer's (1, nkv, S, D) cache buffers."""
+    """One decoder layer over one layer's (B, nkv, S, D) cache buffers."""
     res = x
     x = rms_norm(x, lp.input_ln, cfg.rms_norm_eps)
     x = res + attention_block(
@@ -159,13 +175,14 @@ def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
 
 def llama_forward(params: LlamaParams, cache: KVCache, hidden: torch.Tensor,
                   positions: torch.Tensor, bias: torch.Tensor,
-                  write_start, cfg: ModelConfig):
-    """Run the stacked decoder layers over a (1, T, H) chunk written at
-    `write_start` (host int or device scalar), appending to `cache` in
-    place. Returns (hidden, cache) — hidden not final-normed."""
+                  write_start, cfg: ModelConfig,
+                  live: torch.Tensor | None = None):
+    """Run the stacked decoder layers over a (B, T, H) chunk written at
+    `write_start` (host int, device scalar, or (B,) per lane; `live` marks
+    the lanes whose writes land, `models/kv_cache.py`), appending to
+    `cache` in place. Returns (hidden, cache) — hidden not final-normed."""
     x = hidden
-    write_start = kv_write(write_start, hidden.shape[1], cache.max_len,
-                           hidden.device)
+    write_start = kv_write(write_start, hidden.shape[1], cache.k[0], live)
     for i in range(cache.k.shape[0]):
         x = decoder_layer(x, params.layers.layer(i), cache.k[i], cache.v[i],
                           positions, bias, write_start, cfg)

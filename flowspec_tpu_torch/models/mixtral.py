@@ -90,7 +90,7 @@ def moe_block(x: torch.Tensor, lp: MixtralLayerParams,
 
 def mixtral_decoder_layer(x, lp: MixtralLayerParams, k_cache, v_cache,
                           positions, bias, write_start, cfg: ModelConfig):
-    """One decoder layer over one layer's (1, nkv, S, D) cache buffers."""
+    """One decoder layer over one layer's (B, nkv, S, D) cache buffers."""
     res = x
     x = rms_norm(x, lp.input_ln, cfg.rms_norm_eps)
     x = res + attention_block(x, lp.wq, lp.wk, lp.wv, lp.wo, k_cache,
@@ -102,12 +102,12 @@ def mixtral_decoder_layer(x, lp: MixtralLayerParams, k_cache, v_cache,
 
 def mixtral_forward(params: MixtralParams, cache: KVCache,
                     hidden: torch.Tensor, positions: torch.Tensor,
-                    bias: torch.Tensor, write_start, cfg: ModelConfig):
+                    bias: torch.Tensor, write_start, cfg: ModelConfig,
+                    live: torch.Tensor | None = None):
     """`llama_forward` with MoE layers: (hidden not final-normed, cache
-    appended in place)."""
+    appended in place); lanes as there, the MoE block over all B*T rows."""
     x = hidden
-    write_start = kv_write(write_start, hidden.shape[1], cache.max_len,
-                           hidden.device)
+    write_start = kv_write(write_start, hidden.shape[1], cache.k[0], live)
     for i in range(cache.k.shape[0]):
         x = mixtral_decoder_layer(x, params.layers.layer(i), cache.k[i],
                                   cache.v[i], positions, bias, write_start,

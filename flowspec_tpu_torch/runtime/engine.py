@@ -3,9 +3,9 @@
 Port of `flowspec_tpu/runtime/engine.py` (single-request path):
 prefill -> [draft context -> beam tree -> verify the whole tree -> accept
 -> compact KV] -> ... Positions and lengths (commit_len, n_pending, the
-caches' lengths) are 0-d int32 tensors on the engine's device, as in the
-JAX state, so one round (`_spec_round`) issues no device-to-host read and
-can be captured as a CUDA graph.
+caches' lengths) are int32 tensors on the engine's device, one a lane, as
+are the draw streams, so one round (`_spec_round`) issues no device-to-host
+read and can be captured as a CUDA graph.
 
 Two decode paths share that round body, as the JAX package's do:
 - `generate` runs it eagerly in a Python loop and reads the accepted tokens
@@ -19,8 +19,13 @@ Two decode paths share that round body, as the JAX package's do:
 alike read nothing back (`tree/posterior.py` walks every depth with masks,
 as the JAX scan does). The base model is any family of
 `models/__init__.py model_forward` (LLaMA / Qwen2 `LlamaParams`, Mixtral
-`MixtralParams`), or the caller's `forward_fn`. Not ported yet
-(ROADMAP.md, Queue 1): batched serving (`serve`).
+`MixtralParams`), or the caller's `forward_fn`.
+
+The state and the round run over a leading lane axis: B requests served
+together, each with its own caches, lengths, tree and draw stream
+(`EngineState` with (B,) lengths, `ServeCtx` for the serving path's prompt
+chains). `SpecEngine` is the B = 1 case: its one request is one lane. The
+batched engines are in `runtime/batched.py`.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from flowspec_tpu_torch.draft.eagle import (
 from flowspec_tpu_torch.models import model_forward
 from flowspec_tpu_torch.models.bias import prefill_bias, tree_bias
 from flowspec_tpu_torch.models.kv_cache import (
-    KVCache, device_scalar, grow_kv, init_kv_cache,
+    KVCache, grow_kv, init_kv_cache,
 )
 from flowspec_tpu_torch.models.llama import (
     LlamaParams, embed_tokens, final_hidden, lm_head_logits,
@@ -52,8 +57,10 @@ from flowspec_tpu_torch.runtime import graphs
 from flowspec_tpu_torch.tree.posterior import (
     evaluate_posterior_greedy, evaluate_posterior_stochastic,
 )
-from flowspec_tpu_torch.tree.sampling import sample_token
-from flowspec_tpu_torch.tree.types import take, tree_attention_bias
+from flowspec_tpu_torch.tree.sampling import Draws, lane_rng, sample_token
+from flowspec_tpu_torch.tree.types import (
+    TokenTree, lane_gather, lane_take, tree_attention_bias,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,17 +90,49 @@ def make_beam_head(params: LlamaParams | MixtralParams, draft: EagleParams,
 
 @dataclasses.dataclass
 class EngineState:
+    """B lanes' state (B = 1 for one request), each lane its own request:
+    caches (L, B, H, S, D) with (B,) lengths and the fields below."""
     base_cache: KVCache
     draft_cache: KVCache
-    commit_len: torch.Tensor       # () int32 — committed tokens (== base KV
-                                   #   length)
-    root_token: torch.Tensor       # () int32 — current speculation root
-    pending_tokens: torch.Tensor   # (CTX,) int32 — draft pairs not consumed
-    pending_hidden: torch.Tensor   # (1, CTX, H)
-    n_pending: torch.Tensor        # () int32
-    root_hidden: torch.Tensor      # (H,) — draft hidden of the root pair,
-                                   #   used when n_pending == 0
-    generator: Optional[torch.Generator] = None
+    commit_len: torch.Tensor       # (B,) int32 — committed tokens (== base
+                                   #   KV length)
+    root_token: torch.Tensor       # (B,) int32 — current speculation root
+    pending_tokens: torch.Tensor   # (B, CTX) int32 — draft pairs not
+                                   #   consumed
+    pending_hidden: torch.Tensor   # (B, CTX, H)
+    n_pending: torch.Tensor        # (B,) int32
+    root_hidden: torch.Tensor      # (B, H) — draft hidden of the root
+                                   #   pair, used when n_pending == 0
+    rng: torch.Tensor              # (B, 2) int64 draw streams (seed,
+                                   #   counter), `tree/sampling.py`
+
+
+@dataclasses.dataclass
+class ServeCtx:
+    """Per-lane request context of token-level continuous batching
+    (`flowspec_tpu/runtime/engine.py:77-90`): while prompt_pos < prompt_len
+    a lane's round consumes the next chain of prompt tokens instead of
+    verifying a drafted tree (the chain is a degenerate tree, a root-to-leaf
+    path, so verify and commit are shared; see `_spec_round`)."""
+    prompt_buf: torch.Tensor   # (B, P) int32 — each lane's prompt, 0-padded
+    prompt_len: torch.Tensor   # (B,) int32
+    prompt_pos: torch.Tensor   # (B,) int32 — tokens already in the KV
+    active: torch.Tensor       # (B,) bool — the lane holds a live request
+
+
+def select_lanes(keep_new: torch.Tensor, new, old):
+    """Field by field, lane b of `new` where keep_new[b], else of `old`
+    (an EngineState, ServeCtx or TokenTree of lanes). A cache keeps its
+    (shared, in place) rows and selects its length."""
+    def sel(a, b):
+        if isinstance(a, KVCache):
+            return a.with_length(sel(a.length, b.length))
+        if not isinstance(a, torch.Tensor) or a is b:
+            return a
+        return torch.where(keep_new.reshape(-1, *(1,) * (a.dim() - 1)), a, b)
+    return dataclasses.replace(new, **{
+        f.name: sel(getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(new)})
 
 
 class SpecEngine:
@@ -168,9 +207,7 @@ class SpecEngine:
         draft_rows, base_rows = (
             self._kv_rows(max_seq) if max_seq is not None
             else (self.draft_kv_len, self.base_kv_len))
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        zero = lambda: torch.zeros((1,), dtype=torch.int32, device=dev)
         return EngineState(
             base_cache=init_kv_cache(mc.num_hidden_layers, 1,
                                      mc.num_key_value_heads,
@@ -180,15 +217,16 @@ class SpecEngine:
             draft_cache=init_kv_cache(1, 1, self.dcfg.num_key_value_heads,
                                       draft_rows, self.dcfg.head_dim_,
                                       dt, dev),
-            commit_len=zero,
-            root_token=torch.zeros((), dtype=torch.int32, device=dev),
-            pending_tokens=torch.zeros((self.ctx_pad,), dtype=torch.int32,
+            commit_len=zero(), root_token=zero(),
+            pending_tokens=torch.zeros((1, self.ctx_pad), dtype=torch.int32,
                                        device=dev),
             pending_hidden=torch.zeros((1, self.ctx_pad, mc.hidden_size),
                                        dtype=dt, device=dev),
-            n_pending=zero.clone(),
-            root_hidden=torch.zeros((mc.hidden_size,), dtype=dt, device=dev),
-            generator=gen)
+            n_pending=zero(),
+            root_hidden=torch.zeros((1, mc.hidden_size), dtype=dt,
+                                    device=dev),
+            rng=lane_rng(torch.full((1,), seed, dtype=torch.int64,
+                                    device=dev)))
 
     # ---- prefill ---------------------------------------------------------
     def _prefill_chunks(self, state: EngineState, prompt):
@@ -268,16 +306,18 @@ class SpecEngine:
         return out, stats
 
     def _round(self, state: EngineState):
-        """One `_spec_round` with this engine's weights and configuration:
-        (state, accepted (depth_cap,) int32 with -1 padding, n_accepted)."""
-        return _spec_round(state, self.params, self.draft, self.beam_head,
-                           cfg=self.cfg.model, tree_cfg=self.cfg.tree,
-                           sampling=self.cfg.sampling,
-                           force_accept=self.cfg.force_accept,
-                           fwd=self.forward_fn)
+        """One `_spec_round` of this engine's one lane: (state, accepted
+        (depth_cap,) int32 with -1 padding, n_accepted ())."""
+        st, accepted, n_acc = _spec_round(
+            state, self.params, self.draft, self.beam_head,
+            cfg=self.cfg.model, tree_cfg=self.cfg.tree,
+            sampling=self.cfg.sampling, force_accept=self.cfg.force_accept,
+            fwd=self.forward_fn)
+        return st, accepted[0], n_acc[0]
 
     def _ar(self, state: EngineState):
-        """One `_ar_step` with this engine's weights: (state, next token)."""
+        """One `_ar_step` with this engine's weights: (state, next token
+        (1,))."""
         return _ar_step(state, self.params, cfg=self.cfg.model,
                         sampling=self.cfg.sampling, fwd=self.forward_fn)
 
@@ -317,14 +357,14 @@ class SpecEngine:
                 f"state's budget {limit}; raise EngineConfig.max_seq_len")
         dev = self.device
         h = state.pending_hidden.shape[-1]
-        keep_t = device_scalar(keep, dev)
+        keep_t = torch.full((1,), keep, dtype=torch.int32, device=dev)
         state = dataclasses.replace(
             state,
             base_cache=state.base_cache.with_length(keep_t),
             draft_cache=state.draft_cache.with_length(keep_t.clone()),
             commit_len=keep_t.clone(),
-            n_pending=torch.zeros((), dtype=torch.int32, device=dev),
-            pending_tokens=torch.zeros((self.ctx_pad,), dtype=torch.int32,
+            n_pending=torch.zeros((1,), dtype=torch.int32, device=dev),
+            pending_tokens=torch.zeros((1, self.ctx_pad), dtype=torch.int32,
                                        device=dev),
             pending_hidden=torch.zeros((1, self.ctx_pad, h),
                                        dtype=state.pending_hidden.dtype,
@@ -410,10 +450,12 @@ class SpecEngine:
 # ---- step bodies -----------------------------------------------------------
 
 def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
-    c = x.shape[0]
+    """The last axis cut or zero-padded to n, int32."""
+    c = x.shape[-1]
     if c >= n:
-        return x[:n].to(torch.int32)
-    return torch.cat([x, x.new_zeros((n - c,))]).to(torch.int32)
+        return x[..., :n].to(torch.int32)
+    return torch.cat([x, x.new_zeros((*x.shape[:-1], n - c))],
+                     dim=-1).to(torch.int32)
 
 
 def _pad_rows(h: torch.Tensor, n: int) -> torch.Tensor:
@@ -426,13 +468,15 @@ def _pad_rows(h: torch.Tensor, n: int) -> torch.Tensor:
 def _prefill_chunk(state: EngineState, params, draft: EagleParams, tokens,
                    next_tokens, n_valid: int, *, cfg: ModelConfig,
                    fwd=model_forward):
+    """One prompt chunk (`tokens`, (C,)) of a one-lane state. Returns (state,
+    the last valid token's logits (V,))."""
     c = tokens.shape[0]
-    start = state.commit_len
+    start = state.commit_len                                  # (1,)
     dev = tokens.device
     s_max = state.base_cache.max_len
     hidden = embed_tokens(params, tokens[None])
     bias = prefill_bias(start, c, s_max, device=dev)
-    positions = start + torch.arange(c, device=dev)
+    positions = start[:, None] + torch.arange(c, device=dev)
     out, cache = fwd(params, state.base_cache, hidden, positions, bias,
                      start, cfg)
     cache = cache.with_length(start + n_valid)
@@ -444,15 +488,11 @@ def _prefill_chunk(state: EngineState, params, draft: EagleParams, tokens,
                                                         c - 1)])
     new_state = dataclasses.replace(
         dstate, base_cache=cache, commit_len=start + n_valid,
-        pending_tokens=_pad_to(next_tokens, state.pending_tokens.shape[0]),
+        pending_tokens=_pad_to(next_tokens[None],
+                               state.pending_tokens.shape[1]),
         pending_hidden=_pad_rows(normed, state.pending_hidden.shape[1]),
-        n_pending=device_scalar(n_valid, dev))
+        n_pending=torch.full((1,), n_valid, dtype=torch.int32, device=dev))
     return new_state, last_logits
-
-
-def _last_pair(out: torch.Tensor, n_pending: torch.Tensor) -> torch.Tensor:
-    """out[0, clip(n_pending - 1, 0, T - 1)], indexed on the device."""
-    return take(out[0], (n_pending - 1).clamp(0, out.shape[1] - 1))
 
 
 def _finish_prefill(state: EngineState, draft: EagleParams, last_logits, *,
@@ -461,20 +501,21 @@ def _finish_prefill(state: EngineState, draft: EagleParams, last_logits, *,
     """Sample the first root from `last_logits`, patch it into the final
     pending pair, drain the last prompt chunk's pairs, keep the root's draft
     hidden, and shrink the pending buffers to depth_cap+1 rows."""
-    root = sample_token(state.generator, last_logits, sampling,
-                        is_probs=False)
-    slot = (state.n_pending - 1).remainder(state.pending_tokens.shape[0])
-    pt = state.pending_tokens.index_copy(0, slot.long().view(1),
-                                         root.view(1))
-    state = dataclasses.replace(state, root_token=root, pending_tokens=pt)
+    draws = Draws(state.rng)
+    root = sample_token(draws, last_logits[None], sampling, is_probs=False)
+    slot = (state.n_pending - 1).remainder(state.pending_tokens.shape[1])
+    pt = state.pending_tokens.scatter(1, slot.long()[:, None], root[:, None])
+    state = dataclasses.replace(state, root_token=root, pending_tokens=pt,
+                                rng=draws.rng)
     out, dcache = draft_context_forward(
         draft, state.draft_cache, state.pending_tokens, state.pending_hidden,
         state.draft_cache.length, state.n_pending, cfg)
     h = state.pending_hidden.shape[-1]
     return dataclasses.replace(
-        state, draft_cache=dcache, root_hidden=_last_pair(out,
-                                                          state.n_pending),
-        pending_tokens=state.pending_tokens.new_zeros((ctx_small,)),
+        state, draft_cache=dcache,
+        root_hidden=lane_take(out, (state.n_pending - 1).clamp(
+            0, out.shape[1] - 1)),
+        pending_tokens=state.pending_tokens.new_zeros((1, ctx_small)),
         pending_hidden=state.pending_hidden.new_zeros((1, ctx_small, h)),
         n_pending=torch.zeros_like(state.n_pending))
 
@@ -488,14 +529,58 @@ def _drain_pending(state: EngineState, draft: EagleParams,
     return dataclasses.replace(state, draft_cache=dcache)
 
 
+def _chain_tree(serve: ServeCtx, tree_cfg: TreeConfig):
+    """Each lane's next prompt chunk as a degenerate tree
+    (`flowspec_tpu/runtime/engine.py:642-666`): a root-to-leaf chain of up
+    to depth_cap tokens (node i's parent is i-1, one retrieve row).
+    Verifying it through the round appends its KV, gives its hiddens for
+    the draft context and the last node's logits: a prefill step, batched
+    beside the decoding lanes. Returns (tree, n_chain (B,))."""
+    cl = tree_cfg.depth_cap
+    n_cap, l_cap = tree_cfg.node_cap, tree_cfg.leaf_cap
+    b, p_cap = serve.prompt_buf.shape
+    dev = serve.prompt_buf.device
+    pos = serve.prompt_pos
+    n_chain = (serve.prompt_len - pos).clamp(1, cl).to(torch.int32)
+    i_n = torch.arange(n_cap, device=dev, dtype=torch.int32)
+    toks = torch.gather(serve.prompt_buf, 1,
+                        (pos[:, None] + i_n).clamp(0, p_cap - 1).long())
+    in_chain = i_n < n_chain[:, None]
+    i_d = torch.arange(cl, device=dev, dtype=torch.int32)
+    row0 = torch.where(i_d < n_chain[:, None], i_d, -1)           # (B, D)
+    retrieve = torch.cat(
+        [row0[:, None], torch.full((b, l_cap - 1, cl), -1, dtype=torch.int32,
+                                   device=dev)], dim=1)
+    return TokenTree(
+        tokens=torch.where(in_chain, toks, -1).to(torch.int32),
+        parents=torch.where((i_n > 0) & in_chain, i_n - 1, -1),
+        depth=torch.where(in_chain, i_n, 0),
+        scores=torch.zeros((b, n_cap), device=dev),
+        retrieve=retrieve, n_nodes=n_chain,
+        n_leaves=torch.ones((b,), dtype=torch.int32, device=dev)), n_chain
+
+
 def _spec_round(state: EngineState, params, draft: EagleParams,
-                beam_head=None, *, cfg: ModelConfig, tree_cfg: TreeConfig,
-                sampling: SamplingConfig, force_accept: int = 0,
-                fwd=model_forward):
-    """One draft -> verify -> accept round (ref eagle/ea_model.py:236-297).
-    Returns (state, accepted (depth_cap,) int32 with -1 padding,
-    n_accepted () int32), all on the device: a round reads nothing back,
-    so the eager loop and a captured CUDA graph run the same body.
+                beam_head=None, serve: ServeCtx | None = None,
+                live: torch.Tensor | None = None, *, cfg: ModelConfig,
+                tree_cfg: TreeConfig, sampling: SamplingConfig,
+                force_accept: int = 0, fwd=model_forward):
+    """One draft -> verify -> accept round (ref eagle/ea_model.py:236-297)
+    over the B lanes of `state` (`EngineState` of lanes). Returns (state,
+    accepted (B, depth_cap) int32 with -1 padding, n_accepted (B,) int32),
+    all on the device: a round reads nothing back, so the eager loop and a
+    captured CUDA graph run the same body. Every projection sees the B
+    lanes' rows as one matrix and one attention launch a layer serves all
+    lanes.
+
+    `live` (B,) bool marks the lanes that advance; the others keep their
+    state (lengths, tokens, pairs, draws) and their KV writes land on their
+    last row only (`models/kv_cache.py`), the counterpart of the JAX
+    package's select of the old state. With `serve` (`ServeCtx`), a lane
+    still consuming its prompt verifies its next prompt chain instead of a
+    drafted tree and emits nothing, an inactive lane does not advance, and
+    the result is (state, accepted, n_emitted, serve')
+    (`flowspec_tpu/runtime/engine.py:669-809`).
 
     `force_accept` > 0 is the synthetic-acceptance bench mode
     (`flowspec_tpu/runtime/engine.py:729-743`): the deepest drafted path is
@@ -505,76 +590,103 @@ def _spec_round(state: EngineState, params, draft: EagleParams,
     n_cap = tree_cfg.node_cap
     s_max = state.base_cache.max_len
     dev = state.root_token.device
+    draws = Draws(state.rng)
+    if serve is not None:
+        live = serve.active if live is None else live & serve.active
 
     # 1. draft context + tree generation
     out, dcache = draft_context_forward(
         draft, state.draft_cache, state.pending_tokens, state.pending_hidden,
-        state.draft_cache.length, state.n_pending, cfg)
+        state.draft_cache.length, state.n_pending, cfg, live)
     # n_pending == 0 only on the first round after prefill (the prefill
     # drain consumed the pairs and kept the root's hidden)
-    root_hidden = torch.where(state.n_pending > 0,
-                              _last_pair(out, state.n_pending),
+    drained = lane_take(out, (state.n_pending - 1).clamp(0, out.shape[1] - 1))
+    root_hidden = torch.where((state.n_pending > 0)[:, None], drained,
                               state.root_hidden)
     head = params.lm_head if beam_head is None else beam_head
     tree, _, dcache = topk_generate(draft, head, dcache, state.root_token,
                                     root_hidden, tree_cfg, cfg,
-                                    force_deep_path=force_accept > 0)
+                                    force_deep_path=force_accept > 0,
+                                    live=live)
+    if serve is not None:
+        chain, n_chain = _chain_tree(serve, tree_cfg)
+        in_pref = serve.active & (serve.prompt_pos < serve.prompt_len)
+        tree = select_lanes(in_pref, chain, tree)
 
-    # 2. verify the whole tree in one chunk of node_cap tokens
+    # 2. verify every lane's tree in one chunk of node_cap tokens a lane
     commit = state.commit_len
     anc_bias = tree_attention_bias(tree.parents, tree_cfg.depth_cap,
                                    tree.valid())
-    bias = tree_bias(anc_bias, commit, s_max)
+    bias = tree_bias(anc_bias, commit, s_max)                # (B, N, S)
     toks = torch.where(tree.tokens >= 0, tree.tokens, 0)
-    hidden = embed_tokens(params, toks[None])
-    positions = commit + tree.depth
+    hidden = embed_tokens(params, toks)
+    positions = commit[:, None] + tree.depth
     b_out, bcache = fwd(params, state.base_cache, hidden, positions, bias,
-                        commit, cfg)
-    normed = final_hidden(params, b_out, cfg)            # (1, N, H)
-    node_logits = lm_head_logits(params, normed[0])      # (N, V) f32
+                        commit, cfg, **({} if live is None
+                                        else {"live": live}))
+    normed = final_hidden(params, b_out, cfg)            # (B, N, H)
+    node_logits = lm_head_logits(params, normed)         # (B, N, V) f32
 
     # 3. accept
     if sampling.is_greedy:
         res = evaluate_posterior_greedy(node_logits, tree)
     else:
         res = evaluate_posterior_stochastic(
-            node_logits, tree, sampling, state.generator,
+            node_logits, tree, sampling, draws,
             max_trials=min(2 * tree_cfg.top_k, tree_cfg.leaf_cap))
-    new_root = sample_token(state.generator, res.sample_p, sampling,
-                            is_probs=True)
+    new_root = sample_token(draws, res.sample_p, sampling, is_probs=True)
     best_leaf, accept_len = res.best_leaf, res.accept_len
     if force_accept:
-        path_len = (tree.retrieve >= 0).sum(dim=1)
+        path_len = (tree.retrieve >= 0).sum(dim=-1)
         path_len = torch.where(tree.leaf_valid(), path_len, 0)
-        best_leaf = torch.argmax(path_len).to(torch.int32)
-        accept_len = torch.clamp(take(path_len, best_leaf) - 1,
+        best_leaf = torch.argmax(path_len, dim=-1).to(torch.int32)
+        accept_len = torch.clamp(lane_take(path_len, best_leaf) - 1,
                                  max=force_accept).to(torch.int32)
-        last = take(tree.retrieve, best_leaf, accept_len).clamp(0, n_cap - 1)
-        p_last = torch.softmax(take(node_logits, last).float(), dim=-1)
-        new_root = sample_token(state.generator, p_last, sampling,
-                                is_probs=True)
+        last = lane_take(tree.retrieve, best_leaf, accept_len).clamp(
+            0, n_cap - 1)
+        p_last = torch.softmax(lane_take(node_logits, last).float(), dim=-1)
+        new_root = sample_token(draws, p_last, sampling, is_probs=True)
+    if serve is not None:
+        # prompt lanes: the whole chain is accepted by construction; the
+        # next root is the next prompt token or, once the prompt is used
+        # up, a sample from the last chain node's logits
+        pos = serve.prompt_pos
+        p_cap = serve.prompt_buf.shape[1]
+        pref_done = pos + n_chain >= serve.prompt_len
+        sampled = sample_token(
+            draws, lane_take(node_logits, (n_chain - 1).clamp(0, n_cap - 1)),
+            sampling, is_probs=False)
+        next_prompt = lane_take(serve.prompt_buf,
+                                (pos + n_chain).clamp(0, p_cap - 1))
+        best_leaf = torch.where(in_pref, 0, best_leaf)
+        accept_len = torch.where(in_pref, n_chain - 1, accept_len)
+        new_root = torch.where(in_pref,
+                               torch.where(pref_done, sampled, next_prompt),
+                               new_root)
 
     # 4. commit: path nodes [root, a_1..a_k]
     d_cap = tree_cfg.depth_cap
-    path = take(tree.retrieve, best_leaf)                # (D,)
+    path = lane_take(tree.retrieve, best_leaf)           # (B, D)
     n_acc = (accept_len + 1).to(torch.int32)
     d_idx = torch.arange(d_cap, device=dev)
-    path_valid = d_idx < n_acc
+    path_valid = d_idx < n_acc[:, None]
     safe_path = path.clamp(0, n_cap - 1).long()
-    accepted_tokens = torch.where(path_valid, tree.tokens[safe_path], -1)
+    accepted_tokens = torch.where(
+        path_valid, torch.gather(tree.tokens, 1, safe_path), -1)
 
     # 5. base KV compaction: keep accepted node rows right after commit
-    src = torch.where(path_valid, commit + safe_path, 0)
-    bcache = bcache.compact(src, n_acc, commit)
+    src = torch.where(path_valid, commit[:, None] + safe_path, 0)
+    bcache = bcache.compact(src, n_acc, commit, live)
 
     # 6. next round's draft pairs: (a_1..a_k, new_root) with hiddens of
     # (a_0..a_k)
-    ctx = state.pending_tokens.shape[0]
-    shifted = torch.roll(accepted_tokens, -1)
-    pair_tok = torch.where(d_idx + 1 < n_acc, shifted, 0)
-    pair_tok = torch.where(d_idx + 1 == n_acc, new_root, pair_tok)
-    pair_hidden = normed[:, safe_path]                   # (1, D, H)
-    pair_hidden = torch.where(path_valid[None, :, None], pair_hidden,
+    ctx = state.pending_tokens.shape[1]
+    shifted = torch.roll(accepted_tokens, -1, dims=1)
+    pair_tok = torch.where(d_idx + 1 < n_acc[:, None], shifted, 0)
+    pair_tok = torch.where(d_idx + 1 == n_acc[:, None], new_root[:, None],
+                           pair_tok)
+    pair_hidden = lane_gather(normed, safe_path)         # (B, D, H)
+    pair_hidden = torch.where(path_valid[..., None], pair_hidden,
                               torch.zeros((), dtype=pair_hidden.dtype,
                                           device=dev))
 
@@ -582,8 +694,16 @@ def _spec_round(state: EngineState, params, draft: EagleParams,
         base_cache=bcache, draft_cache=dcache, commit_len=commit + n_acc,
         root_token=new_root, pending_tokens=_pad_to(pair_tok, ctx),
         pending_hidden=_pad_rows(pair_hidden, ctx), n_pending=n_acc,
-        root_hidden=root_hidden, generator=state.generator)
-    return new_state, accepted_tokens.to(torch.int32), n_acc
+        root_hidden=root_hidden, rng=draws.rng)
+    if live is not None:
+        new_state = select_lanes(live, new_state, state)
+    accepted_tokens = accepted_tokens.to(torch.int32)
+    if serve is None:
+        return new_state, accepted_tokens, n_acc
+    serve2 = dataclasses.replace(
+        serve, prompt_pos=serve.prompt_pos + torch.where(in_pref, n_chain, 0))
+    n_emit = torch.where(serve.active & ~in_pref, n_acc, 0)
+    return new_state, accepted_tokens, n_emit, serve2
 
 
 def _grow_kv(state: EngineState, draft_rows: int,
@@ -598,17 +718,18 @@ def _grow_kv(state: EngineState, draft_rows: int,
 
 def _ar_step(state: EngineState, params, *, cfg: ModelConfig,
              sampling: SamplingConfig, fwd=model_forward):
-    """Decode one token autoregressively (baseline)."""
+    """Decode one token autoregressively (baseline), every lane."""
     s_max = state.base_cache.max_len
     commit = state.commit_len
     dev = state.root_token.device
-    hidden = embed_tokens(params, state.root_token.reshape(1, 1))
+    hidden = embed_tokens(params, state.root_token[:, None])
     bias = prefill_bias(commit, 1, s_max, device=dev)
-    positions = commit.reshape(1)
-    out, cache = fwd(params, state.base_cache, hidden, positions, bias,
+    out, cache = fwd(params, state.base_cache, hidden, commit[:, None], bias,
                      commit, cfg)
     cache = cache.with_length(commit + 1)
-    logits = lm_head_logits(params, final_hidden(params, out, cfg))[0, 0]
-    tok = sample_token(state.generator, logits, sampling, is_probs=False)
+    logits = lm_head_logits(params, final_hidden(params, out, cfg))[:, 0]
+    draws = Draws(state.rng)
+    tok = sample_token(draws, logits, sampling, is_probs=False)
     return dataclasses.replace(state, base_cache=cache,
-                               commit_len=commit + 1, root_token=tok), tok
+                               commit_len=commit + 1, root_token=tok,
+                               rng=draws.rng), tok

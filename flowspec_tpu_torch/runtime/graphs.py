@@ -25,6 +25,19 @@ wrappers, and each replay adds them again. The graphs of one engine share
 one memory pool: they run one at a time, and what a body leaves for the
 next one lives in the static buffers, outside the pool.
 
+Lanes (`runtime/batched.py`). Two more bodies run the round over B lanes:
+`_lane_body`, the counterpart of `_spec_decode_loop(gate_lanes=True)`
+under vmap (`flowspec_tpu/runtime/engine.py:831-891`: a lane past its
+budget, EOS or commit cap stops advancing while the others go on, and the
+host replays until no lane is active), and `_serve_body`, the counterpart
+of the serve scan's body (`flowspec_tpu/runtime/batched.py:310-406`): the
+round over mixed prompt-chain and decoding lanes, the packed row of the
+round, and the refill of finished lanes from a device-resident request
+queue (the lanes' lengths reset to the prefix template's, the first suffix
+token patched into the pending pairs, a fresh draw stream keyed by the
+seed and the queue position). Each is captured once per (kind, KV rows,
+lanes, queue capacity) and reads one small pinned row a replay.
+
 A capture that fails raises: there is no fallback to the eager loop.
 """
 
@@ -80,7 +93,7 @@ def _ar_body(eng, st, lp: LoopBuffers):
     lp.out_buf.index_copy_(0, lp.n_out.long().view(1), tok.view(1))
     st2, _ = eng._ar(st)
     lp.n_out.add_(1)
-    lp.done.logical_or_((tok == lp.eos_id) & (lp.eos_id >= 0))
+    lp.done.logical_or_(((tok == lp.eos_id) & (lp.eos_id >= 0)).any())
     lp.rounds.add_(1)
     return st2
 
@@ -88,7 +101,177 @@ def _ar_body(eng, st, lp: LoopBuffers):
 def _readback(st, lp: LoopBuffers) -> torch.Tensor:
     """(n_out, done, commit_len): what the host's loop condition reads."""
     return torch.stack([lp.n_out, lp.done.to(torch.int32),
-                        st.commit_len.to(torch.int32)])
+                        st.commit_len.reshape(()).to(torch.int32)])
+
+
+@dataclasses.dataclass
+class LaneLoop:
+    """The gated lane loop's carry besides the lane state, on the device:
+    per lane the output buffer, the tokens written, EOS, rounds run and the
+    token budget; the EOS id and the commit cap of the KV bucket."""
+    out_buf: torch.Tensor     # (B, cap + 1) int32; slot cap takes padding
+    n_out: torch.Tensor       # (B,) int32
+    done: torch.Tensor        # (B,) bool
+    rounds: torch.Tensor      # (B,) int32
+    budget: torch.Tensor      # (B,) int32
+    eos_id: torch.Tensor      # () int32 (< 0: none)
+    commit_cap: torch.Tensor  # () int32
+
+
+def _lane_active(st, lp: LaneLoop) -> torch.Tensor:
+    """(B,) the JAX loop condition of each lane."""
+    return ~lp.done & (lp.n_out < lp.budget) & (st.commit_len
+                                                 <= lp.commit_cap)
+
+
+def _lane_body(eng, st, lp: LaneLoop):
+    """One round over the lanes with the vmapped loop body's bookkeeping
+    (`flowspec_tpu/runtime/engine.py:863-885`, gate_lanes=True): a lane
+    whose condition fails keeps its state and writes nothing."""
+    active = _lane_active(st, lp)
+    st2, accepted, n_acc = eng._lane_round(st, live=active)
+    cap = lp.out_buf.shape[1] - 1
+    d_idx = torch.arange(accepted.shape[1], device=accepted.device)
+    pv = active[:, None] & (d_idx < n_acc[:, None])
+    wpos = torch.where(pv, lp.n_out[:, None] + d_idx, cap).long()
+    lp.out_buf.scatter_(1, wpos, torch.where(pv, accepted, 0))
+    lp.n_out.add_(torch.where(active, n_acc, 0))
+    lp.done.logical_or_((pv & (accepted == lp.eos_id)
+                         & (lp.eos_id >= 0)).any(dim=1))
+    lp.rounds.add_(active.to(torch.int32))
+    return st2
+
+
+def _lane_readback(st, lp: LaneLoop) -> torch.Tensor:
+    """(1,): whether any lane is still active."""
+    return _lane_active(st, lp).any().to(torch.int32).reshape(1)
+
+
+@dataclasses.dataclass
+class ServeLoop:
+    """The serve body's carry besides the lane state, on the device: the
+    lanes' `ServeCtx` fields, request ids (-1 idle, <= -2 held for a host
+    snapshot), tokens emitted and budgets, the queue head, the last round's
+    packed row; the request queue and its constants; the prefix template's
+    lengths and pending pairs (zeros without a shared prefix)."""
+    prompt_buf: torch.Tensor   # (B, P) int32
+    prompt_len: torch.Tensor   # (B,) int32
+    prompt_pos: torch.Tensor   # (B,) int32
+    active: torch.Tensor       # (B,) bool
+    req: torch.Tensor          # (B,) int32 queue position a lane serves
+    em: torch.Tensor           # (B,) int32
+    bud: torch.Tensor          # (B,) int32
+    qh: torch.Tensor           # () int32 next queue position
+    row: torch.Tensor          # (B, depth_cap + 2) int32: tokens, n, req
+    q_prompts: torch.Tensor    # (Q, P) int32
+    q_lens: torch.Tensor       # (Q,) int32
+    q_budgets: torch.Tensor    # (Q,) int32
+    n_q: torch.Tensor          # () int32 requests the device may admit
+    eos_id: torch.Tensor       # () int32
+    seed: torch.Tensor         # () int32
+    hold: torch.Tensor         # () bool: park finished lanes, no refill
+    tp_commit: torch.Tensor    # () int32
+    tp_draft_len: torch.Tensor  # () int32
+    tp_pt: torch.Tensor        # (CTX,) int32
+    tp_ph: torch.Tensor        # (1, CTX, H)
+    tp_np: torch.Tensor        # () int32
+
+    def ctx(self):
+        from flowspec_tpu_torch.runtime.engine import ServeCtx
+        return ServeCtx(prompt_buf=self.prompt_buf,
+                        prompt_len=self.prompt_len,
+                        prompt_pos=self.prompt_pos, active=self.active)
+
+
+BIG_BUDGET = 2 ** 30
+
+
+def _serve_body(eng, st, lp: ServeLoop):
+    """One serve round (`flowspec_tpu/runtime/batched.py:310-406`): lanes
+    past the KV headroom freeze, the round runs over chain and decoding
+    lanes, its packed row is recorded before the refill, then every lane
+    whose request finished (budget or EOS; not held) or that idles takes
+    the next queued request, on the device."""
+    from flowspec_tpu_torch.runtime.engine import (
+        EngineState, ServeCtx, select_lanes,
+    )
+    from flowspec_tpu_torch.tree.sampling import lane_rng
+    d_cap = eng.cfg.tree.depth_cap
+    seq_limit = eng.cfg.max_seq_len - d_cap - 1
+    b, p_cap = lp.prompt_buf.shape
+    n_pad = lp.q_prompts.shape[0]
+    dev = lp.prompt_buf.device
+    ctx = lp.ctx()
+    ok = st.commit_len <= seq_limit
+    st3, accepted, n_emit, ctx2 = eng._lane_round(st, serve=ctx, live=ok)
+    ctx3 = select_lanes(ok, ctx2, ctx)
+    n_j = torch.where(ok, n_emit, 0)
+    valid = torch.arange(d_cap, device=dev)[None, :] < n_j[:, None]
+    eos_hit = (valid & (accepted == lp.eos_id) & (lp.eos_id >= 0)).any(1)
+    req = lp.req
+    em2 = lp.em + n_j
+    fin = (req >= 0) & (eos_hit | (em2 >= lp.bud))
+    held = fin & lp.hold
+    free = (fin & ~lp.hold) | ((req == -1) & ~ctx3.active)
+    # record before the refill: this round's tokens belong to the
+    # finishing request
+    row = torch.cat([accepted, n_j[:, None], req[:, None]], dim=1)
+
+    # ---- the refill, on the device --------------------------------------
+    qidx = lp.qh + torch.cumsum(free.to(torch.int32), 0) - 1
+    has = free & (qidx < lp.n_q)
+    qsafe = qidx.clamp(0, n_pad - 1).long()
+    req2 = torch.where(free, torch.where(has, qidx, -1),
+                       torch.where(held, -2 - req, req)).to(torch.int32)
+    em3 = torch.where(free, 0, em2)
+    bud2 = torch.where(free, torch.where(has, lp.q_budgets[qsafe],
+                                         BIG_BUDGET), lp.bud)
+    qh2 = lp.qh + has.to(torch.int32).sum()
+    q_rows = lp.q_prompts[qsafe]                                # (B, P)
+    tp_commit = lp.tp_commit.reshape(1).expand(b)
+    ctx4 = select_lanes(free, ServeCtx(
+        prompt_buf=q_rows, prompt_len=lp.q_lens[qsafe],
+        prompt_pos=tp_commit, active=has), dataclasses.replace(
+        ctx3, active=ctx3.active & ~held))
+    # the lanes' state resets to the prefix template (all zero without a
+    # shared prefix): lengths back to its watermark, its pending pairs with
+    # the request's first suffix token patched into the root slot, a fresh
+    # draw stream. KV rows stay: rows below the watermark hold the prefix
+    # (written once, never touched), rows past the length are masked.
+    first_sfx = torch.gather(q_rows, 1, lp.tp_commit.clamp(0, p_cap - 1)
+                             .long().reshape(1, 1).expand(b, 1))[:, 0]
+    ctxn = lp.tp_pt.shape[0]
+    patched_pt = torch.where(
+        torch.arange(ctxn, device=dev)[None, :] == lp.tp_np - 1,
+        first_sfx[:, None], lp.tp_pt[None, :])
+    fresh = EngineState(
+        base_cache=st3.base_cache.with_length(tp_commit),
+        draft_cache=st3.draft_cache.with_length(
+            lp.tp_draft_len.reshape(1).expand(b)),
+        commit_len=tp_commit,
+        root_token=torch.where(has, first_sfx, 0).to(torch.int32),
+        pending_tokens=patched_pt.to(torch.int32),
+        pending_hidden=lp.tp_ph.expand_as(st3.pending_hidden),
+        n_pending=lp.tp_np.reshape(1).expand(b),
+        root_hidden=torch.zeros_like(st3.root_hidden),
+        rng=lane_rng(lp.seed + req2.clamp_min(0)))
+    st4 = select_lanes(free, fresh, st3)
+    for dst, src in ((lp.prompt_buf, ctx4.prompt_buf),
+                     (lp.prompt_len, ctx4.prompt_len),
+                     (lp.prompt_pos, ctx4.prompt_pos),
+                     (lp.active, ctx4.active), (lp.req, req2),
+                     (lp.em, em3), (lp.bud, bud2), (lp.qh, qh2),
+                     (lp.row, row)):
+        dst.copy_(src)
+    return st4
+
+
+def _serve_readback(st, lp: ServeLoop) -> torch.Tensor:
+    """The packed row, then req, em and bud of every lane, the queue head
+    and whether any lane is active: B * (depth_cap + 5) + 2 int32."""
+    return torch.cat([lp.row.reshape(-1), lp.req, lp.em, lp.bud,
+                      lp.qh.reshape(1),
+                      lp.active.any().to(torch.int32).reshape(1)])
 
 
 def _fields(x):
@@ -123,18 +306,17 @@ def _load(dst, src) -> None:
 
 class DecodeGraph:
     """One decode-loop body captured over static buffers: `state` and
-    `loop` (cloned from the first request that needed it, with a sampling
-    generator of its own, registered with the graph), `host` (pinned),
-    `launches` {kernel: launches a replay}, `capture_s` (warm-up and
-    capture, seconds)."""
+    `loop` (cloned from the first request that needed it; the draw streams
+    are state tensors like any other), `host` (pinned, what `readback`
+    gives), `launches` {kernel: launches a replay}, `capture_s` (warm-up
+    and capture, seconds)."""
 
-    def __init__(self, eng, body, state, loop: LoopBuffers):
+    def __init__(self, eng, body, state, loop, readback=_readback):
         t0 = time.perf_counter()
         self.device = dev = state.commit_len.device
         self.state, self.loop = _clone(state), _clone(loop)
-        # a generator of the graph's own, loaded from each request's
-        self.state.generator = torch.Generator(device=dev)
-        self.host = torch.zeros((3,), dtype=torch.int32, pin_memory=True)
+        self.host = torch.zeros((readback(state, loop).numel(),),
+                                dtype=torch.int32, pin_memory=True)
         wrappers = counted_wrappers()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -144,12 +326,10 @@ class DecodeGraph:
         self.load(state, loop)
         before = {n: fn.launches for n, fn in wrappers.items()}
         self.graph = torch.cuda.CUDAGraph()
-        # the sampling generator's draws advance with every replay
-        self.graph.register_generator_state(self.state.generator)
         with torch.no_grad(), torch.cuda.graph(self.graph,
                                                pool=eng._graph_pool):
             _load(self.state, body(eng, self.state, self.loop))
-            self.host.copy_(_readback(self.state, self.loop),
+            self.host.copy_(readback(self.state, self.loop),
                             non_blocking=True)
         self.launches = {n: fn.launches - before[n]
                          for n, fn in wrappers.items()
@@ -160,16 +340,14 @@ class DecodeGraph:
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
 
-    def load(self, state, loop: LoopBuffers) -> None:
-        """Copy a request's state and loop carry into the static buffers,
-        its generator's state into the registered generator."""
+    def load(self, state, loop) -> None:
+        """Copy a request's state and loop carry into the static buffers."""
         _load(self.state, state)
         _load(self.loop, loop)
-        if state.generator is not self.state.generator:
-            self.state.generator.set_state(state.generator.get_state())
 
     def replay(self) -> list:
-        """Run the body once; returns [n_out, done, commit_len]."""
+        """Run the body once; returns what `readback` reads (for the
+        single-request loops [n_out, done, commit_len])."""
         self.graph.replay()
         torch.cuda.current_stream(self.device).synchronize()
         wrappers = counted_wrappers()
@@ -178,23 +356,43 @@ class DecodeGraph:
         return self.host.tolist()
 
 
+class EagerBody:
+    """The CPU's counterpart of a `DecodeGraph`: the same body run on
+    `state` and `loop` themselves, with the same `replay` and `load`."""
+
+    def __init__(self, eng, body, state, loop, readback=_readback):
+        self.eng, self.body, self.readback = eng, body, readback
+        self.state, self.loop = state, loop
+
+    def load(self, state, loop) -> None:
+        self.state, self.loop = state, loop
+
+    def replay(self) -> list:
+        self.state = self.body(self.eng, self.state, self.loop)
+        return self.readback(self.state, self.loop).tolist()
+
+
+def runner(eng, key, body, state, loop, readback=_readback):
+    """The engine's graph for `key` (captured at its first use) loaded
+    with `state` and `loop` on the card, an `EagerBody` on the CPU."""
+    if state.commit_len.device.type != "cuda":
+        return EagerBody(eng, body, state, loop, readback)
+    g = eng._graphs.get(key)
+    if g is None:
+        g = eng._graphs[key] = DecodeGraph(eng, body, state, loop, readback)
+    g.load(state, loop)
+    return g
+
+
 def _run(eng, key, body, state, loop: LoopBuffers, cond):
     """Run `body` while `cond(n_out, done, commit_len)` holds: replays of
     the engine's graph for `key` on the card, the body itself on the CPU.
     Returns (state, loop) after the last body."""
     vals = _readback(state, loop).tolist()
-    if state.commit_len.device.type != "cuda":
-        while cond(*vals):
-            state = body(eng, state, loop)
-            vals = _readback(state, loop).tolist()
-        return state, loop
-    g = eng._graphs.get(key)
-    if g is None:
-        g = eng._graphs[key] = DecodeGraph(eng, body, state, loop)
-    g.load(state, loop)
+    r = runner(eng, key, body, state, loop)
     while cond(*vals):
-        vals = g.replay()
-    return g.state, g.loop
+        vals = r.replay()
+    return r.state, r.loop
 
 
 def spec_decode_loop(eng, state, eos_id: int, budget: int,
@@ -227,3 +425,32 @@ def ar_decode_loop(eng, state, eos_id: int, *, max_out: int) -> list:
     _, loop = _run(eng, key, _ar_body, state, loop,
                    lambda n, done, commit: not done and n < max_out)
     return loop.out_buf[:int(loop.n_out)].tolist()
+
+
+def lane_decode_loop(eng, state, eos_id: int, budgets, commit_cap: int):
+    """The counterpart of the vmapped `_spec_decode_loop` over the lanes of
+    `state`: rounds while any lane has no EOS written, fewer tokens than
+    its budget and commit_len <= commit_cap. Returns (per-lane tokens
+    written, per-lane rounds, per-lane done, state)."""
+    dev = state.commit_len.device
+    b = state.commit_len.shape[0]
+    z = lambda dt: torch.zeros((b,), dtype=dt, device=dev)
+    loop = LaneLoop(
+        out_buf=torch.zeros((b, eng.cfg.max_seq_len + 1), dtype=torch.int32,
+                            device=dev),
+        n_out=z(torch.int32), done=z(torch.bool), rounds=z(torch.int32),
+        budget=torch.tensor(budgets, dtype=torch.int32).to(dev),
+        eos_id=torch.full((), eos_id, dtype=torch.int32, device=dev),
+        commit_cap=torch.full((), commit_cap, dtype=torch.int32,
+                              device=dev))
+    key = ("lanes", state.base_cache.max_len, state.draft_cache.max_len, b)
+    r = runner(eng, key, _lane_body, state, loop, _lane_readback)
+    vals = _lane_readback(state, loop).tolist()
+    while vals[0]:
+        vals = r.replay()
+    lp = r.loop
+    n_out, done, rounds = torch.stack(
+        [lp.n_out, lp.done.to(torch.int32), lp.rounds]).tolist()
+    bufs = lp.out_buf.tolist()
+    return ([bufs[i][:n_out[i]] for i in range(b)], rounds,
+            [bool(d) for d in done], r.state)

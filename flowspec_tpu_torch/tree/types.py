@@ -5,6 +5,10 @@ array padded to a fixed node capacity; the ancestor mask and retrieve paths
 are derived with vectorized index ops. Node 0 is always the root. Parents
 precede children. Invalid slots (i >= n_nodes) have parent -1, token -1,
 depth 0. `n_nodes`/`n_leaves` are 0-d int32 tensors on the tree's device.
+
+A tree of B lanes (requests served together) carries a leading lane axis
+on every field: tokens (B, N), retrieve (B, L, D), n_nodes (B,), and so
+on. Every function here works on either form, lane by lane.
 """
 
 from __future__ import annotations
@@ -18,40 +22,56 @@ NEG_INF = -1e9
 
 @dataclasses.dataclass(frozen=True)
 class TokenTree:
-    tokens: torch.Tensor    # (N,) int32 — node tokens; [0] = root token
-    parents: torch.Tensor   # (N,) int32 — parent node index; -1 for root/invalid
-    depth: torch.Tensor     # (N,) int32 — root depth 0
-    scores: torch.Tensor    # (N,) float32 — cumulative draft log-prob (root 0)
-    retrieve: torch.Tensor  # (L, D) int32 — per-leaf root->leaf node paths, -1 pad
-    n_nodes: torch.Tensor   # () int32
-    n_leaves: torch.Tensor  # () int32
+    tokens: torch.Tensor    # ([B,] N) int32 — node tokens; [0] = root token
+    parents: torch.Tensor   # ([B,] N) int32 — parent node; -1 root/invalid
+    depth: torch.Tensor     # ([B,] N) int32 — root depth 0
+    scores: torch.Tensor    # ([B,] N) float32 — cumulative draft log-prob
+    retrieve: torch.Tensor  # ([B,] L, D) int32 — root->leaf paths, -1 pad
+    n_nodes: torch.Tensor   # ([B]) int32
+    n_leaves: torch.Tensor  # ([B]) int32
 
     @property
     def node_cap(self) -> int:
-        return self.tokens.shape[0]
+        return self.tokens.shape[-1]
 
     @property
     def leaf_cap(self) -> int:
-        return self.retrieve.shape[0]
+        return self.retrieve.shape[-2]
 
     @property
     def depth_cap(self) -> int:
-        return self.retrieve.shape[1]
+        return self.retrieve.shape[-1]
 
     def valid(self) -> torch.Tensor:
-        """(N,) bool — which node slots are live."""
+        """([B,] N) bool — which node slots are live."""
         return torch.arange(self.node_cap, device=self.tokens.device) \
-            < self.n_nodes
+            < self.n_nodes[..., None]
 
     def leaf_valid(self) -> torch.Tensor:
         return torch.arange(self.leaf_cap, device=self.tokens.device) \
-            < self.n_leaves
+            < self.n_leaves[..., None]
 
     def candidates(self) -> torch.Tensor:
-        """(L, D) int32 token sequences along each root->leaf path, -1 pad."""
+        """([B,] L, D) int32 token sequences along each root->leaf path, -1
+        pad."""
         safe = self.retrieve.clamp(0, self.node_cap - 1).long()
-        toks = self.tokens[safe]
+        toks = torch.gather(
+            self.tokens[..., None, :].expand(*safe.shape[:-1],
+                                             self.node_cap), -1, safe)
         return torch.where(self.retrieve >= 0, toks, -1)
+
+    def lanes(self) -> "TokenTree":
+        """The tree with a lane axis: itself if it has one, else as B = 1
+        (views)."""
+        if self.tokens.dim() == 2:
+            return self
+        return TokenTree(**{f.name: getattr(self, f.name)[None]
+                            for f in dataclasses.fields(self)})
+
+    def lane(self, b: int) -> "TokenTree":
+        """Lane `b` as a one-request tree (views)."""
+        return TokenTree(**{f.name: getattr(self, f.name)[b]
+                            for f in dataclasses.fields(self)})
 
 
 def take(x: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
@@ -59,6 +79,20 @@ def take(x: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
     takes a 0-d tensor index for a Python int and reads it back to the
     host, which a captured CUDA graph cannot do."""
     return x[tuple(i.reshape(1).long() for i in index)][0]
+
+
+def lane_take(x: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
+    """x[b, i[b], j[b], ...] for every lane b of (B,) index tensors: (B,
+    ...), gathered on the device."""
+    lanes = torch.arange(x.shape[0], device=x.device)
+    return x[(lanes,) + tuple(i.long() for i in index)]
+
+
+def lane_gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x[b, index[b, j], ...] for (B, J) `index`: (B, J, ...) — rows of
+    each lane's own (B, N, ...) slice."""
+    lanes = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[lanes, index.long()]
 
 
 def ceil_log2(x: int) -> int:
@@ -70,19 +104,22 @@ def ceil_log2(x: int) -> int:
 
 def ancestor_matrix(parents: torch.Tensor, depth_cap: int,
                     valid: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, N) bool: out[i, j] iff j is an ancestor of i or i == j, by
+    """([B,] N, N) bool: out[i, j] iff j is an ancestor of i or i == j, by
     pointer doubling (`ceil_log2(depth_cap) + 1` gather-OR steps)."""
-    n = parents.shape[0]
-    anc = torch.eye(n, dtype=torch.bool, device=parents.device)
+    n = parents.shape[-1]
+    lead = parents.shape[:-1]
+    anc = torch.eye(n, dtype=torch.bool, device=parents.device).expand(
+        *lead, n, n)
     ptr = parents.long()
     for _ in range(ceil_log2(depth_cap) + 1):
         safe = ptr.clamp(0, n - 1)
         live = ptr >= 0
-        hop_rows = anc[safe] & live[:, None]
-        ptr = torch.where(live, ptr[safe], -1)
+        hop_rows = torch.gather(anc, -2, safe[..., None].expand(*lead, n, n)) \
+            & live[..., None]
+        ptr = torch.where(live, torch.gather(ptr, -1, safe), -1)
         anc = anc | hop_rows
     if valid is not None:
-        anc = anc & valid[:, None] & valid[None, :]
+        anc = anc & valid[..., :, None] & valid[..., None, :]
     return anc
 
 
@@ -96,15 +133,15 @@ def tree_attention_bias(parents: torch.Tensor, depth_cap: int,
 
 
 def depths_from_parents(parents: torch.Tensor, depth_cap: int) -> torch.Tensor:
-    """(N,) int32 depth of each node (root = 0) by pointer doubling."""
-    n = parents.shape[0]
+    """([B,] N) int32 depth of each node (root = 0) by pointer doubling."""
+    n = parents.shape[-1]
     depth = (parents >= 0).to(torch.int32)
     ptr = parents.long()
     for _ in range(ceil_log2(depth_cap) + 1):
         safe = ptr.clamp(0, n - 1)
         live = ptr >= 0
-        hop_depth = torch.where(live, depth[safe], 0)
-        hop_ptr = torch.where(live, ptr[safe], -1)
+        hop_depth = torch.where(live, torch.gather(depth, -1, safe), 0)
+        hop_ptr = torch.where(live, torch.gather(ptr, -1, safe), -1)
         depth = depth + hop_depth
         ptr = torch.where(live, hop_ptr, -1)
     return depth.to(torch.int32)

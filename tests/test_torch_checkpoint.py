@@ -179,13 +179,13 @@ def test_port_state_resume_equals_uninterrupted(tmp_path, pair, temperature):
     ckpt.save_state(st, str(tmp_path / "st"))
     st2 = ckpt.load_state(str(tmp_path / "st"), device="cpu")
     assert int(st2.commit_len) == int(st.commit_len)
-    assert torch.equal(st2.generator.get_state(), st.generator.get_state())
+    assert torch.equal(st2.rng, st.rng)
     assert _finish(eng, st2, out, len(prompt) + N_NEW) == full
 
 
 def test_jax_greedy_state_resumes_in_the_port(tmp_path, pair):
     """A greedy state of the JAX engine, saved after 4 rounds, loads in the
-    port (its PRNG key seeds a fresh generator) and finishes with the JAX
+    port (its PRNG key seeds a fresh draw stream) and finishes with the JAX
     engine's uninterrupted stream."""
     p, d = pair
     jcfg = JEngineConfig(model=MC, tree=JTreeConfig(**TREE),
@@ -202,7 +202,7 @@ def test_jax_greedy_state_resumes_in_the_port(tmp_path, pair):
                 np.asarray(res.accepted)[:int(res.n_accepted)]]
     jckpt.save_state(st, str(tmp_path / "st"))
     port_st = ckpt.load_state(str(tmp_path / "st"), device="cpu")
-    assert isinstance(port_st.generator, torch.Generator)
+    assert port_st.rng.shape == (1, 2)
     assert int(port_st.commit_len) == int(st.commit_len)
     eng = _port_engine(pair)
     assert _finish(eng, port_st, out, len(prompt) + N_NEW) == \

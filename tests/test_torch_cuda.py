@@ -26,7 +26,11 @@ heads) and Mixtral's G 4 (8 KV heads), head top-k at Qwen2's V 152064 (1188
 strips, keys merged from device memory) with a tie across strips; a tiny
 Mixtral's round captured and replayed with the eager round's bits; the
 loaders and checkpoints put every tensor on the card when no device is
-named.
+named. Lanes: the attention kernel over B lanes (each with its own bias and
+live rows, read per lane) against plain, lane b bit-equal to a one-lane
+launch of lane b; the gated lane loop's graph replayed with the eager lane
+body's bits; a second `serve` call with the same lanes and queue capacity,
+and a `serve` after `warmup`, capture no graph.
 """
 
 import pytest
@@ -530,10 +534,10 @@ def test_lm_head_logits_no_f32_copy_of_the_head(cuda):
 
 
 def test_fused_sampling_replays_with_the_request_generator(cuda):
-    """Stochastic rounds captured with the sampling generator registered:
-    in-vocabulary tokens, the same stream for the same seed, another for
-    another seed (each request's generator state is loaded into the
-    graph's)."""
+    """Stochastic rounds captured with the request's draw stream (a state
+    tensor, loaded into the graph's like the lengths): in-vocabulary
+    tokens, the same stream for the same seed and as the eager loop's,
+    another for another seed."""
     import dataclasses
     from flowspec_tpu_torch.config import SamplingConfig
     from flowspec_tpu_torch.runtime import SpecEngine
@@ -548,6 +552,8 @@ def test_fused_sampling_replays_with_the_request_generator(cuda):
     c, _ = eng.generate_fused(prompt, max_new_tokens=40, eos_token_id=-1,
                               seed=2)
     assert a == b and a != c
+    assert a == eng.generate(prompt, max_new_tokens=40, eos_token_id=-1,
+                             seed=1)[0]
     assert len(a) == len(prompt) + 40 and all(0 <= t < 1024 for t in a)
     assert stats["accept_per_round"] >= 1.0
     d, _ = eng.generate_ar_fused(prompt, max_new_tokens=20, eos_token_id=-1,
@@ -699,3 +705,128 @@ def test_loaders_and_checkpoints_default_to_the_card(cuda, tmp_path):
         assert len(leaves) == 3 + 12
         assert all(x.device.type == "cuda" for x in leaves)
     assert torch.equal(back.layers.bv, p.layers.bv)
+
+
+@pytest.mark.parametrize("nq,nkv,t", [(32, 32, 32), (8, 8, 10), (28, 4, 9)])
+def test_tree_attention_lanes_match_plain_and_one_lane_bits(cuda, nq, nkv, t):
+    """Four lanes in one launch, each with its own bias and live rows (one
+    tile, a partial tile, 300, the whole allocation): every lane within
+    one bf16 rounding of plain, bit-equal to a one-lane launch of it (with
+    a device n_valid and with a host one), and each lane reads its own
+    n_valid: rows past a lane's live tiles hold NaN and change nothing."""
+    b, s_max, d = 4, 512, 128
+    n_valid = [40, 97, 300, 512]
+    parts = [_attn(cuda, nq, nkv, t, s_max, d, max(n, t)) for n in n_valid]
+    q, k, v = (torch.cat([p[i] for p in parts]) for i in range(3))
+    bias = torch.stack([p[3] for p in parts])
+    clean_k, clean_v = k.clone(), v.clone()
+    for i, n in enumerate(n_valid):
+        end = -(-n // 64) * 64
+        k[i, :, end:] = float("nan")
+        v[i, :, end:] = float("nan")
+    nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    before = tree_attention.launches
+    got = tree_attention(q, k, v, bias, nv)
+    assert tree_attention.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    for i, n in enumerate(n_valid):
+        one = tree_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], bias[i],
+                             nv[i:i + 1])
+        host = tree_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], bias[i], n)
+        want = tree_attention_plain(q[i:i + 1], clean_k[i:i + 1],
+                                    clean_v[i:i + 1], bias[i],
+                                    live_keys(s_max, n))
+        torch.cuda.synchronize()
+        assert torch.equal(got[i:i + 1], one), i
+        assert torch.equal(one, host), i
+        assert float((got[i:i + 1].float()
+                      - want.float()).abs().max()) <= 2e-2, i
+    plan = attention_plan(nkv, nq // nkv, t, s_max, lanes=b)
+    assert plan.blocks % b == 0
+
+
+def _tiny_batched_engine(batch_size=3):
+    from flowspec_tpu_torch.runtime import BatchedSpecEngine
+    eng = _tiny_cuda_engine()
+    return BatchedSpecEngine(eng.params, eng.draft, eng.cfg,
+                             batch_size=batch_size, adapt_tree=False)
+
+
+def test_lane_graph_replay_equals_eager_lane_round_bits(cuda):
+    """The gated lane loop's body over three lanes captured once and
+    replayed gives the eager body's bits, replay after replay, with a lane
+    stopped early by its budget (all but its scratch KV row, where a
+    stopped lane's writes land in no fixed order); it launches what one
+    lane's round
+    launches; generate_batch_fused's streams equal generate_batch's."""
+    from flowspec_tpu_torch.ops import counted_wrappers
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_batched_engine()
+    prompts = [list(range(3, 40)), list(range(50, 70)), list(range(7, 61))]
+    state = eng._stack_states([eng._prefill_one(p, i)
+                               for i, p in enumerate(prompts)], [0, 1, 2])
+    b = len(prompts)
+    loop = graphs.LaneLoop(
+        out_buf=torch.zeros((b, 65), dtype=torch.int32, device="cuda"),
+        n_out=torch.zeros((b,), dtype=torch.int32, device="cuda"),
+        done=torch.zeros((b,), dtype=torch.bool, device="cuda"),
+        rounds=torch.zeros((b,), dtype=torch.int32, device="cuda"),
+        budget=torch.tensor([64, 2, 64], dtype=torch.int32, device="cuda"),
+        eos_id=torch.full((), -1, dtype=torch.int32, device="cuda"),
+        commit_cap=torch.full((), 200, dtype=torch.int32, device="cuda"))
+    eager, eager_loop = graphs._clone(state), graphs._clone(loop)
+    g = graphs.DecodeGraph(eng, graphs._lane_body, state, loop,
+                           graphs._lane_readback)
+
+    def same(x, y):
+        # a stopped lane's writes all land on its last KV row, a scratch
+        # row no length reaches (models/kv_cache.py): compare the others
+        if x.dim() == 5:
+            x, y = x[..., :-1, :], y[..., :-1, :]
+        return torch.equal(x, y)
+    one = graphs.DecodeGraph(
+        eng, graphs._spec_body, eng._prefill_one(prompts[0], 0),
+        graphs._loop_buffers(64, -1, "cuda"))
+    assert g.launches == one.launches
+    counters = counted_wrappers()
+    for _ in range(4):
+        before = {n: fn.launches for n, fn in counters.items()}
+        g.replay()
+        for n, fn in counters.items():
+            assert fn.launches - before[n] == g.launches.get(n, 0), n
+        eager = graphs._lane_body(eng, eager, eager_loop)
+        torch.cuda.synchronize()
+        for x, y in zip(graphs._fields(g.state), graphs._fields(eager)):
+            assert same(x, y)
+        for x, y in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
+            assert torch.equal(x, y)
+    assert int(g.loop.rounds[1]) < int(g.loop.rounds[0])
+    outs, stats = eng.generate_batch(prompts, max_new_tokens=40,
+                                     eos_token_id=-1)
+    fused, fstats = eng.generate_batch_fused(prompts, max_new_tokens=40,
+                                             eos_token_id=-1)
+    assert fused == outs and fstats["rounds"] == stats["rounds"]
+
+
+def test_serve_captures_once_per_lanes_and_queue_capacity(cuda):
+    """A second serve of as many requests (the same queue capacity)
+    replays the graph the first captured; warmup(n_requests) captures the
+    graph a later call of that many requests replays; the streams of two
+    calls are equal."""
+    eng = _tiny_batched_engine(batch_size=2)
+    prompts = [list(range(3 + i, 30 + 2 * i)) for i in range(5)]
+    a, sa = eng.serve(prompts, max_new_tokens=[8, 3, 12, 5, 7],
+                      eos_token_id=-1)
+    graphs_after = dict(eng._graphs)
+    b, sb = eng.serve(prompts, max_new_tokens=[8, 3, 12, 5, 7],
+                      eos_token_id=-1)
+    assert a == b and sa == sb
+    assert eng._graphs == graphs_after
+    prefix = list(range(100, 120))
+    fresh = _tiny_batched_engine(batch_size=2)
+    keys = fresh.warmup(n_requests=12, shared_prefix=prefix)
+    warmed = dict(fresh._graphs)
+    assert set(keys) <= set(warmed)
+    fresh.serve([prefix + [5 + i, 6] for i in range(12)], max_new_tokens=4,
+                eos_token_id=-1, shared_prefix=prefix)
+    assert fresh._graphs == warmed

@@ -5,7 +5,8 @@ run on identical logits (tools/make_posterior_fixture.py), the fixture
 tests/test_posterior_fixture.py holds the JAX package to.
 
 - greedy: (best leaf, accept length, next-token argmax) exactly;
-- stochastic: draws from a `torch.Generator` cannot match the reference's,
+- stochastic: draws from a lane stream (`Draws`) cannot match the
+  reference's,
   so the LAW must: the total variation distance between the two empirical
   accept-length distributions over the fixture's trial count stays under
   0.08 (two samples of 2000 from one law over a handful of bins stay well
@@ -30,6 +31,7 @@ from flowspec_tpu_torch.tree.build import finalize_tree
 from flowspec_tpu_torch.tree.posterior import (
     evaluate_posterior_greedy, evaluate_posterior_stochastic,
 )
+from flowspec_tpu_torch.tree.sampling import Draws, lane_rng
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "posterior_ref.npz")
@@ -75,13 +77,14 @@ def test_stochastic_law_matches_reference(fx, t):
     logits = _pad_logits(fx[f"s{t}_logits"])
     ref_accs = fx[f"s{t}_accepts"]
     gen = torch.Generator().manual_seed(42 + t)
+    draws = Draws(lane_rng(torch.tensor([42 + t])))
     p_root = torch.softmax(logits[0], dim=-1).numpy()
     cand = tree.candidates()
 
     ours = np.zeros(n_trials, np.int64)
     first = np.zeros(n_trials, np.int64)
     for i in range(n_trials):
-        res = evaluate_posterior_stochastic(logits, tree, cfg, gen)
+        res = evaluate_posterior_stochastic(logits, tree, cfg, draws)
         ours[i] = int(res.accept_len)
         assert abs(float(res.sample_p.sum()) - 1.0) < 1e-4
         if ours[i] > 0:
@@ -105,12 +108,12 @@ def test_stochastic_law_matches_reference(fx, t):
 def test_stochastic_at_temperature_to_zero_is_greedy(fx):
     cfg = SamplingConfig(temperature=1e-4)
     assert not cfg.is_greedy
-    gen = torch.Generator().manual_seed(0)
+    draws = Draws(lane_rng(torch.tensor([0])))
     for t in range(int(fx["n_greedy"])):
         tree = _tree_of(fx[f"g{t}_tokens"], fx[f"g{t}_parents"])
         logits = _pad_logits(fx[f"g{t}_logits"])
         want = evaluate_posterior_greedy(logits, tree)
-        got = evaluate_posterior_stochastic(logits, tree, cfg, gen)
+        got = evaluate_posterior_stochastic(logits, tree, cfg, draws)
         assert int(got.accept_len) == int(want.accept_len), t
         if int(want.accept_len) > 0:
             n = int(want.accept_len) + 1
@@ -124,11 +127,12 @@ def test_max_trials_caps_the_sibling_tokens_tried(fx):
     """With one trial per depth only the first sibling can be accepted."""
     tree = _tree_of(fx["s0_tokens"], fx["s0_parents"])
     logits = _pad_logits(fx["s0_logits"])
-    gen = torch.Generator().manual_seed(3)
+    draws = Draws(lane_rng(torch.tensor([3])))
     cand = tree.candidates()
     first_sibling = int(cand[0, 1])
     for _ in range(50):
         res = evaluate_posterior_stochastic(
-            logits, tree, SamplingConfig(temperature=1.0), gen, max_trials=1)
+            logits, tree, SamplingConfig(temperature=1.0), draws,
+            max_trials=1)
         if int(res.accept_len) > 0:
             assert int(cand[int(res.best_leaf), 1]) == first_sibling

@@ -49,7 +49,7 @@ def stamped_library():
                         str(_build.CSRC / "tree_attention.cu")],
                        check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    lib.tree_attention.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    lib.tree_attention.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                                    + [ctypes.c_float, ctypes.c_void_p])
     lib.tree_attention.restype = ctypes.c_int
     lib.tree_attention_set_stamps.argtypes = [ctypes.c_void_p]
@@ -68,7 +68,7 @@ def phases(lib, cs, flush, q, k, v, bias, plan):
     assert lib.tree_attention_set_stamps(stamps.data_ptr()) == 0
     cs.flush_l2(flush)
     err = lib.tree_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             bias.data_ptr(), None, out.data_ptr(), nkv,
+                             bias.data_ptr(), None, out.data_ptr(), 1, nkv,
                              q.shape[1] // nkv, t, s_max, d, plan.n_keys,
                              plan.warps, plan.splits, plan.tiles_per_split,
                              d ** -0.5, torch.cuda.current_stream().cuda_stream)
