@@ -117,7 +117,31 @@ emission, `clock_s`):
      of it; int8 and nf4 at M 128 and 256 on 7B widths (the 4-lane verify
      is 128 rows), int4 at M 128 and 256, int8 on the draft's widths at M
      40 (4 lanes x 10), head top-k at T 4 and T 40.
-Phases 4-6 and 9 run each configuration in a process of its own
+ 10. stream    the same pair served by `serve_stream` (`stream_config`),
+     max_seq 431 so that a static engine (4 lanes, 32-node trees) and a
+     dynamic one (dynamic_tree: 81 / 48 / 32 nodes for 1 / 2-3 / 4 busy
+     lanes; dynamic_batch: widths 1, 2, 4) both hold 512 base KV rows;
+     each timed run follows `warmup` and must capture no graph and launch
+     its rounds x one round's launches: `stream`: 16 requests, 64-token
+     prompts, budgets 32-192, Poisson arrivals at 3 a second on the real
+     clock, k 8, served by the two engines in turns (static, dynamic,
+     dynamic, static): tok/s, admission and completion p50 / p95 in
+     seconds, rounds by (width, tree nodes), slot utilization, accept a
+     round, width switches and min width (the dynamic turns must narrow:
+     min width < 4, >= 2 switches), every stream against AR; every serve
+     graph of the dynamic engine must read its width's buffers (equal
+     data_ptrs) and no buffer may move; `stream_preempt`: 4 requests of
+     192 tokens, then 4 of 16 from 0.3 s on, preempt_factor 2, at least one
+     preemption, the paused requests and every stream against AR;
+     `stream_overlap`: 8 requests on a cold 192-token shared prefix,
+     suffixes 16-48, 64 tokens each, 0.05 s apart, the template built in a
+     thread beside serving, the streams against the prefix-less
+     serve_stream's; `stream_boundary`: one host admission
+     (`_run_boundary`) against one serve replay, host wall ms. The kernel
+     phase holds the dynamic modes' shapes: int8 at the verify's M 162,
+     192 and 324 and the draft's M 20, attention over 1, 2 and 4 lanes at
+     T 81 / 48 / 32, head top-k at T 2 and T 20.
+Phases 4-6, 9 and 10 run each configuration in a process of its own
 (`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
@@ -319,6 +343,38 @@ LANE_ATTN_SHAPES = [
     ("lanes4_verify_T32", 4, 32, 32, 32, 512, [96, 200, 330, 500]),
     ("lanes4_draft_ctx_T10", 4, 8, 8, 10, 768, [70, 190, 300, 460]),
     ("lanes4_beam_T10", 4, 8, 8, 10, 768, [150, 270, 380, 600])]
+# the stream phase: the batched pair served by serve_stream, a static engine
+# (4 lanes, 32-node trees) beside a dynamic one (dynamic_tree and
+# dynamic_batch: 81 / 48 / 32 nodes for 1 / 2-3 / 4 busy lanes, widths 1, 2,
+# 4); max_seq 431 = 512 - 81, so that both allocate 512 base KV rows (the
+# dynamic engine's for the full tree's 81-row verify chunk); 16 requests of
+# 64-token prompts, budgets 32-192, Poisson arrivals at 3 requests/s; a
+# preemption run (4 long, then 4 short from 0.3 s on) and a cold 192-token
+# prefix built beside serving (8 requests 0.05 s apart)
+STREAM_TAG = "stream_7b_int8"
+STREAM_MAX_SEQ = 512 - 81
+STREAM_REQUESTS, STREAM_RATE, STREAM_K = 16, 3.0, 8
+PREEMPT_LONG, PREEMPT_SHORT, PREEMPT_FACTOR = 192, 16, 2.0
+OVERLAP_REQUESTS, OVERLAP_NEW, OVERLAP_GAP = 8, 64, 0.05
+# the kernels at the shapes the dynamic modes give them: verify M = lanes x
+# nodes (1 x 81, 2 x 48, 2 x 81, 4 x 48, 4 x 81; 4 x 32 = 128 above), the
+# draft's M at 2 lanes, head T at 2 lanes, attention over 1, 2 and 4 lanes
+INT8_SHAPES += (
+    [(f"base_{w}_M{m}", m, i, o) for m in (162, 192, 324)
+     for w, i, o in BASE_7B]
+    + [(f"draft_{w}_M20", 20, i, o)
+       for w, i, o in (("fc", 8192, 1024), ("wq", 1024, 1024),
+                       ("w_gate", 1024, 2816), ("w_down", 2816, 1024),
+                       ("w_out", 1024, 4096))])
+HEAD_SHAPES += [("lanes2_root_T2", 2, 4096, 32000),
+                ("lanes2_beam_T20", 20, 4096, 32000)]
+LANE_ATTN_SHAPES += [
+    ("lanes1_verify_T81", 1, 32, 32, 81, 512, [330]),
+    ("lanes2_verify_T48", 2, 32, 32, 48, 512, [150, 400]),
+    ("lanes2_verify_T81", 2, 32, 32, 81, 512, [150, 400]),
+    ("lanes4_verify_T48", 4, 32, 32, 48, 512, [96, 200, 330, 460]),
+    ("lanes4_verify_T81", 4, 32, 32, 81, 512, [96, 200, 330, 430]),
+    ("lanes2_beam_T10", 2, 8, 8, 10, 768, [270, 600])]
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -1772,6 +1828,284 @@ def batched_config(dev, counters, smi):
     return total, {"fused": prof["device_ms_per_round_by_family"]}
 
 
+def stream_workload(vocab):
+    """The open-loop stream: STREAM_REQUESTS 64-token prompts, budgets
+    uniform in 32-192 and Poisson arrivals at STREAM_RATE a second (the
+    first at 0), all from seeded generators."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 5)
+    prompts = random_prompts(vocab, [PROMPT_LEN] * STREAM_REQUESTS, SEED + 5)
+    budgets = torch.randint(32, 193, (STREAM_REQUESTS,), generator=g).tolist()
+    gaps = torch.empty(STREAM_REQUESTS, dtype=torch.float64).exponential_(
+        STREAM_RATE, generator=g)
+    arrivals = (torch.cumsum(gaps, 0) - gaps[0]).tolist()
+    return prompts, budgets, arrivals
+
+
+class ReplayTally:
+    """Counts the serve rounds of each (width, tree nodes) while open, by
+    wrapping `ServeLanes.replay`, and the request each preemption pauses
+    (the lane's request before `_run_boundary` snapshots it)."""
+
+    def __init__(self, engines):
+        from flowspec_tpu_torch.runtime import graphs
+        self.graphs, self.rounds, self.paused = graphs, {}, []
+        self.replay = graphs.ServeLanes.replay
+        tally = self
+
+        def replay(lanes, eng, tree_cfg):
+            key = f"w{lanes.key[3]}_n{tree_cfg.node_cap}"
+            tally.rounds[key] = tally.rounds.get(key, 0) + 1
+            return tally.replay(lanes, eng, tree_cfg)
+        graphs.ServeLanes.replay = replay
+        for eng in engines:
+            boundary = eng._run_boundary
+
+            def run(r, plan, queue, boundary=boundary):
+                if plan.get("pause_idx", -1) >= 0:
+                    tally.paused.append(int(r.loop.req[plan["pause_idx"]]))
+                return boundary(r, plan, queue)
+            eng._run_boundary = run
+
+    def take(self):
+        out, self.rounds, self.paused = (self.rounds, self.paused), {}, []
+        return out
+
+
+def buffer_ptrs(eng):
+    """{serve buffers key: the data_ptr of every state and loop tensor}."""
+    from flowspec_tpu_torch.runtime import graphs
+    return {str(k): [t.data_ptr() for t in graphs._fields(sl.state)]
+            + [t.data_ptr() for t in graphs._fields(sl.loop)]
+            for k, sl in eng._serve_sets.items()}
+
+
+def graphs_share_buffers(eng) -> int:
+    """Raises unless every serve graph reads its width's buffers (the same
+    data_ptr for every state and loop tensor); returns the graph count."""
+    from flowspec_tpu_torch.runtime import graphs
+    ptrs = buffer_ptrs(eng)
+    n = 0
+    for k, g in eng._graphs.items():
+        if k[0] != "serve":
+            continue
+        mine = ([t.data_ptr() for t in graphs._fields(g.state)]
+                + [t.data_ptr() for t in graphs._fields(g.loop)])
+        if mine != ptrs[str(k[:5])]:
+            raise AssertionError(f"stream: graph {k[:5]} nodes "
+                                 f"{k[5].node_cap} has buffers of its own")
+        n += 1
+    return n
+
+
+def stream_turn(eng, counters, expected, tally, prompts, arrivals, budgets,
+                strict=True, **kw):
+    """One timed serve_stream after `warmup`: (outputs past the prompts,
+    seconds, stats, launches, rounds by (width, nodes), paused requests).
+    Raises if the run captured a graph, or (strict) if its launches are not
+    its rounds x the launches a round implies."""
+    import torch
+    eng.warmup(n_requests=len(prompts))
+    n_graphs = len(eng._graphs)
+    torch.cuda.synchronize()
+    zero(counters)
+    tally.take()
+    t0 = time.perf_counter()
+    outs, st = eng.serve_stream(prompts, arrivals, max_new_tokens=budgets,
+                                eos_token_id=-1,
+                                rounds_per_dispatch=STREAM_K, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = counts(counters)
+    if len(eng._graphs) != n_graphs:
+        raise AssertionError("stream: a timed serve_stream captured a graph")
+    want = {n: st["rounds"] * expected.get(n, 0) for n in launches}
+    bad = {n: c for n, c in launches.items()
+           if (c != want[n] if strict else c < want[n] or
+               (want[n] == 0 and c))}
+    if bad:
+        raise AssertionError(f"stream: {bad} launches over {st['rounds']} "
+                             f"rounds, expected {expected} a round")
+    by_shape, paused = tally.take()
+    return ([o[len(p):] for o, p in zip(outs, prompts)], sec, st, launches,
+            by_shape, paused)
+
+
+def stream_line(sec, st):
+    keys = ("new_tokens", "rounds", "admission_p50_s", "admission_p95_s",
+            "completion_p50_s", "completion_p95_s", "slot_utilization",
+            "accept_per_round", "width_switches", "min_width",
+            "preemptions", "preempt_cost_skips")
+    return {"seconds": sec, "tok_s": st["new_tokens"] / sec,
+            **{k: st[k] for k in keys}}
+
+
+def stream_config(dev, counters, smi):
+    """The stream phase (module docstring, 10) in its own process: returns
+    its launches over the timed runs. Raises if a stream leaves its AR
+    stream off a near-tie (the cold-prefix streams: the prefix-less
+    stream), if a timed run captures a graph or launches other than its
+    rounds imply, if the dynamic engine never narrows (min_width 4, or
+    fewer than 2 width switches), if no preemption fires, or if a serve
+    graph or a buffer moved off its width's buffers."""
+    import dataclasses
+    import torch
+    from flowspec_tpu_torch.runtime import BatchedSpecEngine
+    eng, _, params_s = make_engine(dev, "7b", "int8", 1, NEW_TOKENS)
+    cfg = dataclasses.replace(eng.cfg, max_seq_len=STREAM_MAX_SEQ)
+    static = BatchedSpecEngine(eng.params, eng.draft, cfg, batch_size=BATCH)
+    dyn = BatchedSpecEngine(eng.params, eng.draft, cfg, batch_size=BATCH,
+                            dynamic_tree=True, dynamic_batch=True)
+    del eng
+    mc = static.cfg.model
+    expected = expected_per_round(static)
+    if expected != expected_per_round(dyn):
+        raise AssertionError("stream: the engines' rounds launch apart")
+    tally = ReplayTally((static, dyn))
+    total = {n: 0 for n in counters}
+
+    def add(c):
+        for n in total:
+            total[n] += c[n]
+
+    prompts, budgets, arrivals = stream_workload(mc.vocab_size)
+    # AR references, the preemption run's long requests to their budget
+    ar_budgets = [max(m, PREEMPT_LONG if i < 4 else 0)
+                  for i, m in enumerate(budgets)]
+    t0 = time.perf_counter()
+    ar = [static.generate_ar_fused(p, max_new_tokens=m, eos_token_id=-1)[0][
+        len(p):] for p, m in zip(prompts, ar_budgets)]
+    ar_s = time.perf_counter() - t0
+
+    # open loop, in turns: static, dynamic, dynamic, static
+    turns = {"static": [], "dynamic": []}
+    t_warm = time.perf_counter()
+    static.warmup(n_requests=STREAM_REQUESTS)
+    dyn.warmup(n_requests=STREAM_REQUESTS)
+    warm_s = time.perf_counter() - t_warm
+    ptrs = buffer_ptrs(dyn)
+    for side, e in (("static", static), ("dynamic", dyn),
+                    ("dynamic", dyn), ("static", static)):
+        outs, sec, st, launches, by_shape, _ = stream_turn(
+            e, counters, expected, tally, prompts, arrivals, budgets)
+        add(launches)
+        m, fl = divergences(e, prompts, outs,
+                            [a[:n] for a, n in zip(ar, budgets)])
+        check_lossless(f"stream {side}", fl)
+        turns[side].append({**stream_line(sec, st),
+                            "rounds_by_width_nodes": by_shape,
+                            "match_fraction_vs_ar": m,
+                            "first_divergences_vs_ar": fl})
+    for t in turns["dynamic"]:
+        if t["min_width"] >= BATCH or t["width_switches"] < 2:
+            raise AssertionError(f"stream dynamic: never narrowed: {t}")
+    if buffer_ptrs(dyn) != ptrs:
+        raise AssertionError("stream: a serve buffer moved")
+    n_dyn_graphs = graphs_share_buffers(dyn)
+    emit({"phase": "stream", "card": smi,
+          "model": "llama_7b int8 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": None, "lanes": BATCH, "max_seq_len": STREAM_MAX_SEQ,
+          "base_kv_rows": [static.base_kv_len, dyn.base_kv_len],
+          "requests": STREAM_REQUESTS, "rate_per_s": STREAM_RATE,
+          "prompt_len": PROMPT_LEN, "budgets": budgets,
+          "arrivals_s": arrivals, "rounds_per_dispatch": STREAM_K,
+          "static_tree_nodes": static.cfg.tree.node_cap,
+          "dynamic_tree_nodes": {n: tc.node_cap for n, tc
+                                 in dyn._tree_variants.items()},
+          "turns": ["static", "dynamic", "dynamic", "static"],
+          "static": turns["static"], "dynamic": turns["dynamic"],
+          "warmup_s": warm_s, "dynamic_serve_graphs": n_dyn_graphs,
+          "graphs_share_width_buffers": True, "buffers_unmoved": True,
+          "ar_reference_s": ar_s, "param_build_s": params_s})
+
+    # preemption: 4 long requests, then 4 short ones from 0.3 s on
+    pp = prompts[:8]
+    pb = [PREEMPT_LONG] * 4 + [PREEMPT_SHORT] * 4
+    pa = [0.0] * 4 + [0.3 + 0.05 * i for i in range(4)]
+    outs, sec, st, launches, by_shape, paused = stream_turn(
+        static, counters, expected, tally, pp, pa, pb,
+        preempt_factor=PREEMPT_FACTOR)
+    add(launches)
+    m, fl = divergences(static, pp, outs, [a[:n] for a, n in zip(ar, pb)])
+    emit({"phase": "stream_preempt", "card": smi, "budgets": pb,
+          "arrivals_s": pa, "preempt_factor": PREEMPT_FACTOR,
+          **stream_line(sec, st), "completion_s": st["completion_s"],
+          "paused_requests": paused,
+          "paused_match_fraction_vs_ar": [m[i] for i in paused],
+          "match_fraction_vs_ar": m, "first_divergences_vs_ar": fl})
+    check_lossless("stream preempt", fl)
+    if st["preemptions"] < 1:
+        raise AssertionError(f"stream preempt: no preemption: {st}")
+
+    # a cold shared prefix built in a thread beside serving
+    prefix = random_prompts(mc.vocab_size, [PREFIX_LEN], SEED + 6)[0]
+    op = [prefix + sfx for sfx in random_prompts(
+        mc.vocab_size, PREFIX_SUFFIXES, SEED + 7)]
+    oa = [OVERLAP_GAP * i for i in range(OVERLAP_REQUESTS)]
+    ob = [OVERLAP_NEW] * OVERLAP_REQUESTS
+    plain, p_sec, p_st, launches, _, _ = stream_turn(
+        dyn, counters, expected, tally, op, oa, ob)
+    add(launches)
+    cold = dyn._prefix_templates.copy()
+    outs, sec, st, launches, by_shape, _ = stream_turn(
+        dyn, counters, expected, tally, op, oa, ob, strict=False,
+        shared_prefix=prefix, prefix_overlap=True)
+    add(launches)
+    if len(dyn._prefix_templates) != len(cold) + 1:
+        raise AssertionError("stream overlap: the template was not cold")
+    m, fl = divergences(dyn, op, outs, plain)
+    other = random_prompts(mc.vocab_size, [PREFIX_LEN], SEED + 8)[0]
+    t0 = time.perf_counter()
+    dyn._prefix_template(other, SEED)       # a build alone, for its time
+    torch.cuda.synchronize()
+    template_s = time.perf_counter() - t0
+    emit({"phase": "stream_overlap", "card": smi, "prefix_len": PREFIX_LEN,
+          "suffix_lens": PREFIX_SUFFIXES, "new_tokens": OVERLAP_NEW,
+          "arrivals_s": oa, "template_alone_s": template_s,
+          "without_prefix": stream_line(p_sec, p_st),
+          "cold_overlap": stream_line(sec, st),
+          "rounds_by_width_nodes": by_shape,
+          "match_fraction_vs_prefixless": m,
+          "first_divergences_vs_prefixless": fl})
+    check_lossless("stream overlap", fl)
+    graphs_share_buffers(dyn)
+
+    # one host admission (_run_boundary) against one serve replay
+    lanes = static._serve_lanes(BATCH, static._queue_pad(STREAM_REQUESTS))
+    tree = static.cfg.tree
+    tpl, _ = static._prefix_template(prefix, SEED)
+
+    def admit(tstate):
+        plan = dict(src_sel=[2] + [0] * (BATCH - 1),
+                    fresh_qpos=[0] + [-1] * (BATCH - 1),
+                    fresh_sfx=[int(op[0][PREFIX_LEN]) if tstate else -1]
+                    + [-1] * (BATCH - 1), fresh_seed=[SEED] * BATCH,
+                    fresh_pos=[PREFIX_LEN if tstate else 0] * BATCH,
+                    pause_idx=-1, parked=None, tstate=tstate)
+        queue = (lanes.loop.q_prompts, lanes.loop.q_lens,
+                 lanes.loop.q_budgets)
+        static._run_boundary(lanes, plan, queue)
+        torch.cuda.synchronize()
+
+    def wall_ms(fn, n=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    emit({"phase": "stream_boundary", "card": smi, "lanes": BATCH,
+          "tree_nodes": tree.node_cap,
+          "serve_replay_ms": wall_ms(lambda: lanes.replay(static, tree)),
+          "admission_ms": wall_ms(lambda: admit(None)),
+          "admission_with_prefix_ms": wall_ms(lambda: admit(tpl)),
+          "what": "host wall ms, synchronized: one serve replay (a round "
+                  "with its pinned read) against one _run_boundary admitting "
+                  "one lane (zero template; prefix template with its KV "
+                  "rows)"})
+    return total
+
+
 def lm_head_check(dev, gen, smi):
     """lm_head_logits at verify width (81 rows) at 7B: within f32 summation
     order of the f32 product, and one call's peak memory below one f32 copy
@@ -2061,6 +2395,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches, profiled = batched_config(dev, launch_counts(), smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, profiled]))
         return 0
+    if tag == STREAM_TAG:
+        launches = stream_config(dev, launch_counts(), smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -2143,7 +2481,7 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in list(CONFIGS) + [BATCHED_TAG]:
+    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),

@@ -1,8 +1,9 @@
 """Batched and continuous-batching speculative decoding over B lanes.
 
 Port of `flowspec_tpu/runtime/batched.py` (`generate_batch`,
-`generate_batch_fused`, `serve`, `warmup`, `ConversationStore`,
-`adapt_tree_for_batch`). The JAX package vmaps its single-request round
+`generate_batch_fused`, `serve`, `serve_stream`, `warmup`,
+`ConversationStore`, `adapt_tree_for_batch`, `dynamic_tree`,
+`dynamic_batch`). The JAX package vmaps its single-request round
 over stacked lane states; here the round itself runs over a leading lane
 axis (`runtime/engine.py _spec_round`): every projection sees the B lanes'
 rows as one matrix, one attention launch a layer serves all lanes (the
@@ -13,8 +14,9 @@ round does, each on B times the rows.
 Lane states are `EngineState`s with (B,) lengths and (L, B, ...) caches
 (a one-request state is one lane), per-lane draw streams in `rng`
 (`tree/sampling.py Draws`: a lane's randomness is keyed by its seed, seed +
-queue position in `serve`, and is its own whatever its neighbours do). A lane that stops (finished, idle, past its KV headroom)
-keeps its state by a per-lane select of the small fields, and its KV
+queue position in `serve`, and is its own whatever its neighbours do). A
+lane that stops (finished, idle, past its KV headroom) keeps its state by a
+per-lane select of the small fields, and its KV
 writes land on its last row only (`models/kv_cache.py`): the KV is never
 copied whole.
 
@@ -33,14 +35,29 @@ copied whole.
   package's. `shared_prefix` prefills a common prefix once into a template
   every lane starts from; `conversations` (a `ConversationStore`) resumes
   a later turn from the lane state a request finished with.
-
-Not ported yet (ROADMAP.md, Queue 1): `serve_stream` (arrivals,
-preemption), `dynamic_tree` and `dynamic_batch`.
+- `serve_stream`: requests arrive over time (`arrivals_s`, an injectable
+  `clock`). At each dispatch boundary the host reorders the arrived queue
+  (`queue_order`, `starvation_cap`), admits arrivals and resumes or
+  preempts a request (`preempt_factor`, its cost gate) in one
+  `_run_boundary`, writing the queue rows and lanes in place; a cold
+  shared prefix builds in a thread while the first arrivals are served
+  without it (`prefix_overlap`).
+- `dynamic_tree`: each serve dispatch drafts the tree its busy-lane count
+  earns (`_serve_tree`); `dynamic_batch`: `serve_stream` re-widths the
+  lanes to 1, 2 or 4 (`_serve_width`, `_resize_lanes`). The serve graphs
+  are keyed by (KV rows, width, queue capacity, tree variant); the
+  variants of one width share its static buffers (`runtime/graphs.py
+  ServeLanes`), so a variant switch copies nothing, and a width switch
+  copies only the lanes that move. `warmup` captures every graph a call
+  of that many requests can pick.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import threading
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -72,6 +89,9 @@ def adapt_tree_for_batch(tree, batch_size: int):
         tree, total_tokens=target - 1,
         node_cap=min(tree.node_cap, target),
         leaf_cap=min(tree.leaf_cap, target))
+
+
+OVERHEAD_ROUNDS = 2     # pause + resume host-boundary dispatches, in rounds
 
 
 class ConversationStore:
@@ -124,31 +144,62 @@ class BatchedSpecEngine(SpecEngine):
                  dynamic_tree: bool = False, dynamic_batch: bool = False,
                  device=None):
         """`adapt_tree` (default on) applies `adapt_tree_for_batch`; pass
-        False to keep the configured tree. The engine runs on `device`:
-        `cuda` unless named (`runtime/engine.py resolve_device`)."""
-        if dynamic_tree or dynamic_batch:
-            raise NotImplementedError(
-                "dynamic_tree / dynamic_batch are not ported yet (ROADMAP.md,"
-                " Queue 1: they come with serve_stream)")
-        if adapt_tree:
+        False to keep the configured tree. `dynamic_tree`: each serve
+        dispatch drafts the `adapt_tree_for_batch` variant of its busy-lane
+        count; the state is allocated for the full tree, which
+        `generate_batch[_fused]` then run (adapt_tree is off).
+        `dynamic_batch`: `serve_stream` re-widths its lanes to the
+        power-of-two bucket of the lanes it needs, capped at batch_size.
+        The engine runs on `device`: `cuda` unless named
+        (`runtime/engine.py resolve_device`)."""
+        self.dynamic_tree = dynamic_tree
+        self.dynamic_batch = dynamic_batch
+        if adapt_tree and not dynamic_tree:
             cfg = dataclasses.replace(
                 cfg, tree=adapt_tree_for_batch(cfg.tree, batch_size))
         super().__init__(params, draft, cfg, device=device)
         self.batch_size = batch_size
+        # the dispatch trees of dynamic_tree by busy-lane count, caps
+        # clamped to each one's node count as SpecEngine clamps the engine's
+        self._tree_variants = {}
+        if dynamic_tree:
+            for n in range(1, batch_size + 1):
+                tc = adapt_tree_for_batch(self.cfg.tree, n)
+                self._tree_variants[n] = dataclasses.replace(
+                    tc, node_cap=min(tc.node_cap, tc.total_tokens + 1),
+                    leaf_cap=min(tc.leaf_cap, tc.total_tokens + 1))
         # shared-prefix templates keyed by the prefix tokens (each holds a
         # whole lane allocation: the two most recent are kept)
         self._prefix_templates = {}
         self._zero_tstate = None
+        self._serve_sets = {}   # ServeLanes by key (runtime/graphs.py)
 
     # ---- the round over lanes ------------------------------------------
     def _lane_round(self, state: EngineState, serve: ServeCtx | None = None,
-                    live=None):
+                    live=None, tree_cfg=None):
         return _spec_round(state, self.params, self.draft, self.beam_head,
                            serve, live, cfg=self.cfg.model,
-                           tree_cfg=self.cfg.tree,
+                           tree_cfg=tree_cfg or self.cfg.tree,
                            sampling=self.cfg.sampling,
                            force_accept=self.cfg.force_accept,
                            fwd=self.forward_fn)
+
+    def _serve_tree(self, n_active: int):
+        """The tree a serve dispatch with `n_active` busy lanes drafts: the
+        engine's, or under dynamic_tree the variant of that count."""
+        if not self.dynamic_tree:
+            return self.cfg.tree
+        return self._tree_variants[max(1, min(int(n_active),
+                                              self.batch_size))]
+
+    def _serve_width(self, want: int) -> int:
+        """The dispatch width for `want` needed lanes (dynamic_batch): the
+        smallest power of two >= want, capped at batch_size."""
+        want = max(1, min(int(want), self.batch_size))
+        w = 1
+        while w < want:
+            w *= 2
+        return min(w, self.batch_size)
 
     # ---- lane states -----------------------------------------------------
     def _lane_state(self, seeds: Sequence[int]) -> EngineState:
@@ -511,13 +562,80 @@ class BatchedSpecEngine(SpecEngine):
         the serve graph is captured once per capacity, not per count."""
         return max(8, 1 << (n_req - 1).bit_length())
 
-    def _serve_key(self, n_req: int, max_seq=None):
-        """The key of the serve graph a call with n_req requests replays."""
-        draft_rows, base_rows = (
-            self._kv_rows(max_seq) if max_seq is not None
-            else (self.draft_kv_len, self.base_kv_len))
-        return ("serve", base_rows, draft_rows, self.batch_size,
-                self._queue_pad(n_req))
+    def _serve_key(self, n_req: int, width=None, tree_cfg=None):
+        """The key of the serve graph a call with n_req requests replays at
+        `width` lanes (batch_size) drafting `tree_cfg` (the engine's)."""
+        return ("serve", self.base_kv_len, self.draft_kv_len,
+                width or self.batch_size, self._queue_pad(n_req),
+                tree_cfg or self.cfg.tree)
+
+    def _serve_lanes(self, width: int, n_pad: int) -> graphs.ServeLanes:
+        """The serve buffers of `width` lanes for queue capacity `n_pad`
+        (made at their first use, kept for later calls); every width of
+        one capacity shares the queue and constants."""
+        key = ("serve", self.base_kv_len, self.draft_kv_len, width, n_pad)
+        if key not in self._serve_sets:
+            share = next((sl.loop for k, sl in self._serve_sets.items()
+                          if k[4] == n_pad), None)
+            if share is None:       # the first width: a queue of its own
+                z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                               device=self.device)
+                share = graphs._clone(self._request_loop(
+                    self._serve_ctx([(None, 0)]), [-1], [graphs.BIG_BUDGET],
+                    0, (z(n_pad, self.cfg.max_seq_len), z(n_pad), z(n_pad)),
+                    0, 0, 0, False, None))
+            self._serve_sets[key] = graphs.ServeLanes(
+                key, self._lane_state([0] * width),
+                graphs.serve_loop(width, share))
+        return self._serve_sets[key]
+
+    def _resize_lanes(self, src: graphs.ServeLanes, width: int, perm,
+                      keep) -> graphs.ServeLanes:
+        """The lanes of `src` moved into the `width`-lane buffers
+        (`flowspec_tpu/runtime/batched.py:200-222`): lane j takes src lane
+        perm[j]; a lane with keep[j] False is deactivated, a placeholder
+        whose KV rows are not copied (only a refill makes it busy, which
+        resets its lengths; no row of it is read before it is written)."""
+        dst = self._serve_lanes(width, src.key[4])
+        idx = torch.tensor(perm, dtype=torch.long).to(self.device)
+        st, ds = src.state, dst.state
+        for f in ("commit_len", "root_token", "pending_tokens",
+                  "pending_hidden", "n_pending", "root_hidden", "rng"):
+            getattr(ds, f).copy_(getattr(st, f)[idx])
+        for c, d in ((st.base_cache, ds.base_cache),
+                     (st.draft_cache, ds.draft_cache)):
+            d.length.copy_(c.length[idx])
+            for j, (pj, kj) in enumerate(zip(perm, keep)):
+                if kj:
+                    d.k[:, j].copy_(c.k[:, pj])
+                    d.v[:, j].copy_(c.v[:, pj])
+        for f in graphs.SERVE_LANE_FIELDS:
+            getattr(dst.loop, f).copy_(getattr(src.loop, f)[idx])
+        dst.loop.active.logical_and_(
+            torch.tensor(list(keep)).to(self.device))
+        return dst
+
+    def _request_loop(self, bctx: ServeCtx, lane_req, lane_budget, qh: int,
+                      queue, n_q: int, eos_token_id: int, seed: int,
+                      hold: bool, tstate) -> graphs.ServeLoop:
+        """A serve call's loop carry: its lanes' contexts, request ids and
+        budgets (nothing emitted), the queue and its constants, the
+        template's."""
+        dev = self.device
+        i32 = lambda x: torch.tensor(x, dtype=torch.int32).to(dev)
+        tmpl = self._template_consts(tstate)
+        return graphs.ServeLoop(
+            prompt_buf=bctx.prompt_buf, prompt_len=bctx.prompt_len,
+            prompt_pos=bctx.prompt_pos, active=bctx.active,
+            req=i32(lane_req), em=i32([0] * len(lane_req)),
+            bud=i32(lane_budget), qh=i32(qh),
+            row=torch.zeros((len(lane_req), self.cfg.tree.depth_cap + 2),
+                            dtype=torch.int32, device=dev),
+            q_prompts=queue[0], q_lens=queue[1], q_budgets=queue[2],
+            n_q=i32(n_q), eos_id=i32(eos_token_id), seed=i32(seed),
+            hold=torch.tensor(hold).to(dev), tp_commit=tmpl[0],
+            tp_draft_len=tmpl[1], tp_pt=tmpl[2], tp_ph=tmpl[3],
+            tp_np=tmpl[4])
 
     # ---- serve ---------------------------------------------------------
     def serve(self, prompts: Sequence, max_new_tokens=None,
@@ -639,27 +757,17 @@ class BatchedSpecEngine(SpecEngine):
         else:
             batched = self._lanes_from_template(tstate, sfx, kseeds)
         bctx = self._serve_ctx(ctxs)
-        i32 = lambda x: torch.tensor(x, dtype=torch.int32).to(dev)
-        tmpl = self._template_consts(tstate)
-        d_cap = self.cfg.tree.depth_cap
-        loop = graphs.ServeLoop(
-            prompt_buf=bctx.prompt_buf, prompt_len=bctx.prompt_len,
-            prompt_pos=bctx.prompt_pos, active=bctx.active,
-            req=i32(lane_np), em=i32([0] * b),
-            bud=i32([budgets[order[qp]] if qp >= 0 else graphs.BIG_BUDGET
-                     for qp in slot_q]),
-            qh=i32(min(b, n_req)),
-            row=torch.zeros((b, d_cap + 2), dtype=torch.int32, device=dev),
-            q_prompts=queue[0], q_lens=queue[1], q_budgets=queue[2],
-            n_q=i32(0 if conv_mode else n_req), eos_id=i32(eos_token_id),
-            seed=i32(seed),
-            hold=torch.tensor(conv_mode).to(dev),
-            tp_commit=tmpl[0].clone(), tp_draft_len=tmpl[1].clone(),
-            tp_pt=tmpl[2].clone(), tp_ph=tmpl[3].clone(),
-            tp_np=tmpl[4].clone())
-        r = graphs.runner(self, self._serve_key(n_req), graphs._serve_body,
-                          batched, loop, graphs._serve_readback)
+        lanes = self._serve_lanes(b, n_pad)
+        lanes.load(batched, self._request_loop(
+            bctx, lane_np, [budgets[order[qp]] if qp >= 0
+                            else graphs.BIG_BUDGET for qp in slot_q],
+            min(b, n_req), queue, 0 if conv_mode else n_req, eos_token_id,
+            seed, conv_mode, tstate))
+        queue = (lanes.loop.q_prompts, lanes.loop.q_lens,
+                 lanes.loop.q_budgets)
         qh_host = min(b, n_req)
+        d_cap = self.cfg.tree.depth_cap
+        dev = self.device
 
         rounds = 0
         busy_slot_rounds = 0
@@ -667,15 +775,18 @@ class BatchedSpecEngine(SpecEngine):
         for qp in range(min(b, n_req)):
             first_seen[order[qp]] = 0
         tail = b * (d_cap + 2)
+        n_active = sum(1 for x in lane_np if x >= 0)
         while not all(finished):
-            # one dispatch: up to k rounds while any lane is active, one
-            # pinned row read a round
-            r.loop.req.copy_(i32(lane_np))
-            r.loop.qh.fill_(qh_host)
-            any_active = bool(r.loop.active.any())
+            # one dispatch drafting the tree of its busy-lane count: up to
+            # k rounds while any lane is active, one pinned row read a round
+            tree = self._serve_tree(n_active)
+            lanes.loop.req.copy_(torch.tensor(lane_np, dtype=torch.int32)
+                                 .to(dev))
+            lanes.loop.qh.fill_(qh_host)
+            any_active = bool(lanes.loop.active.any())
             rows = []
             while len(rows) < k and any_active:
-                vals = r.replay()
+                vals = lanes.replay(self, tree)
                 rows.append(np.asarray(vals[:tail], np.int64).reshape(
                     b, d_cap + 2))
                 any_active = bool(vals[-1])
@@ -744,9 +855,10 @@ class BatchedSpecEngine(SpecEngine):
                             admit_round[rn] = rounds
                             first_seen[rn] = 1
                         qh_host += 1
-                    snap = self._run_boundary(r, plan, queue)
+                    snap = self._run_boundary(lanes, plan, queue)
                     conversations.put(conversation_ids[rq], snap[0],
                                       outs[rq])
+            n_active = sum(1 for x in lane_np if x >= 0)
         total = sum(new_tokens)
         stats = {"new_tokens": total, "rounds": rounds,
                  "per_request": new_tokens,
@@ -759,21 +871,407 @@ class BatchedSpecEngine(SpecEngine):
             stats["resumed_turns"] = resumed_turns
         return outs, stats
 
-    def warmup(self, n_requests: int = 8, shared_prefix=None,
-               max_new_tokens: int = 4):
-        """Prepare what a `serve` call of `n_requests` requests will use, so
-        that it captures nothing: the serve graph of that request count's
-        queue capacity (one tiny serve through it) and, given
-        `shared_prefix`, that prefix's template, cached for later calls.
-        Returns the serve graph keys prepared."""
-        v = self.cfg.model.vocab_size
-        base = [[1 % v, 2 % v, 3 % v], [2 % v, 3 % v, 4 % v]]
-        prompts = [base[i % 2] for i in range(max(1, n_requests))]
-        kw = {}
+    # ---- serve_stream --------------------------------------------------
+    def serve_stream(self, prompts: Sequence, arrivals_s: Sequence[float],
+                     max_new_tokens=None, eos_token_id: int = 2,
+                     seed: int = 0, rounds_per_dispatch: int = 8,
+                     clock=None, queue_order: str = "fifo",
+                     starvation_cap: int | None = None,
+                     shared_prefix=None, prefix_overlap: bool = True,
+                     preempt_factor: float | None = None,
+                     on_token=None):
+        """Continuous batching of requests that arrive over time
+        (`flowspec_tpu/runtime/batched.py:1291-1728`): request r may be
+        admitted `arrivals_s[r]` seconds after serving starts. At each
+        dispatch boundary the host reorders the arrived, unadmitted part of
+        the queue by `queue_order` (a request a later arrival has jumped
+        `starvation_cap` times goes to its front), re-widths the lanes
+        (dynamic_batch), and in one `_run_boundary` resumes the parked
+        request into a free lane, admits arrivals into idle lanes and, with
+        `preempt_factor`, pauses the lane with the most budget left for a
+        pending request at least that factor shorter, where the cost model
+        says the wait for a free lane exceeds the short request's service
+        (one request parked at most; the queue the device may admit from is
+        capped while it is). Lanes that free up mid-dispatch take arrivals
+        on the device. `rounds_per_dispatch` is the admission granularity.
+        `clock` (() -> seconds) replaces the wall clock, as tests do.
+
+        `shared_prefix` (token ids) works as in `serve`; with
+        `prefix_overlap` a prefix whose template is not cached builds in a
+        thread while the first arrivals are served without it: host
+        admissions take it once it lands, in-program refills once every
+        lane was filled from it (a dispatch that must first capture its
+        graph waits for the build). `on_token` as in `serve`. Returns outputs
+        in `prompts` order and the JAX package's statistics, with
+        admission and completion latencies in seconds."""
+        n_req = len(prompts)
+        assert len(arrivals_s) == n_req, (len(arrivals_s), n_req)
+        if max_new_tokens is None:
+            budgets = [self.cfg.max_new_tokens] * n_req
+        elif np.ndim(max_new_tokens) == 0:
+            budgets = [int(max_new_tokens)] * n_req
+        else:
+            budgets = [int(x) for x in max_new_tokens]
+        b = self.batch_size
+        k = max(1, int(rounds_per_dispatch))
+        for p, mx in zip(prompts, budgets):
+            self._check_budget(p, mx)
+        if isinstance(shared_prefix, str):
+            raise ValueError(
+                "auto prefix detection needs the full workload upfront; "
+                "pass explicit tokens to serve_stream")
+        tstate, pfx_len = None, 0
+        pfx_thread, pfx_box = None, {}
         if shared_prefix is not None:
-            pfx = _ints(shared_prefix)
-            prompts = [pfx + p for p in prompts]
-            kw["shared_prefix"] = pfx
-        self.serve(prompts, max_new_tokens=max_new_tokens, eos_token_id=-1,
-                   **kw)
-        return [self._serve_key(len(prompts))]
+            self._check_shared_prefix(prompts, shared_prefix)
+            pkey = np.asarray(shared_prefix, np.int32).reshape(-1).tobytes()
+            if pkey in self._prefix_templates or not prefix_overlap:
+                tstate, pfx_len = self._prefix_template(shared_prefix, seed)
+            else:
+                def _build():
+                    try:
+                        pfx_box["t"] = self._prefix_template(shared_prefix,
+                                                             seed)
+                    except Exception as e:      # re-raised at a boundary
+                        pfx_box["err"] = e
+                pfx_thread = threading.Thread(target=_build, daemon=True)
+                pfx_thread.start()
+        # arrival order is the initial queue order; non-fifo policies
+        # reorder the arrived segment at the boundaries
+        order = sorted(range(n_req), key=lambda r: arrivals_s[r])
+        self._queue_schedule([], [], queue_order)    # validate policy name
+        outs: List[list] = [_ints(p) for p in prompts]
+        new_tokens = [0] * n_req
+        finished = [False] * n_req
+        admit_round = [-1] * n_req
+        finish_round = [0] * n_req
+        admit_s = [0.0] * n_req
+        finish_s = [0.0] * n_req
+        bypass_count = [0] * n_req   # aging state for starvation_cap
+
+        p_cap = self.cfg.max_seq_len
+        n_pad = self._queue_pad(n_req)
+        q_host = (np.zeros((n_pad, p_cap), np.int32),
+                  np.zeros((n_pad,), np.int32),
+                  np.zeros((n_pad,), np.int32))
+        lanes = self._serve_lanes(b, n_pad)
+        queue = (lanes.loop.q_prompts, lanes.loop.q_lens,
+                 lanes.loop.q_budgets)
+
+        def _write_queue_rows(lo: int):
+            """Rows lo..n_req-1 of the queue from `order`, on the host and
+            in place on the device (the captured graphs read them there)."""
+            qp, ql, qb = q_host
+            for qpos in range(lo, n_req):
+                r = order[qpos]
+                pr = np.asarray(prompts[r], np.int32).reshape(-1)
+                qp[qpos] = 0
+                qp[qpos, :len(pr)] = pr
+                ql[qpos] = len(pr)
+                qb[qpos] = budgets[r]
+            for dst, src in zip(queue, q_host):
+                dst[lo:].copy_(torch.from_numpy(src[lo:]))
+
+        _write_queue_rows(0)
+        t0 = time.perf_counter()
+        now = (lambda: time.perf_counter() - t0) if clock is None else clock
+        seeds = [seed + 1000 + s for s in range(b)]
+        lanes.load(
+            self._lane_state(seeds) if tstate is None
+            else self._lanes_from_template(tstate, [-1] * b, seeds),
+            self._request_loop(self._serve_ctx([(None, 0)] * b), [-1] * b,
+                               [graphs.BIG_BUDGET] * b, 0, queue, 0,
+                               eos_token_id, seed, False, None))
+        lane_np = [-1] * b           # host mirrors: values index `order`
+        em_np = [0] * b
+        bud_np = [graphs.BIG_BUDGET] * b
+        born = [tstate is not None] * b   # lane KV holds the prefix rows
+        qh_host = 0
+        d_cap = self.cfg.tree.depth_cap
+        dev = self.device
+
+        rounds = 0
+        busy_slot_rounds = 0
+        parked = None   # (state, ctx, em, bud, qpos, born): at most one
+        preemptions = 0
+        cost_skips = 0
+        width_switches = 0
+        min_width = b
+        cap_rounds = 0
+        try:
+            while not all(finished):
+                t = now()
+                n_arrived = sum(1 for r in order if arrivals_s[r] <= t)
+                # all lanes idle, nothing parked, nothing arrived: wait for the
+                # next arrival instead of spinning empty dispatches
+                if (parked is None and n_arrived <= qh_host
+                        and all(x < 0 for x in lane_np)):
+                    nxt = min((arrivals_s[r] for r in order
+                               if arrivals_s[r] > t), default=None)
+                    if nxt is None:
+                        break
+                    if clock is None:
+                        time.sleep(max(0.0, nxt - now()))
+                    continue
+                if queue_order != "fifo" and n_arrived > qh_host:
+                    pend = [r for r in order[qh_host:] if arrivals_s[r] <= t]
+                    fut = [r for r in order[qh_host:] if arrivals_s[r] > t]
+                    if starvation_cap is not None:
+                        promoted = [r for r in pend
+                                    if bypass_count[r] >= starvation_cap]
+                        promoted.sort(key=lambda r: (arrivals_s[r], r))
+                        rest = [r for r in pend
+                                if bypass_count[r] < starvation_cap]
+                        sched = promoted + self._queue_schedule(
+                            rest, budgets, queue_order)
+                        # bypassed: a later arrival is scheduled ahead of it
+                        for i, r in enumerate(sched):
+                            if any((arrivals_s[x], x) > (arrivals_s[r], r)
+                                   for x in sched[:i]):
+                                bypass_count[r] += 1
+                    else:
+                        sched = self._queue_schedule(pend, budgets,
+                                                     queue_order)
+                    new_tail = sched + fut
+                    if new_tail != order[qh_host:]:
+                        order[qh_host:] = new_tail
+                        _write_queue_rows(qh_host)
+                # the cold prefix template landed?
+                if pfx_thread is not None and not pfx_thread.is_alive():
+                    pfx_thread.join()
+                    if "err" in pfx_box:
+                        raise pfx_box["err"]
+                    tstate, pfx_len = pfx_box["t"]
+                    pfx_thread = None
+
+                # dynamic_batch: the width of the lanes this moment needs
+                # (active + pending + one for a parked resume); active lanes
+                # move to the front, grown lanes are placeholders
+                if self.dynamic_batch:
+                    n_act = sum(1 for x in lane_np if x >= 0)
+                    want = (n_act + max(0, n_arrived - qh_host)
+                            + (1 if parked is not None else 0))
+                    w = self._serve_width(want)
+                    cur = len(lane_np)
+                    if w != cur:
+                        src = ([s for s in range(cur) if lane_np[s] >= 0]
+                               + [s for s in range(cur) if lane_np[s] < 0])
+                        perm = (src + [0] * max(0, w - len(src)))[:w]
+                        keep = [i < min(len(src), w) for i in range(w)]
+                        lanes = self._resize_lanes(lanes, w, perm, keep)
+                        rm = lambda xs, fill: [
+                            xs[perm[i]] if keep[i] else fill for i in range(w)]
+                        lane_np = rm(lane_np, -1)
+                        em_np = rm(em_np, 0)
+                        bud_np = rm(bud_np, graphs.BIG_BUDGET)
+                        born = rm(born, False)
+                        width_switches += 1
+                wb = len(lane_np)
+                min_width = min(min_width, wb)
+
+                # ---- the boundary plan: one _run_boundary for it all ----
+                use_tpl = tstate is not None
+                src_sel = [0] * wb
+                fresh_qpos, fresh_sfx = [-1] * wb, [-1] * wb
+                fresh_seed, fresh_pos = [0] * wb, [0] * wb
+                pause_idx, plan_parked, parked_meta = -1, None, None
+                changed = False
+                if parked is not None:
+                    free = [s for s in range(wb) if lane_np[s] == -1]
+                    if free:
+                        s = free[0]
+                        src_sel[s] = 1
+                        plan_parked = parked[:4]
+                        lane_np[s], em_np[s], bud_np[s] = (
+                            parked[4], parked[2], parked[3])
+                        born[s] = parked[5]
+                        parked = None
+                        changed = True
+                for s in range(wb):
+                    if lane_np[s] != -1 or qh_host >= n_arrived:
+                        continue
+                    r = order[qh_host]
+                    pr = np.asarray(prompts[r], np.int32).reshape(-1)
+                    src_sel[s] = 2
+                    fresh_qpos[s] = qh_host
+                    fresh_sfx[s] = int(pr[pfx_len]) if use_tpl else -1
+                    fresh_seed[s] = seed + qh_host
+                    fresh_pos[s] = pfx_len if use_tpl else 0
+                    born[s] = use_tpl
+                    lane_np[s], em_np[s], bud_np[s] = qh_host, 0, budgets[r]
+                    qh_host += 1
+                    changed = True
+                # preemption: every lane busy, work pending, nothing parked,
+                # the trigger and the cost model both pass; a lane this
+                # boundary fills is no victim (its snapshot would be stale)
+                victims = [s for s in range(wb) if src_sel[s] == 0]
+                if (preempt_factor is not None and parked is None
+                        and qh_host < n_arrived and victims
+                        and all(x >= 0 for x in lane_np)):
+                    accept_est = max(
+                        sum(new_tokens) / busy_slot_rounds, 0.5) \
+                        if busy_slot_rounds else 1.0
+                    remaining = [bud_np[s] - em_np[s] for s in range(wb)]
+                    v = max(victims, key=lambda s: remaining[s])
+                    r = order[qh_host]
+                    suffix = max(len(np.asarray(prompts[r]).reshape(-1))
+                                 - (pfx_len if use_tpl else 0), 1)
+                    service = (math.ceil(suffix / d_cap)
+                               + math.ceil(budgets[r] / accept_est)
+                               + OVERHEAD_ROUNDS)
+                    rounds_to_free = min(remaining) / accept_est
+                    if budgets[r] * preempt_factor <= remaining[v]:
+                        if rounds_to_free > service:
+                            pause_idx = v
+                            parked_meta = (lane_np[v], em_np[v], bud_np[v],
+                                           born[v])
+                            pr = np.asarray(prompts[r], np.int32).reshape(-1)
+                            src_sel[v] = 2
+                            fresh_qpos[v] = qh_host
+                            fresh_sfx[v] = int(pr[pfx_len]) if use_tpl else -1
+                            fresh_seed[v] = seed + qh_host
+                            fresh_pos[v] = pfx_len if use_tpl else 0
+                            born[v] = use_tpl
+                            lane_np[v], em_np[v], bud_np[v] = (
+                                qh_host, 0, budgets[r])
+                            qh_host += 1
+                            preemptions += 1
+                            changed = True
+                        else:
+                            cost_skips += 1
+                if changed:
+                    snap = self._run_boundary(
+                        lanes, dict(src_sel=src_sel, fresh_qpos=fresh_qpos,
+                                    fresh_sfx=fresh_sfx, fresh_seed=fresh_seed,
+                                    fresh_pos=fresh_pos, pause_idx=pause_idx,
+                                    parked=plan_parked,
+                                    tstate=tstate if use_tpl else None), queue)
+                    if snap is not None:
+                        parked = (snap[0], snap[1], parked_meta[1],
+                                  parked_meta[2], parked_meta[0],
+                                  parked_meta[3])
+                for qpos in range(qh_host):
+                    r = order[qpos]
+                    if admit_round[r] < 0:
+                        admit_round[r] = rounds
+                        admit_s[r] = now()
+
+                # one dispatch; while a request is parked the device admits
+                # nothing past the head, so the next freed lane is its
+                n_q_pass = qh_host if parked is not None else n_arrived
+                tree = self._serve_tree(sum(1 for x in lane_np if x >= 0))
+                if pfx_thread is not None and not lanes.ready(self, tree):
+                    pfx_thread.join()   # no capture beside the build
+                all_born = use_tpl and all(born)
+                lp = lanes.loop
+                for dst, v in zip((lp.tp_commit, lp.tp_draft_len, lp.tp_pt,
+                                   lp.tp_ph, lp.tp_np), self._template_consts(
+                                       tstate if all_born else None)):
+                    dst.copy_(v)
+                lp.req.copy_(torch.tensor(lane_np, dtype=torch.int32).to(dev))
+                lp.qh.fill_(qh_host)
+                lp.n_q.fill_(n_q_pass)
+                pre_lane = list(lane_np)
+                tail = wb * (d_cap + 2)
+                any_active = bool(lp.active.any())
+                rows = []
+                vals = None
+                while len(rows) < k and any_active:
+                    vals = lanes.replay(self, tree)
+                    rows.append(np.asarray(vals[:tail], np.int64).reshape(
+                        wb, d_cap + 2))
+                    any_active = bool(vals[-1])
+                n_exec = len(rows)
+                if vals is None:
+                    vals = lanes.readback()
+                lane_np = [int(x) for x in vals[tail:tail + wb]]
+                em_np = [int(x) for x in vals[tail + wb:tail + 2 * wb]]
+                bud_np = [int(x) for x in vals[tail + 2 * wb:tail + 3 * wb]]
+                qh_host = int(vals[tail + 3 * wb])
+                if not all_born:
+                    # refills on the device ran with the zero template: a lane
+                    # it refilled no longer holds the prefix rows
+                    for s in range(wb):
+                        if lane_np[s] != pre_lane[s]:
+                            born[s] = False
+                t_end = now()
+                cap_rounds += n_exec * wb
+                for j in range(n_exec):
+                    for s in range(wb):
+                        qpos = int(rows[j][s, -1])
+                        if qpos < 0:
+                            continue
+                        r = order[qpos]
+                        if finished[r]:
+                            continue
+                        if admit_round[r] < 0:     # admitted on the device
+                            admit_round[r] = rounds + j
+                            admit_s[r] = t_end
+                        busy_slot_rounds += 1
+                        for tk in rows[j][s, :rows[j][s, -2]]:
+                            outs[r].append(int(tk))
+                            new_tokens[r] += 1
+                            if on_token is not None:
+                                on_token(r, int(tk))
+                            if int(tk) == eos_token_id or \
+                                    new_tokens[r] >= budgets[r]:
+                                finished[r] = True
+                                finish_round[r] = rounds + j + 1
+                                finish_s[r] = t_end
+                                break
+                rounds += n_exec
+                if n_exec == 0 and clock is not None:
+                    continue    # a fake clock: let the caller advance it
+        finally:
+            # the build never outlives the call (nor runs beside a
+            # capture of a later one)
+            if pfx_thread is not None:
+                pfx_thread.join()
+        if pfx_box.get("err") is not None:
+            raise pfx_box["err"]
+        lat_admit = [admit_s[r] - arrivals_s[r] for r in range(n_req)]
+        lat_total = [finish_s[r] - arrivals_s[r] for r in range(n_req)]
+        q = lambda xs, p_: float(np.percentile(np.asarray(xs), p_))
+        total = sum(new_tokens)
+        return outs, {
+            "new_tokens": total, "rounds": rounds,
+            "per_request": new_tokens,
+            "latency_rounds": [finish_round[r] - admit_round[r]
+                               for r in range(n_req)],
+            "admit_rounds": admit_round,
+            "admission_s": lat_admit,
+            "completion_s": lat_total,
+            "preemptions": preemptions,
+            "preempt_cost_skips": cost_skips,
+            "width_switches": width_switches,
+            "min_width": min_width,
+            "accept_per_round": total / max(busy_slot_rounds, 1),
+            "admission_p50_s": q(lat_admit, 50),
+            "admission_p95_s": q(lat_admit, 95),
+            "completion_p50_s": q(lat_total, 50),
+            "completion_p95_s": q(lat_total, 95),
+            "slot_utilization": busy_slot_rounds / max(cap_rounds, 1)}
+
+    def warmup(self, n_requests: int = 8, shared_prefix=None):
+        """Prepare what a `serve` or `serve_stream` call of `n_requests`
+        requests will use, so that it captures nothing: for that request
+        count's queue capacity, the serve graph of every (width, tree
+        variant) the engine can pick (one width without dynamic_batch, one
+        variant without dynamic_tree; on the card each is captured now, over
+        its width's buffers) and, given `shared_prefix`, that prefix's
+        template, cached for later calls. Returns the serve graph keys."""
+        if shared_prefix is not None:
+            self._prefix_template(shared_prefix, 0)
+        b = self.batch_size
+        n_pad = self._queue_pad(max(1, n_requests))
+        widths = ({self._serve_width(n) for n in range(1, b + 1)}
+                  if self.dynamic_batch else {b})
+        keys = []
+        for w in sorted(widths):
+            lanes = self._serve_lanes(w, n_pad)
+            for n in range(1, w + 1):
+                tree = self._serve_tree(n)
+                if lanes.key + (tree,) not in keys:
+                    lanes.graph(self, tree)
+                    keys.append(lanes.key + (tree,))
+        return keys

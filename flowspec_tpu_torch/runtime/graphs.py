@@ -35,15 +35,29 @@ round over mixed prompt-chain and decoding lanes, the packed row of the
 round, and the refill of finished lanes from a device-resident request
 queue (the lanes' lengths reset to the prefix template's, the first suffix
 token patched into the pending pairs, a fresh draw stream keyed by the
-seed and the queue position). Each is captured once per (kind, KV rows,
-lanes, queue capacity) and reads one small pinned row a replay.
+seed and the queue position). The lane loop is captured once per (kind, KV
+rows, lanes). The serve body runs over `ServeLanes`, the static buffers of
+one width for one (KV rows, queue capacity), whose request queue and
+constants every width shares; it is captured once per tree variant over
+those same buffers (`DecodeGraph(shared=True)`), so a dynamic tree's
+switch of variant replays another graph on the same state and copies
+nothing. Both read one small pinned row a replay.
+
+No capture runs beside another thread's launches (`serve_stream` joins its
+prefix-template thread before a dispatch that would capture): a capture
+tallies the process-wide launch counters, and a CUDA call from another
+thread may break it. Nor does the cyclic garbage collector run inside a
+capture: a CUDA graph it frees there aborts the process.
 
 A capture that fails raises: there is no fallback to the eager loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import gc
 import time
 
 import torch
@@ -186,12 +200,13 @@ class ServeLoop:
 BIG_BUDGET = 2 ** 30
 
 
-def _serve_body(eng, st, lp: ServeLoop):
+def _serve_body(eng, st, lp: ServeLoop, tree_cfg=None):
     """One serve round (`flowspec_tpu/runtime/batched.py:310-406`): lanes
     past the KV headroom freeze, the round runs over chain and decoding
-    lanes, its packed row is recorded before the refill, then every lane
-    whose request finished (budget or EOS; not held) or that idles takes
-    the next queued request, on the device."""
+    lanes (drafting `tree_cfg`, the engine's tree when None), its packed
+    row is recorded before the refill, then every lane whose request
+    finished (budget or EOS; not held) or that idles takes the next queued
+    request, on the device."""
     from flowspec_tpu_torch.runtime.engine import (
         EngineState, ServeCtx, select_lanes,
     )
@@ -203,7 +218,8 @@ def _serve_body(eng, st, lp: ServeLoop):
     dev = lp.prompt_buf.device
     ctx = lp.ctx()
     ok = st.commit_len <= seq_limit
-    st3, accepted, n_emit, ctx2 = eng._lane_round(st, serve=ctx, live=ok)
+    st3, accepted, n_emit, ctx2 = eng._lane_round(st, serve=ctx, live=ok,
+                                                  tree_cfg=tree_cfg)
     ctx3 = select_lanes(ok, ctx2, ctx)
     n_j = torch.where(ok, n_emit, 0)
     valid = torch.arange(d_cap, device=dev)[None, :] < n_j[:, None]
@@ -274,13 +290,32 @@ def _serve_readback(st, lp: ServeLoop) -> torch.Tensor:
                       lp.active.any().to(torch.int32).reshape(1)])
 
 
-def _fields(x):
+# the ServeLoop fields of each lane; the others (the queue head, the queue,
+# its constants and the template's) are one for every width
+SERVE_LANE_FIELDS = ("prompt_buf", "prompt_len", "prompt_pos", "active",
+                     "req", "em", "bud", "row")
+
+
+def serve_loop(b: int, share: ServeLoop) -> ServeLoop:
+    """An idle ServeLoop of `b` lanes whose queue head, queue and constants
+    are `share`'s tensors (so one in-place write reaches every width)."""
+    p_cap, dev = share.prompt_buf.shape[1], share.prompt_buf.device
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    return dataclasses.replace(
+        share, prompt_buf=z(b, p_cap), prompt_len=z(b), prompt_pos=z(b),
+        active=torch.zeros((b,), dtype=torch.bool, device=dev),
+        req=torch.full((b,), -1, dtype=torch.int32, device=dev), em=z(b),
+        bud=torch.full((b,), BIG_BUDGET, dtype=torch.int32, device=dev),
+        row=z(b, share.row.shape[1]))
+
+
+def _fields(x, payload: bool = True):
     """The tensors of an engine state or loop carry, in field order (a KV
-    cache gives k, v and length)."""
+    cache gives k, v and length; only its length without `payload`)."""
     for f in dataclasses.fields(x):
         v = getattr(x, f.name)
         if isinstance(v, KVCache):
-            yield from (v.k, v.v, v.length)
+            yield from ((v.k, v.v, v.length) if payload else (v.length,))
         elif isinstance(v, torch.Tensor):
             yield v
 
@@ -304,33 +339,64 @@ def _load(dst, src) -> None:
             a.copy_(b)
 
 
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """The cyclic garbage collector off: freeing a CUDA graph (say, of an
+    engine dropped in a reference cycle) inside a capture aborts the
+    process, and a collection may start at any allocation."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 class DecodeGraph:
     """One decode-loop body captured over static buffers: `state` and
-    `loop` (cloned from the first request that needed it; the draw streams
-    are state tensors like any other), `host` (pinned, what `readback`
-    gives), `launches` {kernel: launches a replay}, `capture_s` (warm-up
-    and capture, seconds)."""
+    `loop` (cloned from the first request that needed it, or with `shared`
+    the buffers given, which other graphs read too; the draw streams are
+    state tensors like any other), `host` (pinned, what `readback` gives),
+    `launches` {kernel: launches a replay}, `capture_s` (warm-up and
+    capture, seconds).
 
-    def __init__(self, eng, body, state, loop, readback=_readback):
+    The warm-up body runs on the static buffers before the capture. A body
+    writes KV rows only at or past each lane's length (a stopped lane: its
+    scratch row), and those are written again before they are read; so
+    over shared buffers the warm-up is undone by restoring every other
+    field, and no KV is copied."""
+
+    def __init__(self, eng, body, state, loop, readback=_readback,
+                 shared: bool = False):
         t0 = time.perf_counter()
         self.device = dev = state.commit_len.device
-        self.state, self.loop = _clone(state), _clone(loop)
+        if shared:
+            self.state, self.loop = state, loop
+            saved = [t.clone() for t in self._carry()]
+        else:
+            self.state, self.loop = _clone(state), _clone(loop)
         self.host = torch.zeros((readback(state, loop).numel(),),
                                 dtype=torch.int32, pin_memory=True)
         wrappers = counted_wrappers()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
-            body(eng, self.state, self.loop)          # the warm-up body
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.load(state, loop)
-        before = {n: fn.launches for n, fn in wrappers.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph,
-                                               pool=eng._graph_pool):
-            _load(self.state, body(eng, self.state, self.loop))
-            self.host.copy_(readback(self.state, self.loop),
-                            non_blocking=True)
+        with _no_cyclic_gc():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.no_grad():
+                body(eng, self.state, self.loop)      # the warm-up body
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if shared:
+                for a, b in zip(self._carry(), saved):
+                    a.copy_(b)
+            else:
+                self.load(state, loop)
+            before = {n: fn.launches for n, fn in wrappers.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(self.graph,
+                                                   pool=eng._graph_pool):
+                _load(self.state, body(eng, self.state, self.loop))
+                self.host.copy_(readback(self.state, self.loop),
+                                non_blocking=True)
         self.launches = {n: fn.launches - before[n]
                          for n, fn in wrappers.items()
                          if fn.launches != before[n]}
@@ -339,6 +405,10 @@ class DecodeGraph:
         eng._graph_pool = self.graph.pool()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
+
+    def _carry(self):
+        """Every buffer but the KV rows."""
+        return [*_fields(self.state, payload=False), *_fields(self.loop)]
 
     def load(self, state, loop) -> None:
         """Copy a request's state and loop carry into the static buffers."""
@@ -370,6 +440,55 @@ class EagerBody:
     def replay(self) -> list:
         self.state = self.body(self.eng, self.state, self.loop)
         return self.readback(self.state, self.loop).tolist()
+
+
+class ServeLanes:
+    """The serve body's static buffers for one width: a lane `state` and a
+    `loop` whose queue head, queue and constants every width of the same
+    (KV rows, queue capacity) shares. `key` is ("serve", base rows, draft
+    rows, width, queue capacity); a graph's key adds its tree variant. On
+    the card each variant's graph is captured over these buffers at its
+    first use and kept in the engine's graphs; on the CPU the body runs on
+    them. (The engine keeps its ServeLanes, so they take it as an argument
+    rather than hold it: no reference cycle keeps a dropped engine's
+    graphs for the cyclic collector.)"""
+
+    def __init__(self, key, state, loop: ServeLoop):
+        self.key, self.state, self.loop = key, state, loop
+
+    def load(self, state, loop: ServeLoop) -> None:
+        """Copy a request's lane state and loop carry into the buffers."""
+        _load(self.state, state)
+        _load(self.loop, loop)
+
+    def ready(self, eng, tree_cfg) -> bool:
+        """Whether a round drafting `tree_cfg` runs without a capture."""
+        return (self.state.commit_len.device.type != "cuda"
+                or self.key + (tree_cfg,) in eng._graphs)
+
+    def graph(self, eng, tree_cfg):
+        """The graph of the body drafting `tree_cfg` over these buffers
+        (captured now if it is new); None on the CPU."""
+        if self.state.commit_len.device.type != "cuda":
+            return None
+        key = self.key + (tree_cfg,)
+        g = eng._graphs.get(key)
+        if g is None:
+            g = eng._graphs[key] = DecodeGraph(
+                eng, functools.partial(_serve_body, tree_cfg=tree_cfg),
+                self.state, self.loop, _serve_readback, shared=True)
+        return g
+
+    def replay(self, eng, tree_cfg) -> list:
+        """One serve round drafting `tree_cfg`; returns `_serve_readback`."""
+        g = self.graph(eng, tree_cfg)
+        if g is not None:
+            return g.replay()
+        self.state = _serve_body(eng, self.state, self.loop, tree_cfg)
+        return self.readback()
+
+    def readback(self) -> list:
+        return _serve_readback(self.state, self.loop).tolist()
 
 
 def runner(eng, key, body, state, loop, readback=_readback):

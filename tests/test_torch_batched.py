@@ -48,7 +48,7 @@ def _ints(outs):
 
 
 def setup_pair(batch_size, tree=TREE, sampling=None, adapt_tree=True,
-               **engine_kw):
+               dynamic_tree=False, dynamic_batch=False, **engine_kw):
     """(JAX engine, port engine) of tests/test_batched.py's tiny f32 setup
     (vocab 16, two layers), the port's weights bridged from the JAX ones."""
     mc = dataclasses.replace(JModelConfig.tiny(vocab_size=16, n_layers=2),
@@ -65,11 +65,11 @@ def setup_pair(batch_size, tree=TREE, sampling=None, adapt_tree=True,
     p = init_llama_params(jax.random.key(0), mc, dtype=jnp.float32)
     d = init_eagle_params(jax.random.key(9), mc, embed=p.embed,
                           dtype=jnp.float32)
-    return (JBatched(p, d, jcfg, batch_size=batch_size,
-                     adapt_tree=adapt_tree),
+    flags = dict(batch_size=batch_size, adapt_tree=adapt_tree,
+                 dynamic_tree=dynamic_tree, dynamic_batch=dynamic_batch)
+    return (JBatched(p, d, jcfg, **flags),
             BatchedSpecEngine(port_llama(p), port_eagle(d), cfg,
-                              batch_size=batch_size, adapt_tree=adapt_tree,
-                              device="cpu"))
+                              device="cpu", **flags))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -395,14 +395,32 @@ def test_generate_batch_fused_force_accept_matches_jax(trio):
 
 
 def test_batched_engine_defaults_to_cuda_and_refuses_dynamic(trio):
+    """The engine resolves to the card unless told otherwise; with
+    dynamic_tree it allocates the full tree and keys a variant on each
+    busy-lane count, as JAX's does: from chip_smoke.py's tree (80 nodes
+    and the root, node_cap 96) 81, 48, 48 and 32 nodes for 1-4 lanes."""
     _, port = trio
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             BatchedSpecEngine(port.params, port.draft, port.cfg)
-    for kw in ({"dynamic_tree": True}, {"dynamic_batch": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            BatchedSpecEngine(port.params, port.draft, port.cfg,
-                              device="cpu", **kw)
+    cfg = dataclasses.replace(port.cfg, max_seq_len=216, tree=tcfg.TreeConfig(
+        top_k=10, depth=8, total_tokens=80, node_cap=96, leaf_cap=96,
+        depth_cap=16, score_temperature=0.2))
+    eng = BatchedSpecEngine(port.params, port.draft, cfg, batch_size=4,
+                            dynamic_tree=True, dynamic_batch=True,
+                            device="cpu")
+    assert eng.cfg.tree.node_cap == 81 and eng.cfg.tree.total_tokens == 80
+    assert {n: tc.node_cap for n, tc in eng._tree_variants.items()} == \
+        {1: 81, 2: 48, 3: 48, 4: 32}
+    for n, tc in eng._tree_variants.items():
+        assert tc.total_tokens + 1 == tc.node_cap == tc.leaf_cap
+        assert tc.depth_cap == eng.cfg.tree.depth_cap == 9
+        assert eng._serve_tree(n) is tc
+    assert eng.base_kv_len == 512      # rows for the full tree's chunk
+    assert [eng._serve_width(n) for n in range(1, 5)] == [1, 2, 4, 4]
+    static = BatchedSpecEngine(port.params, port.draft, cfg, batch_size=4,
+                               device="cpu")
+    assert static.cfg.tree.node_cap == 32 and static._tree_variants == {}
 
 
 def test_generate_batch_stochastic_lanes_draw_their_own_streams():

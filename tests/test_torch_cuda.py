@@ -30,7 +30,12 @@ named. Lanes: the attention kernel over B lanes (each with its own bias and
 live rows, read per lane) against plain, lane b bit-equal to a one-lane
 launch of lane b; the gated lane loop's graph replayed with the eager lane
 body's bits; a second `serve` call with the same lanes and queue capacity,
-and a `serve` after `warmup`, capture no graph.
+and a `serve` after `warmup`, capture no graph. Streaming and the dynamic
+modes: the tree variants of one width captured over one set of buffers (a
+variant switch copies no lane state), a width switch moving lanes by JAX's
+permutation, `serve_stream` through graphs equal to its eager body, no
+capture after `warmup`, and a capture's launch tally unchanged by a cold
+prefix built in a thread.
 """
 
 import pytest
@@ -830,3 +835,193 @@ def test_serve_captures_once_per_lanes_and_queue_capacity(cuda):
     fresh.serve([prefix + [5 + i, 6] for i in range(12)], max_new_tokens=4,
                 eos_token_id=-1, shared_prefix=prefix)
     assert fresh._graphs == warmed
+
+
+def _tiny_stream_engine(**flags):
+    """The tiny int8 engine over 4 lanes with a 60-node tree, so that
+    dynamic_tree's variants differ: 61 nodes for one busy lane, 48 for two
+    or three, 32 for four."""
+    import dataclasses
+    from flowspec_tpu_torch.config import TreeConfig
+    from flowspec_tpu_torch.runtime import BatchedSpecEngine
+    eng = _tiny_cuda_engine()
+    tc = TreeConfig(top_k=8, depth=4, total_tokens=60, node_cap=64,
+                    leaf_cap=64, depth_cap=12)
+    return BatchedSpecEngine(eng.params, eng.draft,
+                             dataclasses.replace(eng.cfg, tree=tc),
+                             batch_size=4, adapt_tree=False, **flags)
+
+
+def _stream_workload(n=6):
+    """Staggered arrivals and budgets: a lone request, a burst, a late
+    one."""
+    prompts = [list(range(3 + i, 30 + 3 * i)) for i in range(n)]
+    budgets = [24, 6, 9, 4, 12, 8][:n]
+    arrivals = [0.0, 0.6, 0.65, 0.7, 0.75, 2.0][:n]
+    return prompts, budgets, arrivals
+
+
+def _clock():
+    """A fake clock that advances 0.05 a call."""
+    state = {"t": 0.0}
+
+    def clock():
+        state["t"] += 0.05
+        return state["t"]
+    return clock
+
+
+def test_tree_variants_share_one_width_buffers_and_copy_no_kv(cuda,
+                                                             monkeypatch):
+    """dynamic_tree's graphs of one width are captured over one set of
+    static buffers (every state and loop tensor at the same address), and
+    a serve that switches variants loads the request into them once: no
+    dispatch copies lane state."""
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_stream_engine(dynamic_tree=True)
+    keys = eng.warmup(n_requests=4)
+    assert [k[5].node_cap for k in keys] == [61, 48, 32]
+    lanes = eng._serve_sets[keys[0][:5]]
+    ptrs = [t.data_ptr() for t in graphs._fields(lanes.state)] + \
+        [t.data_ptr() for t in graphs._fields(lanes.loop)]
+    for k in keys:
+        g = eng._graphs[k]
+        assert [t.data_ptr() for t in graphs._fields(g.state)] + \
+            [t.data_ptr() for t in graphs._fields(g.loop)] == ptrs
+    loads = []
+    real = graphs._load
+    monkeypatch.setattr(graphs, "_load",
+                        lambda dst, src: (loads.append(1), real(dst, src)))
+    seen = []
+    replay = graphs.ServeLanes.replay
+    monkeypatch.setattr(graphs.ServeLanes, "replay", lambda self, e, tc: (
+        seen.append(tc.node_cap), replay(self, e, tc))[1])
+    prompts = [list(range(3 + i, 30 + 3 * i)) for i in range(4)]
+    eng.serve(prompts, max_new_tokens=[30, 4, 8, 12], eos_token_id=-1,
+              rounds_per_dispatch=2)
+    assert {32, 48, 61} <= set(seen), seen
+    assert len(loads) == 2            # the request's state and loop, once
+    assert [t.data_ptr() for t in graphs._fields(lanes.state)] + \
+        [t.data_ptr() for t in graphs._fields(lanes.loop)] == ptrs
+
+
+def test_width_switch_moves_lanes_by_the_permutation(cuda):
+    """_resize_lanes gives output lane j the state, KV rows and context of
+    input lane perm[j], as the JAX package's gather does; a placeholder
+    (keep False) takes perm[j]'s small fields, inactive, not its KV."""
+    eng = _tiny_stream_engine(dynamic_batch=True)
+    src = eng._serve_lanes(4, 8)
+    st = src.state
+    for j in range(4):
+        st.base_cache.k[:, j].fill_(j + 1)
+        st.draft_cache.v[:, j].fill_(10 * (j + 1))
+    st.commit_len.copy_(torch.tensor([10, 20, 30, 40], device="cuda"))
+    st.rng[:, 0].copy_(torch.tensor([1, 2, 3, 4], device="cuda"))
+    src.loop.active.fill_(True)
+    src.loop.em.copy_(torch.tensor([5, 6, 7, 8], device="cuda",
+                                   dtype=torch.int32))
+    two = eng._resize_lanes(src, 2, [3, 1], [True, True])
+    assert two.key[3] == 2
+    assert two.state.commit_len.tolist() == [40, 20]
+    assert two.state.rng[:, 0].tolist() == [4, 2]
+    assert two.loop.em.tolist() == [8, 6]
+    assert two.loop.active.tolist() == [True, True]
+    assert torch.equal(two.state.base_cache.k[:, 0], st.base_cache.k[:, 3])
+    assert torch.equal(two.state.draft_cache.v[:, 1],
+                       st.draft_cache.v[:, 1])
+    four = eng._resize_lanes(two, 4, [0, 1, 0, 0],
+                             [True, True, False, False])
+    assert four is src
+    assert four.state.commit_len.tolist() == [40, 20, 40, 40]
+    assert four.loop.active.tolist() == [True, True, False, False]
+    assert float(four.state.base_cache.k[:, 0].max()) == 4.0
+    assert float(four.state.base_cache.k[:, 2].max()) == 3.0   # not copied
+
+
+def test_serve_stream_graphs_equal_the_eager_body(cuda, monkeypatch):
+    """serve_stream with the dynamic tree and width through captured
+    graphs gives the tokens and statistics of the same serve body run
+    eagerly on the same CUDA buffers (the same kernels: bf16, as the
+    kernels take it; the f32 parity with the JAX package is on the CPU)."""
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_stream_engine(dynamic_tree=True, dynamic_batch=True)
+    prompts, budgets, arrivals = _stream_workload()
+    kw = dict(max_new_tokens=budgets, eos_token_id=-1,
+              rounds_per_dispatch=2)
+    fused, fstats = eng.serve_stream(prompts, arrivals, clock=_clock(), **kw)
+    assert fstats["min_width"] == 1 and fstats["width_switches"] >= 2
+    assert len(eng._graphs) >= 3
+    monkeypatch.setattr(graphs.ServeLanes, "graph",
+                        lambda self, e, tc: None)
+    eager, estats = eng.serve_stream(prompts, arrivals, clock=_clock(), **kw)
+    assert fused == eager and fstats == estats
+
+
+def test_serve_stream_after_warmup_captures_nothing(cuda):
+    """warmup(n_requests) captures every (width, tree variant) graph a
+    serve_stream of that many requests can pick: the stream captures
+    nothing, and replays only graphs warmup named."""
+    eng = _tiny_stream_engine(dynamic_tree=True, dynamic_batch=True)
+    prompts, budgets, arrivals = _stream_workload()
+    keys = eng.warmup(n_requests=len(prompts))
+    assert [(k[3], k[5].node_cap) for k in keys] == [
+        (1, 61), (2, 61), (2, 48), (4, 61), (4, 48), (4, 32)]
+    warmed = dict(eng._graphs)
+    _, stats = eng.serve_stream(prompts, arrivals, max_new_tokens=budgets,
+                                eos_token_id=-1, rounds_per_dispatch=2,
+                                clock=_clock(), preempt_factor=2.0)
+    assert stats["width_switches"] >= 2
+    assert eng._graphs == warmed
+
+
+def test_capture_waits_for_a_prefix_build_and_keeps_its_tally(cuda):
+    """A cold prefix with prefix_overlap builds in a thread while the
+    first dispatches need captures (no warmup): serve_stream joins the
+    build before a capture (a CUDA call from another thread, such as a
+    collected graph's release, may break one), and each graph's launches a
+    replay equal those of the same graph captured with no thread about."""
+    eng = _tiny_stream_engine(dynamic_tree=True)
+    prefix = list(range(100, 260))        # ten prefill chunks to build
+    prompts = [prefix + [5 + i, 6, 7] for i in range(4)]
+    kw = dict(max_new_tokens=[20, 6, 9, 12], eos_token_id=-1,
+              rounds_per_dispatch=2)
+    arrivals = [0.0, 0.0, 0.05, 0.1]
+    _, stats = eng.serve_stream(prompts, arrivals, clock=_clock(),
+                                shared_prefix=prefix, prefix_overlap=True,
+                                **kw)
+    assert stats["per_request"] == kw["max_new_tokens"]
+    assert len(eng._prefix_templates) == 1
+    quiet = _tiny_stream_engine(dynamic_tree=True)
+    quiet.warmup(n_requests=4)
+    assert eng._graphs.keys() <= quiet._graphs.keys()
+    for k, g in eng._graphs.items():
+        assert g.launches == quiet._graphs[k].launches, k
+
+
+def test_capture_survives_a_collection_of_another_engines_graphs(cuda):
+    """An engine dropped in a reference cycle keeps its CUDA graphs until
+    the cyclic collector runs, which may be at any allocation; freeing a
+    graph inside another capture aborts the process. With collections
+    forced at nearly every allocation, a capture still completes (the
+    collector is off while it runs) and the dropped engine is collected
+    after it."""
+    import gc
+    import weakref
+    old = _tiny_stream_engine()
+    old.warmup(n_requests=4)
+    assert old._graphs
+    old.cycle = old
+    gone = weakref.ref(old)
+    del old
+    eng = _tiny_stream_engine()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        keys = eng.warmup(n_requests=4)
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert gone() is None
+    prompts = [list(range(3 + i, 30 + 3 * i)) for i in range(4)]
+    _, stats = eng.serve(prompts, max_new_tokens=6, eos_token_id=-1)
+    assert stats["per_request"] == [6] * 4 and set(keys) <= set(eng._graphs)
