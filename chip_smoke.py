@@ -36,8 +36,10 @@ emission, `clock_s`):
      the same four with suffix _13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
      and with suffix _7b_nf4                7B, base and thin draft nf4.
-     Each at full width and depth: random base from a seeded
-     torch.Generator, the committed thin draft, 64-token prompts, 2
+     Each at full width (7B int8 also at full depth; 13B mixed cut to 20
+     of 40 layers and 7B nf4 to 16 of 32 since the pipeline phase came in,
+     for the run's time, `reduced` in their lines): random base from a
+     seeded torch.Generator, the committed thin draft, 64-token prompts, 2
      requests x 128 new tokens (3 at 7B int8 before the batched phase came
      in, and at 13B mixed and 7B nf4 before the families), served in turns
      in one process: eager
@@ -58,8 +60,9 @@ emission, `clock_s`):
      a first divergence whose AR top-2 logit gap is >= 0.05 (for an MoE
      base, unless the same prefix forwarded at the verify's row count puts
      the spec token within 0.05 of its maximum). One eager and
-     one fused request of each run under torch.profiler: the device's idle
-     share and each kernel family's ms a round, eager and inside the graph.
+     one fused request of each run (PROFILE_TOKENS new tokens; device
+     activity only) under torch.profiler: the device's idle share and each
+     kernel family's ms a round, eager and inside the graph.
      Each serve line carries `round_ms`: per kernel, the sum over the
      shapes of one speculative round of those launches x measured ms,
      beside the same sum of bounds and of its old version's ms; each
@@ -71,11 +74,13 @@ emission, `clock_s`):
   6. the model families, the same four lines each with suffix
      _qwen2_7b_int8       Qwen2-7B (Qwen/Qwen2-7B config.json: 28/4 heads,
                           G 7, V 152064, qkv biases, rope 1e6) at full
-                          width and depth, int8 base, qkv biases N(0, 0.1);
+                          width, cut to 14 of 28 layers (since the pipeline
+                          phase), int8 base, qkv biases N(0, 0.1);
      _mixtral_8x7b_bf16   Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1: 8
                           experts top-2, 32/8 heads) in bf16 at full width,
-                          cut to 16 of 32 layers (`reduced` in its line: 32
-                          layers of bf16 experts are 92.8 GB);
+                          cut to 8 of 32 layers (`reduced` in its line: 32
+                          layers of bf16 experts are 92.8 GB; 16 before the
+                          pipeline phase);
      both random from a seeded generator with a random full-width int8
      draft (so the beam head is int8), 2 requests x 64 new tokens, served
      and checked as in 4, the fused request profiled (not the eager one);
@@ -141,7 +146,23 @@ emission, `clock_s`):
      phase holds the dynamic modes' shapes: int8 at the verify's M 162,
      192 and 324 and the draft's M 20, attention over 1, 2 and 4 lanes at
      T 81 / 48 / 32, head top-k at T 2 and T 20.
-Phases 4-6, 9 and 10 run each configuration in a process of its own
+ 11. pipeline  the same 7B int8 pair through `PipelineEngine`
+     (`pipeline_config`), 4 stages x 8 layers on the card, the JAX
+     TreeConfig defaults (81 nodes in chunks of 16, c_buf 18, node_cap 192,
+     depth_cap 24) with score_temperature 0.2, max_seq 216 (768 base and
+     draft KV rows): every schedule (continuous, pruned, naive, serial,
+     pipedec, ar) through `generate` on the serve prompts (2 x 128 tokens),
+     continuous also through `generate_fused` (must equal generate), beside
+     `SpecEngine.generate_fused` on the same pair and tree in turns (spec,
+     spec, the schedules, continuous fused, spec): tok/s, rounds, turns and
+     turns a round, skips, ne_fires, accept a round, wall ms and flag reads
+     a turn (at most 3), launches a turn, peak memory; every stream lossless
+     against AR; one resume (64 tokens, 16 more prompt tokens, 32 more)
+     against a fresh run on the whole history; one profiled 16-token
+     continuous request (device ms and kernels a turn by family, idle
+     share). The kernel phase adds the pipeline's shapes: attention T 18
+     and T 192 over 768 rows, int8 at M 18 on the 7B widths.
+Phases 4-6 and 9-11 run each configuration in a process of its own
 (`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
@@ -175,6 +196,9 @@ SEED = 0
 PROMPT_LEN, NEW_TOKENS, N_REQUESTS = 64, 128, 2
 NEAR_TIE_GAP = 0.05
 PROFILE_TRIES = 3                # profiled requests before a short trace fails
+# new tokens of a profiled request (128 before the pipeline phase came in:
+# parsing a trace took ~75 s for a 128-step fused AR request, the run's time)
+PROFILE_TOKENS = 32
 HEAD_START = 40                  # flushes queued before a timed loop (~4 ms)
 TOLERANCE = "|err| <= 1e-2*|plain| + 1e-2"
 
@@ -283,8 +307,13 @@ OLD = {"int8_matmul": "int8_matmul_strip", "nf4_matmul": "nf4_matmul_strip",
        "int4_matmul_smallm": "int4_matmul_splitk"}
 BASE_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # Mixtral-8x7B's 32 layers of bf16 experts (2.90 GB a layer, 92.8 GB) do not
-# fit the card's 80 GB: the served Mixtral keeps 16
-MIXTRAL_LAYERS = 16
+# fit the card's 80 GB: the served Mixtral keeps 8 (16 before the pipeline
+# phase came in: the run's time)
+MIXTRAL_LAYERS = 8
+# the earlier serve phases cut in depth since the pipeline phase came in, to
+# keep the run inside its time limit (full width; 7B int8 stays whole)
+CUT_LAYERS = {"13b_mixed": 20, "7b_nf4": 16, "qwen2_7b_int8": 14}
+CUT_FULL = {"13b_mixed": 40, "7b_nf4": 32, "qwen2_7b_int8": 28}
 FAMILY_REQUESTS, FAMILY_NEW_TOKENS = 2, 64
 # configurations whose eager request is profiled too (the families profile
 # their fused request only: with a random draft a request runs ~64 rounds,
@@ -375,6 +404,21 @@ LANE_ATTN_SHAPES += [
     ("lanes4_verify_T48", 4, 32, 32, 48, 512, [96, 200, 330, 460]),
     ("lanes4_verify_T81", 4, 32, 32, 81, 512, [96, 200, 330, 430]),
     ("lanes2_beam_T10", 2, 8, 8, 10, 768, [270, 600])]
+# the pipeline phase: the 7B int8 pair through `PipelineEngine` at the JAX
+# TreeConfig defaults (81-node trees in chunks of 16 over 4 stages x 8 layers,
+# node_cap 192, depth_cap 24) with score_temperature 0.2, max_seq 216 (768
+# base and draft KV rows); every schedule through `generate` on the serve
+# prompts, continuous also through `generate_fused` and a resume; the kernels
+# at its shapes: a stage's chunk (c_buf 18 rows; 192 for serial) over 768
+# rows, int8 at M 18 (M 192 above)
+PIPE_TAG = "pipeline_7b_int8"
+PIPE_MAX_SEQ = 216
+PIPE_SCHEDULES = ("continuous", "pruned", "naive", "serial", "pipedec", "ar")
+PIPE_RESUME = (64, 16, 32)        # first turn's tokens, extra prompt, second
+PIPE_PROFILE_TOKENS = 16
+INT8_SHAPES += [(f"base_{w}_M18", 18, i, o) for w, i, o in BASE_7B]
+ATTN_SHAPES += [("pipe_chunk_T18", 32, 32, 18, 768, 128 + 48 + 18),
+                ("pipe_serial_T192", 32, 32, 192, 768, 128 + 192)]
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -404,7 +448,8 @@ DESCRIBE = {
                  "config.json) bf16, random, seeded",
         "draft": "init_eagle_params full width (int8)",
         "reduced": f"32 -> {MIXTRAL_LAYERS} layers: 32 layers of bf16 "
-                   "experts are 92.8 GB, more than the card's 80 GB"}}
+                   "experts are 92.8 GB, more than the card's 80 GB; 8, "
+                   "not 16, for the run's time since the pipeline phase"}}
 
 
 def emit(obj) -> None:
@@ -671,8 +716,8 @@ def check_attention(dev, gen, flush, details):
                # (empty splits past the live tiles), beside the grid sized
                # to the live tiles from a host n_valid: equal bits
                "plan": attention_plan(nkv, nq // nkv, t, s_max)._asdict(),
-               "host_n_valid_plan": attention_plan(nkv, nq // nkv, t,
-                                                   n_read)._asdict(),
+               "host_n_valid_plan": attention_plan(
+                   nkv, nq // nkv, t, n_read, alloc_keys=s_max)._asdict(),
                "host_n_valid_ms": time_ms(
                    lambda: tree_attention(q, k, v, bias, n_valid), flush),
                "max_abs_err": err, "vs_old_max_abs_err": err_old,
@@ -900,15 +945,16 @@ def engine_config(mc, new_tokens: int = NEW_TOKENS):
 
 
 def make_engine(dev, model: str = "7b", quant: str = "int8",
-                n_requests: int = N_REQUESTS, new_tokens: int = NEW_TOKENS):
+                n_requests: int = N_REQUESTS, new_tokens: int = NEW_TOKENS,
+                layers: int | None = None):
     """(engine, prompts, seconds to build it), at full width, the base
-    random from a seeded generator: LLaMA `model` ("7b", "13b") at full
-    depth of kind `quant` with the committed thin draft of that scale
-    quantized the same way ("mixed" keeps the draft int8); "qwen2"
-    (Qwen2-7B, full depth, int8, its qkv biases N(0, 0.1) so that the bias
-    add runs) and "mixtral" (Mixtral-8x7B in bf16, cut to MIXTRAL_LAYERS
-    layers) with a random full-width draft in int8, so the beam head is
-    int8 too."""
+    random from a seeded generator: LLaMA `model` ("7b", "13b") of kind
+    `quant` with the committed thin draft of that scale quantized the same
+    way ("mixed" keeps the draft int8); "qwen2" (Qwen2-7B, int8, its qkv
+    biases N(0, 0.1) so that the bias add runs) and "mixtral"
+    (Mixtral-8x7B in bf16, cut to MIXTRAL_LAYERS layers) with a random
+    full-width draft in int8, so the beam head is int8 too. `layers` cuts
+    a LLaMA or Qwen2 base to that depth (full by default)."""
     import dataclasses
     import torch
     from flowspec_tpu_torch.config import ModelConfig
@@ -928,6 +974,8 @@ def make_engine(dev, model: str = "7b", quant: str = "int8",
     else:
         mc = {"7b": ModelConfig.llama_7b, "13b": ModelConfig.llama_13b,
               "qwen2": ModelConfig.qwen2_7b}[model]()
+        if layers:
+            mc = dataclasses.replace(mc, num_hidden_layers=layers)
         params = random_llama_params(mc, gen, dev, quant)
     if model == "qwen2":
         params = dataclasses.replace(params, layers=dataclasses.replace(
@@ -1202,16 +1250,17 @@ def moe_gemm_names(eng) -> tuple:
 
 
 def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
-    """One request through `fn` under torch.profiler (CPU + CUDA): wall
-    time, device kernel time and the device's idle share of the wall time,
-    and per round (per step for a request without rounds) the kernels and
-    the device ms of each family (`moe`: the MoE GEMMs' names), and of the
-    ten costliest "other" ones."""
+    """One request through `fn` under torch.profiler, device activity only
+    (every number below is read from the kernels; recording the CPU ops as
+    well, as before the pipeline phase came in, tripled the events to parse
+    and the host's overhead in the wall): wall time, device kernel time and
+    the device's idle share of the wall time, and per round (per step for a
+    request without rounds) the kernels and the device ms of each family
+    (`moe`: the MoE GEMMs' names), and of the ten costliest "other" ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, stats = fn(prompt, max_new_tokens=new_tokens, eos_token_id=-1)
         torch.cuda.synchronize()
@@ -1367,13 +1416,17 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
     from flowspec_tpu_torch.models.mixtral import MixtralParams
     model, quant, n_requests, new_tokens = CONFIGS[tag]
     suffix = "" if tag == "7b_int8" else "_" + tag
+    layers = CUT_LAYERS.get(tag)
     eng, prompts, params_s = make_engine(dev, model, quant, n_requests,
-                                         new_tokens)
+                                         new_tokens, layers)
     draft_kind = "int8" if quant == "mixed" else quant
     about = DESCRIBE.get(tag, {
         "model": f"llama_{model} {quant} (random, seeded)",
         "draft": f"checkpoints/draft_{model}_thin_fp16.npz ({draft_kind})",
         "reduced": None})
+    if layers:
+        about = {**about, "reduced": f"{CUT_FULL[tag]} -> {layers} layers: "
+                 "the run's time limit, since the pipeline phase"}
     # Mixtral's expert products are cuBLAS GEMMs, told apart by name
     moe, moe_shared = (moe_gemm_names(eng)
                        if isinstance(eng.params, MixtralParams)
@@ -1434,10 +1487,11 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
                              "eager one")
     if any(st["kv_buckets_used"] != 1 for st in f_stats):
         raise AssertionError(f"{tag}: buckets engaged without kv_buckets")
-    prof_eager = (profile_request(eng.generate, prompts[0], new_tokens, moe)
+    prof_eager = (profile_request(eng.generate, prompts[0], PROFILE_TOKENS,
+                                  moe)
                   if tag in EAGER_PROFILED else None)
     prof_fused = confirmed_profile(tag + " fused", eng.generate_fused,
-                                   prompts[0], new_tokens, f_per_round,
+                                   prompts[0], PROFILE_TOKENS, f_per_round,
                                    prefill, moe)
     eager_tok_s = [new / sum(req_s), e2_new / sum(e2_s)]
     emit({"phase": "fused" + suffix, "card": smi,
@@ -1503,8 +1557,8 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
                              "eager one")
     # one AR step a token: the profile's "rounds" are its new tokens
     prof_ar = confirmed_profile(tag + " fused AR", eng.generate_ar_fused,
-                                prompts[0], new_tokens, far_steps, prefill,
-                                moe)
+                                prompts[0], PROFILE_TOKENS, far_steps,
+                                prefill, moe)
     emit({"phase": "fused_ar" + suffix, "card": smi,
           "ar_tok_s": ar_new / sum(ar_s),
           "fused_ar_tok_s": far_new / sum(far_s),
@@ -1811,9 +1865,9 @@ def batched_config(dev, counters, smi):
         lambda p, max_new_tokens, eos_token_id: beng.generate_batch_fused(
             prompts, max_new_tokens=max_new_tokens,
             eos_token_id=eos_token_id),
-        prompts[0], NEW_TOKENS, f_per_round, prefill_b)
+        prompts[0], PROFILE_TOKENS, f_per_round, prefill_b)
     prof_solo = confirmed_profile("batched solo fused", beng.generate_fused,
-                                  prompts[0], NEW_TOKENS, f_per_round,
+                                  prompts[0], PROFILE_TOKENS, f_per_round,
                                   prefill)
     emit({"phase": "batched_profile", "card": smi,
           "batch_fused_profile": prof, "solo_fused_profile": prof_solo,
@@ -2103,6 +2157,192 @@ def stream_config(dev, counters, smi):
                   "with its pinned read) against one _run_boundary admitting "
                   "one lane (zero template; prefix template with its KV "
                   "rows)"})
+    return total
+
+
+def pipe_line(eng, sched, outs, sec, new, stats, launches, reads, peak):
+    """One schedule's record: tok/s over its requests, rounds, turns, skips,
+    ne_fires, accepted tokens a round, host wall ms and flag reads a turn,
+    launches a turn, peak device memory."""
+    turns = sum(s["turns"] for s in stats)
+    rounds = sum(s["rounds"] for s in stats)
+    return {"schedule": sched, "tok_s": new / sum(sec),
+            "request_s": sec, "new_tokens": new, "rounds": rounds,
+            "turns": turns, "turns_per_round": turns / rounds,
+            "skips": sum(s["skips"] for s in stats),
+            "ne_fires": sum(s["ne_fires"] for s in stats),
+            "accept_per_round": new / rounds,
+            "wall_ms_per_turn": sum(sec) * 1e3 / turns,
+            "host_reads_per_turn": reads / turns,
+            "launches_per_turn": {k: n / turns for k, n in launches.items()
+                                  if n},
+            "c_buf": eng.c_buf, "peak_gb": peak / 1e9}
+
+
+def profile_turns(fn, prompt, new_tokens) -> dict:
+    """One pipeline request through `fn` under torch.profiler, device
+    activity only, read from `key_averages` (a turn launches ~2.5k kernels;
+    walking every CPU and device event of a 128-token request took ~370 s):
+    wall and device ms a turn, the idle share, kernels a turn, and device ms
+    and kernels a turn by family. A trace without device time fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, stats = fn(prompt, max_new_tokens=new_tokens, eos_token_id=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    turns = stats["turns"]
+    ms, n, busy, kernels = {}, {}, 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.self_device_time_total
+        fam = family(ev.key)
+        ms[fam] = ms.get(fam, 0.0) + us / 1e3 / turns
+        n[fam] = n.get(fam, 0) + ev.count / turns
+        busy += us / 1e6
+        kernels += ev.count
+    if not kernels:
+        raise AssertionError("profile_turns: no device kernel in the trace")
+    return {"turns": turns, "rounds": stats["rounds"], "wall_s": wall,
+            "wall_ms_per_turn": wall * 1e3 / turns,
+            "device_ms_per_turn": busy * 1e3 / turns,
+            "device_idle_share": 1 - busy / wall,
+            "kernels_per_turn": kernels / turns,
+            "device_ms_per_turn_by_family": ms,
+            "kernels_per_turn_by_family": n}
+
+
+def pipeline_config(dev, counters, smi):
+    """The pipeline phase in its own process: the 7B int8 pair through
+    `PipelineEngine` (4 stages x 8 layers on the card), every schedule
+    through `generate` on the serve prompts, continuous also through
+    `generate_fused`, beside `SpecEngine.generate_fused` on the same pair
+    and tree in turns (before and after); one resume; one profiled
+    continuous request. Returns its launches. Raises if a stream leaves its
+    AR stream off a near-tie, if generate_fused differs from generate, if
+    the resumed stream differs from the fresh one off a near-tie, if a run
+    launched no int8, attention or head kernel, or if a turn read more than
+    three flag vectors."""
+    import torch
+    from flowspec_tpu_torch.config import (
+        EngineConfig, SamplingConfig, StageTopology, TreeConfig)
+    from flowspec_tpu_torch.parallel import PipelineEngine
+    from flowspec_tpu_torch.runtime import SpecEngine
+    base, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
+                                          NEW_TOKENS)
+    mc = base.cfg.model
+    cfg = EngineConfig(model=mc, tree=TreeConfig(score_temperature=0.2),
+                       sampling=SamplingConfig(), max_new_tokens=NEW_TOKENS,
+                       max_seq_len=PIPE_MAX_SEQ, topology=StageTopology())
+    spec = SpecEngine(base.params, base.draft, cfg)
+    del base
+    total = {n: 0 for n in counters}
+
+    def turn(fn):
+        zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        outs, sec, rounds, new, stats = serve_turn(fn, prompts, NEW_TOKENS)
+        launches = counts(counters)
+        for n in total:
+            total[n] += launches[n]
+        missing = [k for k in ("int8_matmul", "tree_attention", "head_topk")
+                   if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"pipeline: no launch of {missing}")
+        return outs, sec, rounds, new, stats, launches, \
+            torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    ar = [spec.generate_ar_fused(p, max_new_tokens=NEW_TOKENS,
+                                 eos_token_id=-1)[0][len(p):]
+          for p in prompts]
+    ar_s = time.perf_counter() - t0
+    yard = []
+    for _ in range(2):          # the first turn captures the graph
+        outs, sec, rounds, new, _, _, peak = turn(spec.generate_fused)
+        yard.append({"tok_s": new / sum(sec), "rounds": rounds,
+                     "accept_per_round": new / rounds, "request_s": sec,
+                     "peak_gb": peak / 1e9})
+    spec_outs = outs
+
+    lines, engines = [], {}
+    for sched in PIPE_SCHEDULES:
+        eng = PipelineEngine(spec.params, spec.draft, cfg, schedule=sched)
+        reads = eng.reads.count
+        outs, sec, _, new, stats, launches, peak = turn(eng.generate)
+        line = pipe_line(eng, sched, outs, sec, new, stats, launches,
+                         eng.reads.count - reads, peak)
+        if line["host_reads_per_turn"] > 3:
+            raise AssertionError(f"pipeline {sched}: {line}")
+        m, fl = divergences(spec, prompts, outs, ar)
+        line.update(match_fraction_vs_ar=m, first_divergences_vs_ar=fl)
+        lines.append(line)
+        check_lossless(f"pipeline {sched}", fl)
+        if sched == "continuous":
+            cont, cont_outs = eng, outs
+        del eng
+
+    eng = cont
+    reads = eng.reads.count
+    fouts, fsec, _, fnew, fstats, flaunches, fpeak = turn(eng.generate_fused)
+    fused = pipe_line(eng, "continuous", fouts, fsec, fnew, fstats,
+                      flaunches, eng.reads.count - reads, fpeak)
+    if fouts != cont_outs:
+        raise AssertionError("pipeline: generate_fused != generate")
+    outs, sec, rounds, new, _, _, peak = turn(spec.generate_fused)
+    yard.append({"tok_s": new / sum(sec), "rounds": rounds,
+                 "accept_per_round": new / rounds, "request_s": sec,
+                 "peak_gb": peak / 1e9})
+    if outs != spec_outs:
+        raise AssertionError("pipeline: SpecEngine's turns differ")
+    emit({"phase": "pipeline", "card": smi,
+          "model": "llama_7b int8 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": None, "stages": list(eng.layer_split),
+          "tree": "TreeConfig() defaults, score_temperature 0.2",
+          "max_seq_len": PIPE_MAX_SEQ, "base_kv_rows": eng.base_rows,
+          "draft_kv_rows": eng.draft_rows, "prompt_len": PROMPT_LEN,
+          "requests": len(prompts), "new_tokens": NEW_TOKENS,
+          "schedules": lines, "continuous_fused": fused,
+          "fused_equals_generate": True,
+          "spec_engine_generate_fused": yard,
+          "turns_order": ["spec fused", "spec fused"] + list(PIPE_SCHEDULES)
+          + ["continuous fused", "spec fused"],
+          "ar_reference_s": ar_s, "param_build_s": params_s})
+
+    # one resume turn against a fresh run on the whole history
+    first, extra_n, second = PIPE_RESUME
+    p = prompts[0]
+    out1, _, st = eng.generate(p, max_new_tokens=first, eos_token_id=-1,
+                               return_state=True)
+    extra = random_prompts(mc.vocab_size, [extra_n], SEED + 9)[0]
+    zero(counters)
+    t0 = time.perf_counter()
+    resumed, rstats = eng.resume_and_generate(st, out1, extra,
+                                              max_new_tokens=second,
+                                              eos_token_id=-1)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = counts(counters)
+    for n in total:
+        total[n] += launches[n]
+    hist = out1 + extra
+    fresh, _ = eng.generate(hist, max_new_tokens=second, eos_token_id=-1)
+    m, fl = divergences(spec, [hist], [resumed[len(hist):]],
+                        [fresh[len(hist):]])
+    emit({"phase": "pipeline_resume", "card": smi, "history": len(out1),
+          "extra": extra_n, "new_tokens": second, "resume_s": resume_s,
+          "stats": rstats, "equal_to_fresh": resumed == fresh,
+          "match_fraction_vs_fresh": m, "first_divergences_vs_fresh": fl})
+    check_lossless("pipeline resume", fl)
+
+    # one profiled continuous request: device ms a turn by family
+    prof = profile_turns(eng.generate, prompts[0], PIPE_PROFILE_TOKENS)
+    emit({"phase": "pipeline_profile", "card": smi, "schedule": "continuous",
+          "new_tokens": PIPE_PROFILE_TOKENS, **prof})
     return total
 
 
@@ -2399,6 +2639,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches = stream_config(dev, launch_counts(), smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
         return 0
+    if tag == PIPE_TAG:
+        launches = pipeline_config(dev, launch_counts(), smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -2481,7 +2725,7 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG]:
+    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),

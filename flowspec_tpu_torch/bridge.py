@@ -15,6 +15,10 @@ lane inside the cache ((L, B, H, S, D) KV, (B,) lengths) and the pending
 hiddens as (B, CTX, H). `lane_state` turns the one into the other and
 `lane_state_numpy` back.
 
+Pipeline states: the JAX `PipeState` holds its KV in the padded slot layout
+of the engine's layer split (p * max(split) slots); `pipe_state` keeps the
+L real layers, as the port's `PipeState` does.
+
 Every function builds on the engine's device: `cuda` unless the caller
 names another (`device="cpu"` for the plain PyTorch versions of the
 kernels); without a card the default raises (`runtime/engine.py
@@ -160,3 +164,23 @@ def lane_state_numpy(state) -> dict:
             "pending_hidden": arr(state.pending_hidden)[:, None],
             "n_pending": arr(state.n_pending),
             "root_hidden": arr(state.root_hidden)}
+
+
+def pipe_state(d: dict, layer_split, seed: int = 0, device=None):
+    """A JAX `PipeState` (numpy dict; its "key" is ignored) as the port's,
+    the KV taken out of the slot layout of `layer_split` and the draw
+    stream seeded from `seed`."""
+    from flowspec_tpu_torch.parallel.pipeline import PipeState, from_slots
+    from flowspec_tpu_torch.tree.sampling import lane_rng
+    device = resolve_device(device)
+    i32 = lambda a: tensor(np.asarray(a, np.int32), device)
+    kv = kv_cache(d["kv"], device)
+    return PipeState(
+        kv=KVCache(k=from_slots(kv.k, layer_split),
+                   v=from_slots(kv.v, layer_split), length=kv.length),
+        draft_cache=kv_cache(d["draft_cache"], device),
+        commit_len=i32(d["commit_len"]), root_token=i32(d["root_token"]),
+        pend_tok=i32(d["pend_tok"]), pend_hid=tensor(d["pend_hid"], device),
+        pend_n=i32(d["pend_n"]),
+        rng=lane_rng(torch.full((1,), seed, dtype=torch.int64,
+                                device=device)))

@@ -1,10 +1,11 @@
 """Beam-search draft-tree generation (the reference's `topK_genrate`).
 
-Port of `flowspec_tpu/draft/beam.py` (`expand_tree` waits for the pipeline
-port). A Python loop over levels replaces the `lax.scan`: each level
-forwards the K frontier nodes through the draft layer against the draft KV,
-scores them with the fused head top-k (`ops/head_topk.py`) and keeps the
-global top-K of the K*K candidates. Every order that decides the tree is
+Port of `flowspec_tpu/draft/beam.py`, `expand_tree` (`:239-273`, the
+pipeline's continuous expansion) included. A Python loop over levels
+replaces the `lax.scan`: each level forwards the K frontier nodes through
+the draft layer against the draft KV, scores them with the fused head
+top-k (`ops/head_topk.py`) and keeps the global top-K of the K*K
+candidates. Every order that decides the tree is
 (score desc, flat index asc), as `jax.lax.top_k` gives it. The draft KV's
 length (`ctx_end`, `pos0`) stays a device scalar, so the writes and biases
 of a replayed CUDA graph follow each round; the level is a host int (the
@@ -31,7 +32,7 @@ from flowspec_tpu_torch.ops.head_topk import head_logits, head_topk
 from flowspec_tpu_torch.tree.build import build_tree, select_topn
 from flowspec_tpu_torch.tree.types import lane_gather
 
-__all__ = ["BeamState", "head_logits", "topk_generate"]
+__all__ = ["BeamState", "expand_tree", "head_logits", "topk_generate"]
 
 
 @dataclasses.dataclass
@@ -219,3 +220,35 @@ def topk_generate(p: EagleParams, head, cache: KVCache,
                       tree_cfg.depth_cap, sort_score=tree_cfg.sort_score)
     state = dataclasses.replace(state, selected=sel)
     return tree, state, cache
+
+
+def expand_tree(p: EagleParams, head, cache: KVCache, state: BeamState,
+                root_token: torch.Tensor, tree_cfg: TreeConfig,
+                cfg: ModelConfig, extra_depth: int, expand_size: int,
+                max_levels: int | None = None):
+    """Continue the saved beam `state` `extra_depth` more levels and build
+    the superset tree: the previously selected nodes force-included plus
+    the top `expand_size` new candidates (ref `expand_last`,
+    eagle/cnets.py:1439-1708; `flowspec_tpu/draft/beam.py:239-273`).
+    Merged onto the tree `state` was selected for, it appends exactly the
+    new nodes. Returns (tree, state', cache): the beam rows are written in
+    place, the length stays at the beam's ctx_end. Lanes as in
+    `topk_generate` (a 0-d root_token gives a one-request tree)."""
+    if root_token.dim() == 0:
+        tree, state, cache = expand_tree(
+            p, head, cache, state, root_token.reshape(1), tree_cfg, cfg,
+            extra_depth, expand_size, max_levels)
+        return tree.lane(0), state, cache
+    max_levels = max_levels or (tree_cfg.depth + tree_cfg.expand_depth)
+    state2 = state
+    for _ in range(extra_depth):
+        state2 = _beam_step(p, head, cache.k[0], cache.v[0], state2, cfg,
+                            tree_cfg.top_k, max_levels,
+                            inv_tau=1.0 / tree_cfg.score_temperature)
+    sel = select_topn(state2.cand_scores, state2.cand_valid, expand_size,
+                      force_include=state.selected)
+    tree = build_tree(state2.cand_tokens, state2.cand_scores,
+                      state2.cand_parents, sel, root_token,
+                      tree_cfg.node_cap, tree_cfg.leaf_cap,
+                      tree_cfg.depth_cap, sort_score=tree_cfg.sort_score)
+    return tree, dataclasses.replace(state2, selected=sel), cache

@@ -28,7 +28,8 @@ round's values. The kernel's grid is then planned for the whole allocation
 (`attention_plan` at n_keys = S) and every block reads its lane's n_valid
 from device memory and works through the live 64-key tiles only; the
 splits past them are empty. A host int plans the grid for the live tiles
-alone (`kernel_keys`). The two give equal bits.
+alone (`kernel_keys`), grouped into splits as the allocation's grid groups
+them. The two give equal bits.
 
 `tree_attention_simt` is the earlier kernel of the same library (one block
 per KV head and 32 query rows, CUDA cores, one lane), kept for comparison
@@ -91,10 +92,16 @@ class AttentionPlan(NamedTuple):
 
 @lru_cache(maxsize=None)
 def attention_plan(nkv: int, g: int, t: int, n_keys: int,
-                   lanes: int = 1) -> AttentionPlan:
+                   lanes: int = 1,
+                   alloc_keys: int | None = None) -> AttentionPlan:
     """One split per 64-key tile up to MAX_SPLITS (4 splits at 256 keys, 8 at
     512), past that the fewest tiles a split that keep to MAX_SPLITS (a
     split of one tile measured faster than two at every main-path shape).
+    With `alloc_keys`, the rows allocated (the grid a device n_valid reads
+    is planned for them), the tiles a split are the allocation's, so a grid
+    for fewer live keys groups them as that grid does: the same f32 sums,
+    equal bits (past 512 rows the allocation's splits take two or more
+    tiles, the live keys' one).
     Row tiles of at most TILE_WARPS x 16 rows, as even as the 16-row steps
     allow (81 rows: two tiles of three warps, not 64 + 17); if that grid
     would pass WAVE_BLOCKS (three such blocks an SM, on the ~120 SMs that
@@ -110,7 +117,7 @@ def attention_plan(nkv: int, g: int, t: int, n_keys: int,
                          f"lanes={lanes} nkv={nkv} G={g} T={t} "
                          f"n_keys={n_keys}")
     tiles = n_keys // KEY_TILE
-    per = -(-tiles // MAX_SPLITS)
+    per = -(-max(n_keys, alloc_keys or 0) // KEY_TILE // MAX_SPLITS)
     splits = -(-tiles // per)
     m16 = -(-(g * t) // 16)
     row_tiles = -(-m16 // TILE_WARPS)
@@ -183,7 +190,7 @@ def tree_attention(q: torch.Tensor, k_cache: torch.Tensor,
         bias = bias.expand(b, t, s_max)
     plan = attention_plan(nkv, nq // nkv, t,
                           s_max if on_device else kernel_keys(s_max, n_valid),
-                          lanes=b)
+                          lanes=b, alloc_keys=s_max)
     if on_device:
         n_valid = n_valid.reshape(-1).to(torch.int32).expand(b)
     return _launch(tree_attention, q, k_cache, v_cache, bias, plan.n_keys,

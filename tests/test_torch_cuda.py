@@ -35,7 +35,11 @@ modes: the tree variants of one width captured over one set of buffers (a
 variant switch copies no lane state), a width switch moving lanes by JAX's
 permutation, `serve_stream` through graphs equal to its eager body, no
 capture after `warmup`, and a capture's launch tally unchanged by a cold
-prefix built in a thread.
+prefix built in a thread. The pipeline (`parallel/pipeline.py`): every
+schedule of a tiny int8 pipeline with empty stages on the card against the
+same engine on the CPU under the lossless rule (a first divergence only at
+a top-2 gap < 0.05), KV rows a multiple of 256, at most three flag reads a
+turn, generate_fused equal to generate, and a resume.
 """
 
 import pytest
@@ -420,7 +424,8 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
 # the device n_valid against the host n_valid: one live tile (1, 63, 64),
 # a second (65), the verify's 209 and the whole allocation, at the two
 # allocations of the main path (4 and 8 splits, most of them empty early)
-@pytest.mark.parametrize("s_max", [256, 512])
+# and the pipeline's 768 rows (6 splits of two tiles)
+@pytest.mark.parametrize("s_max", [256, 512, 768])
 @pytest.mark.parametrize("n_valid", [1, 63, 64, 65, 209, "S"])
 @pytest.mark.parametrize("nkv,g,t", [(32, 1, 81), (8, 1, 10), (4, 4, 9)])
 def test_tree_attention_device_n_valid_equals_host_bits(cuda, s_max, n_valid,
@@ -438,7 +443,9 @@ def test_tree_attention_device_n_valid_equals_host_bits(cuda, s_max, n_valid,
     want = tree_attention_plain(q, k, v, bias, live_keys(s_max, n_valid))
     torch.cuda.synchronize()
     assert tree_attention.launches == before + 2
-    assert attention_plan(nkv, g, t, s_max).splits == s_max // 64
+    grid = attention_plan(nkv, g, t, s_max)   # the device n_valid's grid
+    assert grid.tiles_per_split == (1 if s_max <= 512 else 2)
+    assert grid.splits == -(-(s_max // 64) // grid.tiles_per_split)
     assert torch.equal(dev, host), float((dev.float()
                                          - host.float()).abs().max())
     assert float((dev.float() - want.float()).abs().max()) <= 2e-2
@@ -1025,3 +1032,93 @@ def test_capture_survives_a_collection_of_another_engines_graphs(cuda):
     prompts = [list(range(3 + i, 30 + 3 * i)) for i in range(4)]
     _, stats = eng.serve(prompts, max_new_tokens=6, eos_token_id=-1)
     assert stats["per_request"] == [6] * 4 and set(keys) <= set(eng._graphs)
+
+
+def _moved(x, dev):
+    """A params / state tree with every tensor moved to `dev`."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _moved(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _tiny_pipe_engines(schedule, split=(1, 1, 0, 0)):
+    """The tiny int8 pair of `_tiny_cuda_engine` as (card, CPU)
+    PipelineEngines of `schedule` over four stages of `split` layers (two
+    of them empty), and the CPU SpecEngine for AR streams and gaps."""
+    import dataclasses
+    from flowspec_tpu_torch.config import StageTopology, TreeConfig
+    from flowspec_tpu_torch.parallel import PipelineEngine
+    from flowspec_tpu_torch.runtime import SpecEngine
+    spec = _tiny_cuda_engine()
+    tc = TreeConfig(top_k=8, depth=4, total_tokens=24, expand_tokens=12,
+                    expand_depth=2, none_expand_tokens=8, node_cap=48,
+                    leaf_cap=48, depth_cap=12, chunk_len=6, chunk_cap=12)
+    cfg = dataclasses.replace(spec.cfg, tree=tc,
+                              topology=StageTopology(4, split))
+    params, draft = spec.params, spec.draft
+    cpu_params, cpu_draft = _moved(params, "cpu"), _moved(draft, "cpu")
+    return (PipelineEngine(params, draft, cfg, schedule=schedule),
+            PipelineEngine(cpu_params, cpu_draft, cfg, schedule=schedule,
+                           device="cpu"),
+            SpecEngine(cpu_params, cpu_draft, cfg, device="cpu"))
+
+
+def _near_tie_or_equal(ref, prompt, got, want, gap=0.05):
+    """`got` equals `want`, or they first differ where the base model's
+    top-2 logit gap after want's prefix is below `gap` (a bf16 near-tie
+    whose rounding differs between the card's kernels and the CPU's plain
+    versions)."""
+    if got == want:
+        return
+    i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    _, logits = ref._prefill_chunks(ref.init_state(), want[:i])
+    top = torch.topk(logits.float(), 2).values
+    assert float(top[0] - top[1]) < gap, (i - len(prompt), got, want)
+
+
+@pytest.mark.parametrize("schedule", ["ar", "serial", "naive", "pruned",
+                                      "continuous", "pipedec"])
+def test_pipeline_schedules_on_the_card_match_the_cpu(cuda, schedule):
+    """Every schedule of a tiny bf16 (int8-weight) pipeline with two
+    empty stages on the card against the same engine on the CPU, under the
+    lossless rule; KV rows a multiple of 256; at most three flag reads a
+    turn; generate_fused equals generate."""
+    from flowspec_tpu_torch.ops import counted_wrappers
+    eng, cpu, ref = _tiny_pipe_engines(schedule)
+    state = eng.init_state()
+    assert state.kv.max_len % 256 == 0 and state.draft_cache.max_len % 256 == 0
+    assert state.kv.k.shape[0] == 2 and eng.layer_split == (1, 1, 0, 0)
+    prompt = list(range(3, 40))
+    counters = counted_wrappers()
+    before = {n: fn.launches for n, fn in counters.items()}
+    reads = eng.reads.count
+    got, stats = eng.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    assert eng.reads.count - reads <= 3 * stats["turns"]
+    for n in ("int8_matmul", "tree_attention", "head_topk"):
+        assert counters[n].launches > before[n], n
+    want, _ = cpu.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    _near_tie_or_equal(ref, prompt, got, want)
+    fused, fstats = eng.generate_fused(prompt, max_new_tokens=24,
+                                       eos_token_id=-1)
+    assert fused == got and fstats["rounds"] == stats["rounds"]
+
+
+def test_pipeline_resume_on_the_card(cuda):
+    """resume_and_generate on the card equals a fresh run on the history
+    (the lossless rule against the CPU's fresh run)."""
+    eng, cpu, ref = _tiny_pipe_engines("continuous", split=(0, 2, 0, 0))
+    prompt = list(range(5, 30))
+    out, _, st = eng.generate(prompt, max_new_tokens=12, eos_token_id=-1,
+                              return_state=True)
+    extra = list(range(40, 47))
+    got, _ = eng.resume_and_generate(st, out, extra, max_new_tokens=10,
+                                     eos_token_id=-1)
+    fresh, _ = eng.generate(out + extra, max_new_tokens=10, eos_token_id=-1)
+    assert got == fresh
+    want, _ = cpu.generate(out + extra, max_new_tokens=10, eos_token_id=-1)
+    _near_tie_or_equal(ref, out + extra, got, want)

@@ -196,6 +196,27 @@ def test_attention_plan_covers_every_key_once(nkv, g, t, n_valid, s_max):
         assert p.splits == tiles and p.tiles_per_split == 1
 
 
+@pytest.mark.parametrize("s_max", [256, 512, 768, 1024, 2560])
+def test_attention_plan_host_grid_groups_tiles_as_the_allocation(s_max):
+    """A host n_valid's grid (the live tiles) takes the allocation's tiles
+    a split, so its splits sum the keys the device n_valid's grid (planned
+    for the allocation) sums: equal bits. Up to 512 rows that is one tile a
+    split, the plan without the allocation."""
+    for nkv, g, t in ((32, 1, 18), (32, 1, 192), (8, 1, 25), (4, 4, 9)):
+        dev = attention_plan(nkv, g, t, s_max)
+        for n_valid in (1, 64, 65, 194, 320, 511, 700, s_max):
+            if n_valid > s_max:
+                continue
+            n_keys = kernel_keys(s_max, n_valid)
+            p = attention_plan(nkv, g, t, n_keys, alloc_keys=s_max)
+            assert p.tiles_per_split == dev.tiles_per_split
+            tiles = n_keys // KEY_TILE
+            assert p.splits == -(-tiles // p.tiles_per_split)
+            assert 1 <= p.splits <= MAX_SPLITS and p.n_keys == n_keys
+            if s_max <= 512:
+                assert p == attention_plan(nkv, g, t, n_keys)
+
+
 def test_attention_plan_main_path_grids_and_refusals():
     # 7B verify: 2 row tiles x 4 splits x 32 heads; the thin draft's 8 heads
     # at 150-230 live rows: 3-4 splits (the earlier kernel ran 96 / 8 blocks)
