@@ -162,7 +162,34 @@ emission, `clock_s`):
      continuous request (device ms and kernels a turn by family, idle
      share). The kernel phase adds the pipeline's shapes: attention T 18
      and T 192 over 768 rows, int8 at M 18 on the 7B widths.
-Phases 4-6 and 9-11 run each configuration in a process of its own
+ 12. tp        tensor parallelism in-process on the one card
+     (`tp_config`): the 7B int8 pair at full width and depth through
+     `TPEngine` at tp 2 and tp 4 (each rank's shards run one after
+     another; the collectives are memory operations), `generate` and
+     `generate_fused` (the TP round as one CUDA graph) in turns beside
+     `SpecEngine.generate_fused` on the same pair and tree, 2 prompts x 64
+     tokens: tok/s, accept a round, launches a round (held to the count
+     the code implies, and each graph's replay to it), resident weights
+     and peak memory, every stream lossless against AR and against the
+     unsharded engine's under the near-tie rule, the fused stream equal to
+     the eager one; one profiled fused tp 2 request (idle share);
+     `tp_galaxy`: galaxy TP at tp 2 on a bf16 7B-width base cut to 8
+     layers (the galaxy path takes unquantized LLaMA weights), an 80-node
+     tree so that tp divides the verify's rows, beside plain TP on the same
+     weights and lossless against AR, the galaxy forward's engaged count
+     > 0 and at least one a round; `tp_pipeline`: PP x TP on
+     `stage_tp_mesh(4, 2)`, the pruned schedule on the pipeline phase's
+     tree (2 x 32 tokens), lossless; `tp_dryrun`:
+     `entry.dryrun_multichip(4)` on the card (bf16, head dim 64: every
+     schedule over 4 stages, TP and galaxy at tp 4, the (2, 2) mesh on an
+     uneven split, against the AR stream). The kernel phase adds the shard
+     widths: int8 at tp 2 / 4 on the 7B widths (wq Out 2048 / 1024, wo In
+     2048 / 1024, w_gate Out 5504 / 2752 -- 2752 takes 64-column strips --
+     w_down In 5504 / 2752) at M 64 and 81 (and M 18 at tp 2, the PP x TP
+     chunk), the thin draft's at tp 2 / 4 (Out / In 512 / 256, 1408 / 704)
+     at M 9 and 10, and attention on 16 / 8 heads (verify T 81, galaxy T
+     80, the draft's 4 / 2 heads at T 9 / 10, the PP x TP chunk T 18).
+Phases 4-6 and 9-12 run each configuration in a process of its own
 (`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
@@ -419,6 +446,49 @@ PIPE_PROFILE_TOKENS = 16
 INT8_SHAPES += [(f"base_{w}_M18", 18, i, o) for w, i, o in BASE_7B]
 ATTN_SHAPES += [("pipe_chunk_T18", 32, 32, 18, 768, 128 + 48 + 18),
                 ("pipe_serial_T192", 32, 32, 192, 768, 128 + 192)]
+# the tensor-parallel phase: the 7B int8 pair through `TPEngine` at tp 2 and
+# 4, in-process on the one card, 2 prompts x 64 tokens (the tokens cut, not
+# the width or the depth); galaxy at tp 2 on a bf16 7B-width base of 8
+# layers with an 80-node tree (tp divides the verify's 80 rows); PP x TP on
+# stage_tp_mesh(4, 2), pruned, 2 x 32 tokens; the kernels at shard width
+TP_TAG = "tp_7b_int8"
+TP_SIZES = (2, 4)
+TP_NEW_TOKENS = 64
+GALAXY_LAYERS, GALAXY_NODES, GALAXY_NEW = 8, 80, 32
+TP_PIPE_NEW = 32
+DRAFT_PROJ = ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+              "w_out")
+
+
+def tp_base_widths(tp):
+    """(name, In, Out) of the 7B base's shard products at tp (wk / wv
+    have wq's shape, w_up w_gate's)."""
+    return (("wq", 4096, 4096 // tp), ("wo", 4096 // tp, 4096),
+            ("w_gate", 4096, 11008 // tp), ("w_down", 11008 // tp, 4096))
+
+
+def tp_draft_widths(tp):
+    """The thin 7B draft's shard products at tp (w_out is replicated)."""
+    return (("fc", 8192, 1024 // tp), ("wq", 1024, 1024 // tp),
+            ("wo", 1024 // tp, 1024), ("w_gate", 1024, 2816 // tp),
+            ("w_down", 2816 // tp, 1024))
+
+
+INT8_SHAPES += (
+    [(f"tp{tp}_base_{w}_M{m}", m, i, o) for tp in TP_SIZES
+     for m in (64, 81) for w, i, o in tp_base_widths(tp)]
+    + [(f"tp2_base_{w}_M18", 18, i, o) for w, i, o in tp_base_widths(2)]
+    + [(f"tp{tp}_draft_{w}_M{m}", m, i, o) for tp in TP_SIZES
+       for m in (9, 10) for w, i, o in tp_draft_widths(tp)])
+ATTN_SHAPES += (
+    [(f"tp{tp}_verify_T81", 32 // tp, 32 // tp, 81, 512, 64 + 64 + 81)
+     for tp in TP_SIZES]
+    + [(f"tp{tp}_draft_ctx_T9", 8 // tp, 8 // tp, 9, 512, 150)
+       for tp in TP_SIZES]
+    + [(f"tp{tp}_beam_T10", 8 // tp, 8 // tp, 10, 512, 150 + 80)
+       for tp in TP_SIZES]
+    + [("tp2_galaxy_T80", 16, 16, 80, 512, 64 + 32 + 80),
+       ("tp2_pipe_chunk_T18", 16, 16, 18, 768, 128 + 48 + 18)])
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -2346,6 +2416,281 @@ def pipeline_config(dev, counters, smi):
     return total
 
 
+def tp_expected_per_round(eng) -> dict:
+    """Launches per speculative round of a `TPEngine` that the code
+    implies: `expected_per_round` with every sharded product and attention
+    once a rank (the base's 7 projections and one attention a layer, the
+    draft's 8 sharded projections and one attention a pass), the thin
+    draft's replicated w_out and the replicated beam head once."""
+    tp = eng.mesh.shape["tp"]
+    tree = eng.cfg.tree
+    n_layers = eng.cfg.model.num_hidden_layers
+    passes = tree.depth + 1
+    out = {"tree_attention": tp * (n_layers + passes), "head_topk": passes}
+    lp, dp = eng.params.shards[0].layers, eng.draft.shards[0]
+    for w, m, n in ([(getattr(lp, f), tree.node_cap, tp * n_layers)
+                     for f in BASE_PROJ]
+                    + [(getattr(dp, f), tree.top_k,
+                        passes * (1 if f == "w_out" else tp))
+                       for f in DRAFT_PROJ]):
+        kernel = _matmul_kernel(w, m)
+        if kernel is not None:
+            out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
+def tp_round_sums(eng, kernel_rows, per_round) -> dict:
+    """`round_sums` of one TP round: the shard products at their widths,
+    each rank's; the attention on each rank's heads; the replicated head."""
+    tp = eng.mesh.shape["tp"]
+    tree, mc = eng.cfg.tree, eng.cfg.model
+    n_layers, depth = mc.num_hidden_layers, tree.depth
+    lp, dp = eng.params.shards[0].layers, eng.draft.shards[0]
+    items = []
+    for f in BASE_PROJ:
+        _matmul_items(kernel_rows, items, getattr(lp, f), tree.node_cap,
+                      tp * n_layers)
+    for f in DRAFT_PROJ:
+        _matmul_items(kernel_rows, items, getattr(dp, f), tree.top_k,
+                      (depth + 1) * (1 if f == "w_out" else tp))
+    attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
+    items += [("tree_attention", attn[f"tp{tp}_verify_T81"], tp * n_layers),
+              ("tree_attention", attn[f"tp{tp}_draft_ctx_T9"], tp),
+              ("tree_attention", attn[f"tp{tp}_beam_T10"], tp * depth),
+              ("head_topk", head["root_T1"], 1),
+              ("head_topk", head["beam_T10"], depth)]
+    return _sums(items, per_round, f"tp{tp} round_sums")
+
+
+def tp_turns(eng, prompts, new_tokens, counters, total, tag):
+    """One eager and two fused turns of `eng` (the first fused one
+    captures): their outputs (which must agree), tok/s, rounds, launches
+    a round (held to `tp_expected_per_round`, and each graph's replay),
+    peak memory, capture seconds."""
+    import torch
+    zero(counters)
+    eng.prefill(eng.init_state(), prompts[0])
+    torch.cuda.synchronize()
+    prefill = counts(counters)
+    expected = tp_expected_per_round(eng)
+    line = {}
+    outs = []
+    for i, (kind, fn) in enumerate((("eager", eng.generate),
+                                    ("fused_capture", eng.generate_fused),
+                                    ("fused", eng.generate_fused))):
+        zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, rounds, new, _ = serve_turn(fn, prompts, new_tokens)
+        launches = counts(counters)
+        for n in total:
+            total[n] += launches[n]
+        outs.append(out)
+        rec = {"tok_s": new / sum(sec), "request_s": sec, "rounds": rounds,
+               "accept_per_round": new / rounds,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if kind != "fused_capture":
+            rec["launches_per_round"] = launches_per_round(
+                f"{tag} {kind}", launches, prefill, len(prompts), rounds,
+                expected)
+            missing = [k for k in ("int8_matmul", "tree_attention",
+                                   "head_topk") if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"{tag} {kind}: no launch of {missing}")
+        line[kind] = rec
+    check_graph_launches(tag, eng, "spec", expected)
+    if not outs[0] == outs[1] == outs[2]:
+        raise AssertionError(f"{tag}: the fused stream differs from the "
+                             "eager one")
+    line["graph_capture_s"] = sum(g.capture_s for g in graphs_of(eng, "spec"))
+    line["expected_per_round"] = expected
+    line["prefill_launches"] = {k: n for k, n in prefill.items() if n}
+    return outs[0], line
+
+
+def spec_turn(spec, prompts, new_tokens):
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    out, sec, rounds, new, _ = serve_turn(spec.generate_fused, prompts,
+                                          new_tokens)
+    return out, {"tok_s": new / sum(sec), "request_s": sec,
+                 "rounds": rounds, "accept_per_round": new / rounds,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tp_config(dev, counters, kernel_rows, smi):
+    """The tensor-parallel phase in its own process (docstring, phase 12);
+    each tp's line carries its `tp_round_sums`. Returns its launches.
+    Raises if a stream
+    leaves AR or the unsharded engine's stream off a near-tie, if the fused
+    stream differs from the eager one, if a round or a replay launches
+    other than the code implies, or if the galaxy forward never ran."""
+    import dataclasses
+    import torch
+    from flowspec_tpu_torch.config import (
+        EngineConfig, ModelConfig, SamplingConfig, StageTopology, TreeConfig)
+    from flowspec_tpu_torch.draft.eagle import (
+        load_thin_draft, quantize_eagle_params)
+    from flowspec_tpu_torch.entry import dryrun_multichip, random_llama
+    from flowspec_tpu_torch.parallel import (
+        PipelineEngine, TPEngine, stage_tp_mesh, tp_mesh)
+    from flowspec_tpu_torch.runtime import SpecEngine
+    total = {n: 0 for n in counters}
+    spec, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
+                                          TP_NEW_TOKENS)
+    t0 = time.perf_counter()
+    ar = [spec.generate_ar_fused(p, max_new_tokens=TP_NEW_TOKENS,
+                                 eos_token_id=-1)[0][len(p):]
+          for p in prompts]
+    ar_s = time.perf_counter() - t0
+    yard = []
+    for _ in range(2):          # the first turn captures the graph
+        spec_out, rec = spec_turn(spec, prompts, TP_NEW_TOKENS)
+        yard.append(rec)
+    m, fl = divergences(spec, prompts, spec_out, ar)
+    check_lossless("tp: SpecEngine", fl)
+    lines = {}
+    for tp in TP_SIZES:
+        tag = f"tp{tp}"
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = TPEngine(spec.params, spec.draft, spec.cfg, mesh=tp_mesh(tp))
+        weights = torch.cuda.memory_allocated() - before
+        out, line = tp_turns(eng, prompts, TP_NEW_TOKENS, counters, total,
+                             tag)
+        m_ar, f_ar = divergences(spec, prompts, out, ar)
+        m_sp, f_sp = divergences(spec, prompts, out, spec_out)
+        check_lossless(f"{tag} vs AR", f_ar)
+        check_lossless(f"{tag} vs SpecEngine", f_sp)
+        line.update(weights_gb=weights / 1e9, match_fraction_vs_ar=m_ar,
+                    first_divergences_vs_ar=f_ar,
+                    match_fraction_vs_spec=m_sp,
+                    first_divergences_vs_spec=f_sp,
+                    round_ms=tp_round_sums(
+                        eng, kernel_rows,
+                        line["fused"]["launches_per_round"]))
+        if tp == 2:
+            line["fused_profile"] = profile_request(
+                eng.generate_fused, prompts[0], PROFILE_TOKENS)
+        lines[tag] = line
+        del eng
+        torch.cuda.empty_cache()
+    spec_out2, rec = spec_turn(spec, prompts, TP_NEW_TOKENS)
+    yard.append(rec)
+    if spec_out2 != spec_out:
+        raise AssertionError("tp: SpecEngine's turns differ")
+    emit({"phase": "tp", "card": smi,
+          "model": "llama_7b int8 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": None, "mesh": "tp_mesh(tp), in-process on one card",
+          "tree": "node_cap 96 (81 nodes), depth 8, score_temperature 0.2",
+          "prompt_len": PROMPT_LEN, "requests": len(prompts),
+          "new_tokens": TP_NEW_TOKENS,
+          "spec_engine_generate_fused": yard,
+          "turns_order": ["spec fused", "spec fused"]
+          + [f"tp{tp} {k}" for tp in TP_SIZES
+             for k in ("eager", "fused", "fused")] + ["spec fused"],
+          "param_build_s": params_s,
+          "ar_reference_s": ar_s, **lines})
+
+    # galaxy: a bf16 base (the galaxy path takes unquantized LLaMA weights)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    mc8 = dataclasses.replace(ModelConfig.llama_7b(),
+                              num_hidden_layers=GALAXY_LAYERS)
+    base = random_llama(mc8, gen, dev)
+    draft = quantize_eagle_params(load_thin_draft(
+        str(ROOT / "checkpoints" / "draft_7b_thin_fp16.npz"), base.embed),
+        "int8")
+    gcfg = EngineConfig(model=mc8, tree=TreeConfig(
+        node_cap=96, leaf_cap=96, depth=8, depth_cap=16,
+        total_tokens=GALAXY_NODES - 1, score_temperature=0.2),
+        sampling=SamplingConfig(),
+        max_seq_len=PROMPT_LEN + GALAXY_NEW + 24)
+    gspec = SpecEngine(base, draft, gcfg)
+    g_ar = [gspec.generate_ar(p, max_new_tokens=GALAXY_NEW,
+                              eos_token_id=-1)[0][len(p):] for p in prompts]
+    glines = {}
+    g_outs = {}
+    for name, galaxy in (("plain_tp2", False), ("galaxy_tp2", True)):
+        eng = TPEngine(base, draft, gcfg, mesh=tp_mesh(2), galaxy=galaxy)
+        zero(counters)
+        out, sec, rounds, new, _ = serve_turn(eng.generate, prompts,
+                                              GALAXY_NEW)
+        launches = counts(counters)
+        for n in total:
+            total[n] += launches[n]
+        m, fl = divergences(gspec, prompts, out, g_ar)
+        check_lossless(f"tp {name} vs AR", fl)
+        g_outs[name] = out
+        glines[name] = {"tok_s": new / sum(sec), "rounds": rounds,
+                        "accept_per_round": new / rounds,
+                        "match_fraction_vs_ar": m,
+                        "first_divergences_vs_ar": fl,
+                        "launches": {k: n for k, n in launches.items() if n}}
+        if galaxy:
+            fwd = eng.forward_fn
+            glines[name].update(engaged=fwd.engaged, fallbacks=fwd.fallbacks)
+            if fwd.engaged < rounds:
+                raise AssertionError(f"tp galaxy: engaged {fwd.engaged} "
+                                     f"times in {rounds} rounds")
+        del eng
+    m, fl = divergences(gspec, prompts, g_outs["galaxy_tp2"],
+                        g_outs["plain_tp2"])
+    check_lossless("tp galaxy vs plain TP", fl)
+    emit({"phase": "tp_galaxy", "card": smi,
+          "model": "llama_7b width, bf16 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": f"32 -> {GALAXY_LAYERS} layers: the run's time",
+          "tree_nodes": GALAXY_NODES, "new_tokens": GALAXY_NEW,
+          "requests": len(prompts), "galaxy_vs_plain_match": m,
+          "galaxy_vs_plain_first_divergences": fl, **glines})
+    del gspec, base, draft
+    torch.cuda.empty_cache()
+
+    # PP x TP: the pipeline phase's tree, pruned, on a (4, 2) mesh
+    pcfg = EngineConfig(model=spec.cfg.model,
+                        tree=TreeConfig(score_temperature=0.2),
+                        sampling=SamplingConfig(),
+                        max_new_tokens=TP_PIPE_NEW,
+                        max_seq_len=PIPE_MAX_SEQ, topology=StageTopology())
+    pipe = PipelineEngine(spec.params, spec.draft, pcfg, schedule="pruned",
+                          mesh=stage_tp_mesh(4, 2))
+    zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out, sec, rounds, new, stats = serve_turn(pipe.generate, prompts,
+                                              TP_PIPE_NEW)
+    launches = counts(counters)
+    for n in total:
+        total[n] += launches[n]
+    m, fl = divergences(spec, prompts, out,
+                        [a[:TP_PIPE_NEW] for a in ar])
+    check_lossless("tp pipeline (stage 4, tp 2)", fl)
+    turns = sum(st["turns"] for st in stats)
+    emit({"phase": "tp_pipeline", "card": smi, "mesh": "stage_tp_mesh(4, 2)",
+          "schedule": "pruned", "stages": list(pipe.layer_split),
+          "new_tokens": TP_PIPE_NEW, "requests": len(prompts),
+          "tok_s": new / sum(sec), "rounds": rounds, "turns": turns,
+          "accept_per_round": new / rounds,
+          "wall_ms_per_turn": sum(sec) * 1e3 / turns,
+          "launches_per_turn": {k: n / turns for k, n in launches.items()
+                                if n},
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "match_fraction_vs_ar": m, "first_divergences_vs_ar": fl})
+    del pipe
+
+    # the multi-device dry run, in-process on the card
+    zero(counters)
+    t0 = time.perf_counter()
+    report = dryrun_multichip(4)
+    launches = counts(counters)
+    for n in total:
+        total[n] += launches[n]
+    emit({"phase": "tp_dryrun", "card": smi,
+          "seconds": time.perf_counter() - t0, "report": report,
+          "launches": {k: n for k, n in launches.items() if n}})
+    return total
+
+
 def lm_head_check(dev, gen, smi):
     """lm_head_logits at verify width (81 rows) at 7B: within f32 summation
     order of the f32 product, and one call's peak memory below one f32 copy
@@ -2643,6 +2988,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches = pipeline_config(dev, launch_counts(), smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
         return 0
+    if tag == TP_TAG:
+        launches = tp_config(dev, launch_counts(), kernel_rows, smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -2725,7 +3074,7 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG]:
+    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG, TP_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),

@@ -51,25 +51,38 @@ def _odim(x) -> int:
 
 def draft_view(p: EagleParams, base_cfg: ModelConfig) -> ModelConfig:
     """ModelConfig of the draft layer's geometry, from the param shapes;
-    head_dim is the base's so rope matches across widths."""
+    head_dim is the base's so rope matches across widths. A
+    tensor-parallel draft (`parallel/tp.py TPDraft`) gives its unsharded
+    geometry."""
+    if not isinstance(p, EagleParams):
+        return p.view(base_cfg)
+    return geometry(base_cfg, _odim(p.fc_w), _odim(p.wq), _odim(p.wk),
+                    _odim(p.w_gate))
+
+
+def geometry(base_cfg: ModelConfig, width: int, q_out: int, k_out: int,
+             inter: int) -> ModelConfig:
+    """The draft's ModelConfig from its width W, the Out widths of wq / wk
+    and its intermediate size: `base_cfg` itself for the full-width
+    layout."""
     d = base_cfg.head_dim_
-    w = _odim(p.fc_w)
-    nq = _odim(p.wq) // d
-    nkv = _odim(p.wk) // d
-    inter = _odim(p.w_gate)
-    if (w == base_cfg.hidden_size and inter == base_cfg.intermediate_size
+    nq, nkv = q_out // d, k_out // d
+    if (width == base_cfg.hidden_size
+            and inter == base_cfg.intermediate_size
             and nq == base_cfg.num_attention_heads
             and nkv == base_cfg.num_key_value_heads):
         return base_cfg
     return dataclasses.replace(
-        base_cfg, hidden_size=w, intermediate_size=inter,
+        base_cfg, hidden_size=width, intermediate_size=inter,
         num_attention_heads=nq, num_key_value_heads=nkv, head_dim=d)
 
 
 def project_out(p: EagleParams, x: torch.Tensor,
                 hidden_in: torch.Tensor) -> torch.Tensor:
     """Draft output in base H space: x itself for a full-width draft, the
-    residual hidden_in + x @ w_out for a thin one."""
+    residual hidden_in + x @ w_out for a thin one (replicated under tensor
+    parallelism)."""
+    p = p if isinstance(p, EagleParams) else p.shards[0]
     if p.w_out is None:
         return x
     return hidden_in.to(x.dtype) + qmatmul(x, p.w_out)
@@ -82,7 +95,11 @@ def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
     """x (B, T, W) already fc-fused; no input RMSNorm. k/v_cache are the
     draft layer's (B, nkv, S, D) buffers, appended in place at
     `write_start` (host int, device scalar or (B,) per lane; `live` as in
-    `models/kv_cache.py`)."""
+    `models/kv_cache.py`). A tensor-parallel draft (`parallel/tp.py
+    TPDraft`) runs its own layer over the ranks' shards."""
+    if not isinstance(p, EagleParams):
+        return p.layer(x, k_cache, v_cache, positions, bias, write_start,
+                       cfg, live)
     if live is not None:
         write_start = kv_write(write_start, x.shape[1], k_cache, live)
     res = x
@@ -96,7 +113,10 @@ def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
 
 def fuse(p: EagleParams, tokens: torch.Tensor,
          hidden: torch.Tensor) -> torch.Tensor:
-    """fc(concat(embed(tokens), hidden)), concatenated in hidden's dtype."""
+    """fc(concat(embed(tokens), hidden)), concatenated in hidden's dtype
+    (a tensor-parallel draft gathers its ranks' column shards of fc)."""
+    if not isinstance(p, EagleParams):
+        return p.fuse(tokens, hidden)
     emb = p.embed[tokens.long().clamp(0, p.embed.shape[0] - 1)]
     x = torch.cat([emb.to(hidden.dtype), hidden], dim=-1)
     return qmatmul(x, p.fc_w) + p.fc_b

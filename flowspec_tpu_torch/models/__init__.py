@@ -23,7 +23,12 @@ def model_forward(params, cache, hidden, positions, bias, write_start, cfg,
                   live=None):
     """The base model's forward for the family of `params`
     (`flowspec_tpu/models/__init__.py:21-28`): (hidden, cache). Lanes and
-    `live` as in `llama_forward`."""
+    `live` as in `llama_forward`. Tensor-parallel params
+    (`parallel/tp.py TPParams`) run their own forward over the ranks'
+    shards."""
+    if not isinstance(params, (LlamaParams, MixtralParams)):
+        return params.forward(cache, hidden, positions, bias, write_start,
+                              cfg, live)
     if isinstance(params, MixtralParams):
         return mixtral_forward(params, cache, hidden, positions, bias,
                                write_start, cfg, live)

@@ -125,38 +125,58 @@ def kv_write(write_start, t: int, layer_cache: torch.Tensor,
 
 def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
                     write_start, cfg: ModelConfig, bq=None, bk=None,
-                    bv=None):
+                    bv=None, heads: tuple | None = None):
     """qkv projections (+optional bias), rope, KV-cache append (in place,
     start clamped like `dynamic_update_slice`), masked attention, output
     projection. k_cache/v_cache are one layer's (B, nkv, S, D) buffers;
     `write_start` a host int, a device scalar, one a lane or the forward's
-    `KVWrite`."""
+    `KVWrite`. `heads` = (lo, hi): the weights are one tensor-parallel
+    rank's column / row shards, which own KV heads [lo, hi) of the cache
+    (and their G query heads each); the result is then that rank's partial
+    of the output projection (`parallel/tp.py`)."""
     b, t, _ = x.shape
-    if not isinstance(write_start, KVWrite):
-        write_start = kv_write(write_start, t, k_cache)
-    d = cfg.head_dim_
-    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
-
     q = qmatmul(x, wq)
     k = qmatmul(x, wk)
     v = qmatmul(x, wv)
     if bq is not None:
         q, k, v = q + bq, k + bk, v + bv
+    attn = attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
+                  cfg, heads)
+    return qmatmul(attn, wo)
+
+
+def attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
+           cfg: ModelConfig, heads: tuple | None = None) -> torch.Tensor:
+    """The middle of `attention_block`: projected q (B, T, nq*D) and k / v
+    (B, T, nkv*D) of the heads `heads` owns (all by default) -> rope, the
+    KV append into those heads of the cache, tree attention -> (B, T,
+    nq*D)."""
+    b, t, _ = q.shape
+    if not isinstance(write_start, KVWrite):
+        write_start = kv_write(write_start, t, k_cache)
+    d = cfg.head_dim_
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    flat = write_start.flat
+    k_own, v_own = k_cache, v_cache
+    if heads is not None:
+        lo, hi = heads
+        nq, nkv = (hi - lo) * (nq // nkv), hi - lo
+        flat = flat.view(b, -1, t)[:, lo:hi].reshape(-1)
+        k_own, v_own = k_cache[:, lo:hi], v_cache[:, lo:hi]
     q = rope(q.reshape(b, t, nq, d).transpose(1, 2), positions,
              cfg.rope_theta)
     k = rope(k.reshape(b, t, nkv, d).transpose(1, 2), positions,
              cfg.rope_theta)
     v = v.reshape(b, t, nkv, d).transpose(1, 2)
 
-    k_cache.view(-1, d).index_copy_(0, write_start.flat,
+    k_cache.view(-1, d).index_copy_(0, flat,
                                     k.to(k_cache.dtype).reshape(-1, d))
-    v_cache.view(-1, d).index_copy_(0, write_start.flat,
+    v_cache.view(-1, d).index_copy_(0, flat,
                                     v.to(v_cache.dtype).reshape(-1, d))
 
-    attn = attention(q.contiguous(), k_cache, v_cache, bias,
+    attn = attention(q.contiguous(), k_own, v_own, bias,
                      n_valid=write_start.n_valid)
-    attn = attn.transpose(1, 2).reshape(b, t, nq * d)
-    return qmatmul(attn, wo)
+    return attn.transpose(1, 2).reshape(b, t, nq * d)
 
 
 def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
@@ -203,7 +223,12 @@ def lm_head_logits(params: LlamaParams, hidden: torch.Tensor) -> torch.Tensor:
     f32, as the JAX package's einsum with preferred_element_type=f32 (a
     bf16 product output would round every logit to bf16). On the card one
     GEMM of the working dtype with f32 output, no f32 copy of the (H, V)
-    head; on the CPU the f32 product."""
+    head; on the CPU the f32 product. Tensor-parallel params
+    (`parallel/tp.py TPParams`) compute their vocab shards' logits and
+    gather them."""
+    sharded = getattr(params, "vocab_logits", None)
+    if sharded is not None:
+        return sharded(hidden)
     return matmul_f32_out(hidden, params.lm_head)
 
 

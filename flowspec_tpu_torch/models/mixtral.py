@@ -72,19 +72,33 @@ def moe_block(x: torch.Tensor, lp: MixtralLayerParams,
     of x's dtype summed in f32, softmax, top-k renormalised, then the dense
     mixture over the E experts, the mixture cast to the products' dtype
     before the final sum."""
-    b, t, h = x.shape
-    e = cfg.num_local_experts
-    logits = matmul_f32_out(x, lp.router)                    # (B, T, E)
+    return moe_experts(x, lp.w_gate, lp.w_up, lp.w_down,
+                       moe_mixture(x, lp.router, cfg))
+
+
+def moe_mixture(x: torch.Tensor, router: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The (B, T, E) f32 mixture weights of x (B, T, H): the router's
+    softmax, zero off each row's renormalised top-k."""
+    logits = matmul_f32_out(x, router)                       # (B, T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_experts(probs, cfg.num_experts_per_tok)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    mix = torch.zeros_like(probs).scatter_(-1, top_i, top_p)  # (B, T, E)
+    return torch.zeros_like(probs).scatter_(-1, top_i, top_p)
 
+
+def moe_experts(x: torch.Tensor, w_gate, w_up, w_down,
+                mix: torch.Tensor) -> torch.Tensor:
+    """sum_e mix[..., e] * expert_e(x) over the stacked experts (E, H, I)
+    / (E, I, H) given, with `mix` their (B, T, E) weights: all of a layer's
+    experts, or one expert-parallel rank's E/tp (`parallel/tp.py`)."""
+    b, t, h = x.shape
     xs = x.reshape(1, b * t, h)
-    g = torch.matmul(xs, lp.w_gate)                          # (E, BT, I)
-    u = torch.matmul(xs, lp.w_up)
-    y = torch.matmul(F.silu(g) * u, lp.w_down)               # (E, BT, H)
-    out = torch.einsum("enh,ne->nh", y, mix.reshape(b * t, e).to(y.dtype))
+    g = torch.matmul(xs, w_gate)                             # (E, BT, I)
+    u = torch.matmul(xs, w_up)
+    y = torch.matmul(F.silu(g) * u, w_down)                  # (E, BT, H)
+    out = torch.einsum("enh,ne->nh", y,
+                       mix.reshape(b * t, -1).to(y.dtype))
     return out.reshape(b, t, h)
 
 

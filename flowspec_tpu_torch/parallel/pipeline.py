@@ -30,9 +30,13 @@ earlier) is kept. Stochastic verdicts draw from the port's counter-based
 streams (`tree/sampling.py Draws`), so only their law matches JAX's.
 
 Schedules: naive, pruned, continuous (with none_expand), serial, ar,
-pipedec. The base is any family of `models.model_forward`. There is no
-mesh and no tensor parallelism (PP x TP, `:232-246`, waits for the TP
-port); the turn runs eagerly (its CUDA graph is a later step).
+pipedec. The base is any family of `models.model_forward`. PP x TP
+(`:232-246`, `:316-374`): on a `stage_tp_mesh(p, tp)` (`parallel/mesh.py`)
+each stage's view of the layers is tensor-parallel over the mesh's
+in-process TP group (`parallel/tp.py shard_params_tp`: the megatron layout,
+Mixtral's experts on tp), `lm_head` and the draft replicated as in JAX, and
+every stage's chunk forward runs through the TP forward. The turn runs
+eagerly (its CUDA graph is a later step).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from flowspec_tpu_torch.models.llama import (
     embed_tokens, final_hidden, lm_head_logits,
 )
 from flowspec_tpu_torch.ops.head_topk import head_topk
+from flowspec_tpu_torch.parallel.tp import TPParams, shard_params_tp
 from flowspec_tpu_torch.runtime.engine import make_beam_head, resolve_device
 from flowspec_tpu_torch.tree.build import finalize_tree
 from flowspec_tpu_torch.tree.merge import merge_trees
@@ -168,6 +173,8 @@ def from_slots(x: torch.Tensor, split) -> torch.Tensor:
 
 def _stage_params(params, lo: int, hi: int):
     """`params` with its layer stack cut to [lo, hi) (views)."""
+    if isinstance(params, TPParams):
+        return params.layer_slice(lo, hi)
     lp = params.layers
     return dataclasses.replace(params, layers=dataclasses.replace(lp, **{
         f.name: (None if getattr(lp, f.name) is None
@@ -222,13 +229,32 @@ def _queue_appended(lens: torch.Tensor, n_chunks: torch.Tensor, n_app,
 
 class PipelineEngine:
     """The pipeline engine (`flowspec_tpu/parallel/pipeline.py:196`) with
-    its P stages on one device: JAX's API without `mesh` (and without
-    tensor parallelism); `device` defaults to cuda."""
+    its P stages in one process on one device; `device` defaults to cuda.
+    `mesh` (`parallel/mesh.py`): a `stage_mesh(p)` (the default) or a
+    `stage_tp_mesh(p, tp)`, whose stages are tensor-parallel."""
 
     def __init__(self, params, draft: EagleParams, cfg: EngineConfig,
-                 schedule: str = "continuous", device=None):
+                 schedule: str = "continuous", device=None, mesh=None):
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
+        mc = cfg.model
+        if mesh is not None:
+            if mesh.distributed or "stage" not in mesh.axis_names:
+                raise ValueError(f"PipelineEngine takes an in-process stage "
+                                 f"or (stage, tp) mesh, got {mesh}")
+            if mesh.shape["stage"] != cfg.topology.num_stages:
+                raise ValueError(f"{mesh} for {cfg.topology.num_stages} "
+                                 "stages")
+        self.mesh = mesh
+        self.tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+        if self.tp > 1:
+            assert mc.num_attention_heads % self.tp == 0
+            assert mc.num_key_value_heads % self.tp == 0
+            if mc.num_local_experts:
+                # MoE: expert-parallel over tp (each TP rank holds E/tp
+                # experts; the mixture's partials are all-reduced)
+                assert mc.num_local_experts % self.tp == 0
+            params = shard_params_tp(params, mesh, vocab=False)
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "

@@ -39,7 +39,12 @@ prefix built in a thread. The pipeline (`parallel/pipeline.py`): every
 schedule of a tiny int8 pipeline with empty stages on the card against the
 same engine on the CPU under the lossless rule (a first divergence only at
 a top-2 gap < 0.05), KV rows a multiple of 256, at most three flag reads a
-turn, generate_fused equal to generate, and a resume.
+turn, generate_fused equal to generate, and a resume. Tensor parallelism
+(`parallel/tp.py`, in-process ranks): the tiny int8 pair at tp 2 / 4 on the
+card against the same engine on the CPU under the lossless rule, a TP
+round's graph replayed with the eager body's bits, the int8 kernel at the
+7B pair's shard widths (64-column strips at Out 2752 / 704), galaxy at tp 2
+against plain TP, and `entry.dryrun_multichip(4)`.
 """
 
 import pytest
@@ -1122,3 +1127,123 @@ def test_pipeline_resume_on_the_card(cuda):
     assert got == fresh
     want, _ = cpu.generate(out + extra, max_new_tokens=10, eos_token_id=-1)
     _near_tie_or_equal(ref, out + extra, got, want)
+
+
+# ---- tensor parallelism (in-process ranks on the one card) -----------------
+
+def _tiny_tp_engines(tp):
+    """`_tiny_cuda_engine`'s int8 pair as (card TPEngine, CPU TPEngine, CPU
+    SpecEngine for the gaps) over an in-process tp mesh."""
+    from flowspec_tpu_torch.parallel import TPEngine, tp_mesh
+    from flowspec_tpu_torch.runtime import SpecEngine
+    spec = _tiny_cuda_engine()
+    cpu_params, cpu_draft = _moved(spec.params, "cpu"), _moved(spec.draft,
+                                                               "cpu")
+    return (TPEngine(spec.params, spec.draft, spec.cfg, mesh=tp_mesh(tp)),
+            TPEngine(cpu_params, cpu_draft, spec.cfg, mesh=tp_mesh(tp),
+                     device="cpu"),
+            SpecEngine(cpu_params, cpu_draft, spec.cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_engine_on_the_card_matches_the_cpu(cuda, tp):
+    """TP 2 / 4 of the tiny int8 pair on the card against the same engine
+    on the CPU under the lossless rule; every rank's shards launch the
+    int8, attention and head kernels; generate_fused equals generate."""
+    from flowspec_tpu_torch.ops import counted_wrappers
+    eng, cpu, ref = _tiny_tp_engines(tp)
+    prompt = list(range(3, 40))
+    counters = counted_wrappers()
+    before = {n: fn.launches for n, fn in counters.items()}
+    got, stats = eng.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    for n in ("int8_matmul", "tree_attention", "head_topk"):
+        assert counters[n].launches > before[n], n
+    want, _ = cpu.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    _near_tie_or_equal(ref, prompt, got, want)
+    fused, fstats = eng.generate_fused(prompt, max_new_tokens=24,
+                                       eos_token_id=-1)
+    assert fused == got and fstats["rounds"] == stats["rounds"]
+
+
+def test_tp_graph_replay_equals_eager_round_bits(cuda):
+    """A TP round (tp 2: each rank's shards, the all-reduces in memory)
+    captured once and replayed gives the eager body's state and loop
+    carry, bit for bit, replay after replay; a replay counts each rank's
+    launches."""
+    from flowspec_tpu_torch.ops import counted_wrappers
+    from flowspec_tpu_torch.runtime import graphs
+    eng, _, _ = _tiny_tp_engines(2)
+    state = eng.prefill(eng.init_state(0), list(range(3, 40)))
+    loop = graphs._loop_buffers(64, -1, state.commit_len.device)
+    eager, eager_loop = graphs._clone(state), graphs._clone(loop)
+    g = graphs.DecodeGraph(eng, graphs._spec_body, state, loop)
+    n_layers, passes = 2, eng.cfg.tree.depth + 1
+    assert g.launches["tree_attention"] == 2 * (n_layers + passes)
+    counters = counted_wrappers()
+    for _ in range(3):
+        before = {n: fn.launches for n, fn in counters.items()}
+        g.replay()
+        for n, fn in counters.items():
+            assert fn.launches - before[n] == g.launches.get(n, 0), n
+        eager = graphs._spec_body(eng, eager, eager_loop)
+        torch.cuda.synchronize()
+        for a, b in zip(graphs._fields(g.state), graphs._fields(eager)):
+            assert torch.equal(a, b)
+        for a, b in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,n_in,n_out", [
+    (81, 4096, 2752), (1, 4096, 2752), (64, 4096, 5504), (81, 2752, 4096),
+    (18, 5504, 4096), (10, 1024, 704), (10, 704, 1024), (9, 8192, 256)])
+def test_int8_shard_widths_match_plain_with_equal_bits(cuda, m, n_in, n_out):
+    """The int8 kernel at the 7B pair's tp 2 / 4 shard widths (Out 2752 and
+    704: 64-column strips) against plain, equal bits on two launches."""
+    x, q, s = _int8(cuda, m, n_in, n_out)
+    plan = matmul_plan(m, n_in, n_out, "int8")
+    assert plan.bn == (64 if n_out % 128 == 64 else 128)
+    got = int8_matmul(x, q, s)
+    assert torch.equal(got, int8_matmul(x, q, s))
+    ok, err = _close(got, int8_matmul_plain(x, q, s))
+    assert ok, float(err)
+
+
+def test_galaxy_on_the_card_matches_plain_tp(cuda):
+    """Galaxy TP at tp 2 on a tiny bf16 base (H 256, head dim 64) with a
+    24-node tree (rows tp divides): the galaxy forward engages on every
+    verify, and its stream equals plain TP's on the card under the
+    lossless rule."""
+    from flowspec_tpu_torch.config import (
+        EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.draft.eagle import init_eagle_params
+    from flowspec_tpu_torch.entry import random_llama
+    from flowspec_tpu_torch.parallel import TPEngine, tp_mesh
+    from flowspec_tpu_torch.runtime import SpecEngine
+    mc = ModelConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    params = random_llama(mc, gen, "cuda")
+    draft = init_eagle_params(gen, mc, embed=params.embed)
+    cfg = EngineConfig(model=mc, tree=TreeConfig(
+        top_k=8, depth=4, total_tokens=23, node_cap=48, leaf_cap=48,
+        depth_cap=12), sampling=SamplingConfig(), max_seq_len=200,
+        prefill_chunk=16)
+    prompt = list(range(3, 40))
+    plain = TPEngine(params, draft, cfg, mesh=tp_mesh(2))
+    gal = TPEngine(params, draft, cfg, mesh=tp_mesh(2), galaxy=True)
+    want, _ = plain.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    got, stats = gal.generate(prompt, max_new_tokens=24, eos_token_id=-1)
+    assert gal.forward_fn.engaged >= stats["rounds"]
+    ref = SpecEngine(params, draft, cfg)
+    _near_tie_or_equal(ref, prompt, got, want)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """`entry.dryrun_multichip(4)` on the card (bf16, head dim 64): every
+    path against the AR stream under the lossless rule."""
+    from flowspec_tpu_torch.entry import dryrun_multichip
+    report = dryrun_multichip(4)
+    assert report["device"].startswith("cuda")
+    assert report["galaxy_tp4"]["engaged"] > 0

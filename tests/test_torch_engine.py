@@ -14,13 +14,15 @@ interpret mode (`flowspec_tpu.ops.quant._USE_PALLAS` set from the test; no
 file of the JAX package changes), which leaves the f32 sums' order and, at
 f32, the product's bf16 rounding (~2e-3 relative in the logits) between
 the two — still below the trained pair's top-2 gaps: same tokens, rounds
-and accept/round. And for every kind on a tiny random pair, base and draft
+and accept/round (the nf4 and int4 cases run from
+tests/test_torch_engine_nf4.py and test_torch_engine_int4.py, one kind a
+file, the pair and the fixture from tests/torch_engine_util.py). And for
+every kind on a tiny random pair, base and draft
 quantized, the port's greedy spec stream equals its own AR stream (the
 invariant of tests/test_quant.py:158-178).
 """
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -34,40 +36,14 @@ from flowspec_tpu.config import (
 from flowspec_tpu.config import ModelConfig as JModelConfig
 from flowspec_tpu.draft.eagle import init_eagle_params, quantize_eagle_params
 from flowspec_tpu.models.llama import init_llama_params, quantize_llama_params
-from flowspec_tpu.runtime.engine import (
-    SpecEngine as JSpecEngine, make_beam_head as jmake_beam_head,
-)
+from flowspec_tpu.runtime.engine import make_beam_head as jmake_beam_head
 from flowspec_tpu_torch import config as tcfg
 from flowspec_tpu_torch.runtime import SpecEngine
 from flowspec_tpu_torch.runtime.engine import make_beam_head
 from tests.torch_bridge_util import port_eagle, port_llama
-from tools.train_struct_base import (
-    SCALES, load_base, load_draft, model_config,
+from tests.torch_engine_util import (  # noqa: F401 (fixtures)
+    N_NEW, _struct_pair, jax_4bit_through_pallas, one_torch_thread,
 )
-
-FIX = os.path.join(os.path.dirname(__file__), "fixtures")
-TREE = dict(total_tokens=48, depth=8, score_temperature=0.2, node_cap=96,
-            leaf_cap=96, depth_cap=16)
-N_NEW = 40
-
-
-def _struct_pair(kind):
-    mc = dataclasses.replace(model_config(SCALES["tiny8"]), dtype="float32")
-    base = load_base(os.path.join(FIX, "struct_tiny8_base.npz"), mc)
-    draft = load_draft(os.path.join(FIX, "struct_tiny8_draft.npz"),
-                       base.embed, jnp.float32)
-    base = quantize_llama_params(base, kind)
-    draft = quantize_eagle_params(draft, kind)
-    jcfg = JEngineConfig(model=mc, tree=JTreeConfig(**TREE),
-                         sampling=JSamplingConfig(), max_seq_len=128)
-    tc = tcfg.EngineConfig(
-        model=tcfg.ModelConfig(**dataclasses.asdict(mc)),
-        tree=tcfg.TreeConfig(**TREE), sampling=tcfg.SamplingConfig(),
-        max_seq_len=128)
-    port = SpecEngine(port_llama(base), port_eagle(draft), tc, device="cpu")
-    prompt = np.random.default_rng(2).integers(
-        3, mc.vocab_size, size=24).astype(np.int32)
-    return JSpecEngine(base, draft, jcfg), port, prompt
 
 
 @pytest.fixture(scope="module")
@@ -75,21 +51,7 @@ def pair():
     return _struct_pair("int8")
 
 
-@pytest.fixture
-def jax_4bit_through_pallas(monkeypatch):
-    """Send JAX's nf4 / int4 products through the TPU kernels in interpret
-    mode; drop every trace made that way afterwards, so no later test of
-    this process reuses one."""
-    from jax.experimental.pallas import tpu as pltpu
-    from flowspec_tpu.ops import quant as jquant
-    monkeypatch.setattr(jquant, "_USE_PALLAS",
-                        {"int8": False, "nf4": True, "int4": True})
-    with pltpu.force_tpu_interpret_mode():
-        yield
-    jax.clear_caches()
-
-
-@pytest.mark.parametrize("kind", ["nf4", "int4", "mixed"])
+@pytest.mark.parametrize("kind", ["mixed"])
 def test_port_generate_matches_jax_token_for_token_4bit(
         kind, jax_4bit_through_pallas):
     jeng, port, prompt = _struct_pair(kind)

@@ -38,6 +38,7 @@ from flowspec_tpu_torch.models.mixtral import (
 )
 from flowspec_tpu_torch.runtime import SpecEngine
 from tests.test_torch_engine import SMALL_TREE
+from tests.torch_engine_util import one_torch_thread  # noqa: F401
 from tests.torch_bridge_util import np_of, port_eagle, port_llama, port_mixtral
 
 F32 = dict(rtol=1e-5, atol=1e-5)

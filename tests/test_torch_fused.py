@@ -32,6 +32,7 @@ from flowspec_tpu_torch.ops.tree_attention import tree_attention_plain
 from flowspec_tpu_torch.runtime import SpecEngine
 from flowspec_tpu_torch.runtime.engine import _grow_kv
 from tests.test_torch_engine import N_NEW, SMALL_TREE, _struct_pair
+from tests.torch_engine_util import one_torch_thread  # noqa: F401
 from tests.torch_bridge_util import port_eagle, port_llama
 
 SMALL_PROMPT = [5, 9, 3, 7, 4, 8, 6]
