@@ -182,14 +182,34 @@ emission, `clock_s`):
      tree (2 x 32 tokens), lossless; `tp_dryrun`:
      `entry.dryrun_multichip(4)` on the card (bf16, head dim 64: every
      schedule over 4 stages, TP and galaxy at tp 4, the (2, 2) mesh on an
-     uneven split, against the AR stream). The kernel phase adds the shard
+     uneven split, against the AR stream; the struct tiny8 gate, continuous
+     and pruned over 4 stages at accept/round > 2.5 under the near-tie
+     rule; the trained tiny-draft gate named as not run, CPU-only for its
+     head dim 16). The kernel phase adds the shard
      widths: int8 at tp 2 / 4 on the 7B widths (wq Out 2048 / 1024, wo In
      2048 / 1024, w_gate Out 5504 / 2752 -- 2752 takes 64-column strips --
      w_down In 5504 / 2752) at M 64 and 81 (and M 18 at tp 2, the PP x TP
      chunk), the thin draft's at tp 2 / 4 (Out / In 512 / 256, 1408 / 704)
      at M 9 and 10, and attention on 16 / 8 heads (verify T 81, galaxy T
      80, the draft's 4 / 2 heads at T 9 / 10, the PP x TP chunk T 18).
-Phases 4-6 and 9-12 run each configuration in a process of its own
+ 13. eval      the evaluation path (`eval_config`): the 7B int8 pair at full
+     width and depth (random base from the generator seeded SEED, the
+     committed thin draft in int8) through the port's sweep CLI
+     `eval.sweep.main` on data/mt_bench (byte tokenizer, V 32000), 4
+     questions x 2 turns, depth 8, score temperature 0.2, 64 new tokens a
+     turn, max_seq 640: `eval_single_fused` (generate_fused) and
+     `eval_resume` (`--resume --no-fused`, resume_hits must be 4), each
+     row at its token budget, question 1's two answers against
+     `generate_ar` under the near-tie rule, each call's host seconds;
+     `eval_serve`: `run_eval_serve` on a 4-lane BatchedSpecEngine (81
+     nodes a lane, as the sweep builds it), 8 questions x 2 turns, the
+     preamble prefilled once, a ConversationStore (`resumed`, `cold`);
+     `eval`: each part's Profiler.profile_context summary (seconds, alloc
+     delta, peak MB), the launches (int8, attention and head > 0, the
+     comparison-only entry points 0) and the tok/s line of `python -m
+     flowspec_tpu_torch.demo --random 7b --thin-draft ...` run in a child
+     process.
+Phases 4-6 and 9-13 run each configuration in a process of its own
 (`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
@@ -458,6 +478,17 @@ GALAXY_LAYERS, GALAXY_NODES, GALAXY_NEW = 8, 80, 32
 TP_PIPE_NEW = 32
 DRAFT_PROJ = ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "w_out")
+# the evaluation phase: the 7B int8 pair (the random base from a generator
+# seeded SEED, as make_engine's; the committed thin draft in int8) through
+# the port's sweep CLI and serving eval on data/mt_bench (templated prompts
+# of 200-253 bytes, two turns each; the byte tokenizer caps a prompt at 512
+# tokens, so max_seq 640 holds any turn 2 with its 64 new tokens); the
+# sweep's tree at depth 8, score temperature 0.2 (81 nodes)
+EVAL_TAG = "eval"
+EVAL_DATA = "data/mt_bench/question.jsonl"
+EVAL_NEW, EVAL_MAX_SEQ = 64, 640
+EVAL_QUESTIONS, EVAL_SERVE_QUESTIONS, EVAL_LANES = 4, 8, 4
+THIN_7B = "checkpoints/draft_7b_thin_fp16.npz"
 
 
 def tp_base_widths(tp):
@@ -489,6 +520,32 @@ ATTN_SHAPES += (
        for tp in TP_SIZES]
     + [("tp2_galaxy_T80", 16, 16, 80, 512, 64 + 32 + 80),
        ("tp2_pipe_chunk_T18", 16, 16, 18, 768, 128 + 48 + 18)])
+# attention at the eval phase's shapes: max_seq 640 gives the base 768 KV
+# rows (640 + 81 nodes) and the thin draft 1024 (640 + 14 levels x top-k
+# 10); the verify (T 81), the base's and the draft's prefill chunks (T 64)
+# and the draft's context and beam passes (T 10), one lane and 4; n_valid
+# the least and most the path reached (turn 1's first round, turn 2's last).
+# The phase records the shapes its engines give the kernel and fails on one
+# that no row checked. The demo's child (max_seq 1152: 1280 rows for both
+# models; a 32-token prompt, 64 new) is out of the recorder's reach: its
+# rows are the shapes the same tree and max_seq give the demo on the CPU
+EVAL_ATTN_SHAPES = [("eval_verify_T81", 32, 32, 81, 768, 541),
+                    ("eval_prefill_T64", 32, 32, 64, 768, 448),
+                    ("eval_draft_prefill_T64", 8, 8, 64, 1024, 448),
+                    ("eval_draft_T10", 8, 8, 10, 1024, 226),
+                    ("eval_draft_T10_late", 8, 8, 10, 1024, 540)]
+EVAL_LANE_ATTN_SHAPES = [
+    ("eval_lanes4_verify_T81", 4, 32, 32, 81, 768, [242, 330, 450, 554]),
+    ("eval_lanes4_draft_T10", 4, 8, 8, 10, 1024, [171, 300, 420, 553]),
+    ("eval_lanes4_draft_prefill_T64", 4, 8, 8, 64, 1024,
+     [192, 300, 420, 536])]
+DEMO_ATTN_SHAPES = [("demo_verify_T81", 32, 32, 81, 1280, 177),
+                    ("demo_prefill_T64", 32, 32, 64, 1280, 64),
+                    ("demo_draft_prefill_T64", 8, 8, 64, 1280, 64),
+                    ("demo_draft_T10", 8, 8, 10, 1280, 155),
+                    ("demo_draft_ctx_T8", 8, 8, 8, 1280, 102)]
+ATTN_SHAPES += EVAL_ATTN_SHAPES + DEMO_ATTN_SHAPES
+LANE_ATTN_SHAPES += EVAL_LANE_ATTN_SHAPES
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -780,7 +837,7 @@ def check_attention(dev, gen, flush, details):
                              (tree_attention_simt, n_valid),
                              (tree_attention, nv))]
         row = {"kernel": "tree_attention", "shape": name, "nq": nq,
-               "nkv": nkv, "T": t, "S": s_max, "n_valid": n_valid,
+               "nkv": nkv, "T": t, "S": s_max, "D": d, "n_valid": n_valid,
                "n_keys_read": n_read, "old_n_keys_read": n_keys,
                # the grid for the allocation, n_valid read on the card
                # (empty splits past the live tiles), beside the grid sized
@@ -858,7 +915,7 @@ def check_attention_lanes(dev, gen, flush, details):
         vr = v[:, :, :n_read].repeat_interleave(nq // nkv, dim=1)
         mask = bias[:, None, :, :n_read].to(torch.bfloat16).contiguous()
         row = {"kernel": "tree_attention", "shape": name, "lanes": b,
-               "nq": nq, "nkv": nkv, "T": t, "S": s_max,
+               "nq": nq, "nkv": nkv, "T": t, "S": s_max, "D": d,
                "n_valid": n_valid,
                "plan": attention_plan(nkv, nq // nkv, t, s_max,
                                       lanes=b)._asdict(),
@@ -2683,11 +2740,232 @@ def tp_config(dev, counters, kernel_rows, smi):
     t0 = time.perf_counter()
     report = dryrun_multichip(4)
     launches = counts(counters)
+    if not (report["trained"]["run"] is False
+            and all(report[f"{s}_struct_d8"]["ok"]
+                    for s in ("continuous", "pruned"))):
+        raise AssertionError(f"tp_dryrun: trained gates {report}")
     for n in total:
         total[n] += launches[n]
     emit({"phase": "tp_dryrun", "card": smi,
           "seconds": time.perf_counter() - t0, "report": report,
           "launches": {k: n for k, n in launches.items() if n}})
+    return total
+
+
+class CallLog:
+    """While active, records every `SpecEngine.generate_fused`, `generate`
+    and `resume_and_generate` call of any engine: (engine, prompt tokens,
+    output stream, host seconds). The methods are wrapped on the class (an
+    engine the sweep CLI builds is out of reach otherwise) and restored on
+    exit."""
+
+    NAMES = ("generate_fused", "generate", "resume_and_generate")
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from flowspec_tpu_torch.runtime import SpecEngine
+        self.saved = {n: SpecEngine.__dict__[n] for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(SpecEngine, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(eng, *a, **kw):
+            t0 = time.perf_counter()
+            r = fn(eng, *a, **kw)
+            sec = time.perf_counter() - t0
+            prompt = (list(a[1]) + list(a[2]) if name == "resume_and_generate"
+                      else list(a[0]))
+            self.calls.append({"engine": eng, "method": name,
+                               "prompt": [int(t) for t in prompt],
+                               "out": [int(t) for t in r[0]],
+                               "seconds": sec})
+            return r
+        return call
+
+    def __exit__(self, *exc):
+        from flowspec_tpu_torch.runtime import SpecEngine
+        for n, fn in self.saved.items():
+            setattr(SpecEngine, n, fn)
+        return False
+
+
+class AttentionShapes:
+    """While active, records the (lanes, nq, nkv, T, S, D) of every call the
+    models make to `tree_attention` (a graph's capture makes each of its
+    calls once for all its replays): the shapes a path gives the kernel.
+    The models' reference to the wrapper is swapped for a recorder and
+    restored on exit; the wrapper and its launch count are untouched."""
+
+    def __init__(self):
+        self.shapes = set()
+
+    def __enter__(self):
+        from flowspec_tpu_torch.models import llama
+        self.fn = fn = llama.tree_attention
+
+        def call(q, k, v, bias, n_valid=None):
+            self.shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                             k.shape[2], q.shape[3]))
+            return fn(q, k, v, bias, n_valid)
+        llama.tree_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        from flowspec_tpu_torch.models import llama
+        llama.tree_attention = self.fn
+        return False
+
+    def checked_by(self, rows) -> dict:
+        """Each recorded shape, as "lanes x nq/nkv T x S D", with the
+        kernel rows that held it against plain (an empty list: none)."""
+        return {f"{b}x{nq}/{nkv} T{t} x S{s} D{d}": sorted(
+            n for n, r in rows.items()
+            if (r.get("lanes", 1), r["nq"], r["nkv"], r["T"], r["S"],
+                r["D"]) == (b, nq, nkv, t, s, d))
+            for b, nq, nkv, t, s, d in sorted(self.shapes)}
+
+
+def spot_check(tag, calls, new_tokens):
+    """Each recorded call's new tokens against `generate_ar` on its prompt
+    by its own engine, under the near-tie rule (`check_lossless`); returns
+    the match fractions and first divergences."""
+    eng = calls[0]["engine"]
+    prompts = [c["prompt"] for c in calls]
+    spec = [c["out"][len(c["prompt"]):] for c in calls]
+    ar = [eng.generate_ar(p, max_new_tokens=new_tokens,
+                          eos_token_id=-1)[0][len(p):] for p in prompts]
+    m, faults = divergences(eng, prompts, spec, ar)
+    check_lossless(tag, faults)
+    return {"methods": [c["method"] for c in calls],
+            "prompt_tokens": [len(p) for p in prompts],
+            "match_fraction_vs_ar": m, "first_divergences_vs_ar": faults}
+
+
+def demo_line():
+    """`python -m flowspec_tpu_torch.demo --random 7b --thin-draft ...` in
+    a child process: its tok/s line and wall seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "flowspec_tpu_torch.demo",
+                        "--random", "7b", "--thin-draft", THIN_7B,
+                        "--max-new-tokens", str(EVAL_NEW)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"demo exited with {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    if not lines or " tok/s | " not in lines[-1]:
+        raise AssertionError(f"demo printed no tok/s line: {r.stdout}")
+    return {"argv": ["--random", "7b", "--thin-draft", THIN_7B,
+                     "--max-new-tokens", EVAL_NEW],
+            "lines": lines, "seconds": time.perf_counter() - t0}
+
+
+def eval_config(dev, counters, kernel_rows, smi):
+    """The evaluation phase in its own process: the 7B int8 pair at full
+    width and depth through the port's sweep CLI (`eval.sweep.main`),
+    single engine, on 4 mt_bench questions x 2 turns, fused, then eager
+    with the longest-common-prefix resume (`--resume --no-fused`); then
+    `run_eval_serve` on a 4-lane `BatchedSpecEngine` over 8 questions x 2
+    turns with the preamble prefilled once and a ConversationStore; each
+    part inside a `Profiler.profile_context`; then the demo in a child
+    process. Returns its launches. Raises if a row misses its token
+    budget, if a spot-checked answer (one a turn of each sweep run) leaves
+    its AR stream off a near-tie, if the resume run resumed other than
+    every turn 2, if the int8, attention or head kernel never launched
+    (or a comparison-only entry point did), or if the engines gave the
+    attention kernel a shape that no row of the kernel phase checked."""
+    import torch
+    from flowspec_tpu_torch.eval import sweep
+    from flowspec_tpu_torch.eval.harness import (
+        load_questions, run_eval_serve)
+    from flowspec_tpu_torch.utils.profiler import Profiler
+    prof = Profiler(sync=True, device=dev)
+    total = {n: 0 for n in counters}
+    out_rows = OUT_DIR / "chip_smoke_eval_rows.jsonl"
+    out_rows.unlink(missing_ok=True)
+    argv = ["--random", "7b", "--quant", "int8", "--trained-draft", THIN_7B,
+            "--engine", "single", "--data", EVAL_DATA,
+            "--limit", str(EVAL_QUESTIONS), "--max-conv-turns", "2",
+            "--depths", "8", "--score-temps", "0.2",
+            "--max-new-tokens", str(EVAL_NEW),
+            "--max-seq-len", str(EVAL_MAX_SEQ), "--out", str(out_rows)]
+    budget = EVAL_QUESTIONS * 2 * EVAL_NEW
+
+    def counted(fn):
+        zero(counters)
+        r = fn()
+        for n, c in counts(counters).items():
+            total[n] += c
+        return r
+
+    lines, eng = {}, None
+    attn = AttentionShapes()
+    for part, extra in (("single_fused", []),
+                        ("resume", ["--resume", "--no-fused"])):
+        eng = None                      # the previous part's engine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with CallLog() as log, attn, prof.profile_context(part):
+            rows = counted(lambda: sweep.main(argv + extra))
+        (row,) = rows
+        if row["new_tokens"] != budget or row["conversation_turns"] != 8:
+            raise AssertionError(f"eval {part}: {row}")
+        if part == "resume" and row["resume_hits"] != EVAL_QUESTIONS:
+            raise AssertionError(f"eval resume: resume_hits {row}")
+        # one answer a turn: question 1's turns 1 and 2
+        check = spot_check(f"eval {part}", log.calls[:2], EVAL_NEW)
+        # each call's host seconds: the first of a fresh engine's fused
+        # calls captures its graph
+        lines[part] = {"row": row, "spot_check": check,
+                       "call_seconds": [c["seconds"] for c in log.calls],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        eng = log.calls[0]["engine"]
+        del log
+    for part, line in lines.items():
+        emit({"phase": f"eval_{part}", "card": smi,
+              "model": "ModelConfig.llama_7b() int8, random (seed 0), "
+                       f"{THIN_7B} in int8", **line})
+
+    # the serving eval over the same pair: 8 questions, 2 turns, 4 lanes
+    args = sweep.parse_args(argv + ["--engine", "serve", "--serve-slots",
+                                    str(EVAL_LANES)])
+    tc = sweep.tree_config(args, int(args.depths), int(args.expand_depths),
+                           int(args.chunk_lens), float(args.score_temps))
+    served = sweep.build_engine(args, eng.cfg.model, tc, eng.params,
+                                eng.draft, 0.0)
+    del eng
+    tok, detok = sweep.byte_tokenizer(served.cfg.model.vocab_size)
+    qs = load_questions(str(ROOT / EVAL_DATA), limit=EVAL_SERVE_QUESTIONS)
+    torch.cuda.reset_peak_memory_stats()
+    with attn, prof.profile_context("serve"):
+        srows = counted(lambda: run_eval_serve(
+            served, tok, qs, name="mt_bench", max_new_tokens=EVAL_NEW,
+            prefix_cache=True, max_turns=2, detokenize=detok))
+    for r in srows:
+        if r["new_tokens"] != EVAL_NEW * r["questions"]:
+            raise AssertionError(f"eval serve: {r}")
+    emit({"phase": "eval_serve", "card": smi, "lanes": EVAL_LANES,
+          "tree": "depth 8, 81 nodes a lane (adapt_tree off, as the sweep)",
+          "rows": srows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del served
+    torch.cuda.empty_cache()
+
+    on_path = ("int8_matmul", "tree_attention", "head_topk")
+    if any(total[n] == 0 for n in on_path) or any(
+            total[n] for n in OLD.values()):
+        raise AssertionError(f"eval: launches {total}")
+    shapes = attn.checked_by(kernel_rows["tree_attention"])
+    if not shapes or not all(shapes.values()):
+        raise AssertionError(f"eval: attention shapes unchecked {shapes}")
+    demo = demo_line()
+    emit({"phase": "eval", "card": smi, "profile": prof.summary(),
+          "launches": {k: n for k, n in total.items() if n},
+          "attention_shapes_checked_by": shapes,
+          "comparison_only_launches": {n: total[n] for n in OLD.values()},
+          "demo": demo})
     return total
 
 
@@ -2992,6 +3270,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches = tp_config(dev, launch_counts(), kernel_rows, smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
         return 0
+    if tag == EVAL_TAG:
+        launches = eval_config(dev, launch_counts(), kernel_rows, smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -3074,7 +3356,8 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG, TP_TAG]:
+    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG, TP_TAG,
+                                EVAL_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),

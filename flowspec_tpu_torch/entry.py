@@ -17,15 +17,30 @@ dim of 64 or 128, so there the same model is bf16 at hidden 512 (head dim
 64, intermediate 1024), and a stream that leaves the AR stream passes only
 where the AR model's top-2 logit gap at the divergence is under 0.05 (a
 near-tie that bf16 rounding may decide either way); the rest of such a
-stream is not compared. The pipeline gate of JAX's dry run that reads its
-trained fixtures (`:143-246`) is not part of this one: those fixtures load
-through the JAX package's tools.
+stream is not compared.
+
+Two gates drive the pipeline's prune, merge and expand paths at real
+multi-token commits, not only at the random drafts' acceptance of about 1
+(`:143-184`, `:186-231`), over `stages8` stages (n when n is 2, 4 or 8;
+8 when n > 8), when their fixtures exist:
+- the trained tiny draft (`tests/fixtures/tiny_draft_trained_l8.npz`) on
+  its 8-layer tiny base, JAX's `init_llama_params(key(0))` draw written
+  to `tests/fixtures/tiny_l8_base.npz` in `save_base`'s leaf layout:
+  continuous and pruned must give the AR stream at accept/round > 1.5.
+  Its head dim is 16 and the card's attention kernel takes 64 or 128, so
+  it runs where the device is the CPU; on the card the report says it was
+  not run and why;
+- the struct tiny8 pair (`tests/fixtures/struct_tiny8_*.npz`, loaded by
+  `eval/struct_base.py`) on the d8/tau0.2/n48 tree in chunks of 8:
+  continuous and pruned must give the AR stream at accept/round > 2.5, in
+  f32 on the CPU, in bf16 under the near-tie rule on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +55,11 @@ from flowspec_tpu_torch.runtime.engine import (
 )
 
 NEAR_TIE_GAP = 0.05
+FIXTURES = Path(__file__).resolve().parent.parent / "tests" / "fixtures"
+TINY_L8_BASE = FIXTURES / "tiny_l8_base.npz"
+TINY_L8_DRAFT = FIXTURES / "tiny_draft_trained_l8.npz"
+STRUCT_BASE = FIXTURES / "struct_tiny8_base.npz"
+STRUCT_DRAFT = FIXTURES / "struct_tiny8_draft.npz"
 
 
 def random_llama(mc: ModelConfig, generator: torch.Generator,
@@ -205,5 +225,93 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                                  mesh=stage_tp_mesh(p // 2, 2),
                                  schedule="continuous"))
         report[name]["split"] = split
+
+    stages8 = p if p in (2, 4, 8) else (8 if p > 8 else 0)
+    if stages8:
+        report.update(trained_gates(stages8, dev))
     print(f"dryrun_multichip ok: {p} ranks on {dev}", flush=True)
     return report
+
+
+def tiny_l8_gate(stages: int, device):
+    """(engine config, base, draft, prompt, new tokens) of the trained
+    tiny draft's gate (`__graft_entry__.py:143-184`), f32."""
+    from flowspec_tpu_torch.eval.struct_base import load_base, load_draft
+    mc = dataclasses.replace(ModelConfig.tiny(vocab_size=64, n_layers=8),
+                             dtype="float32")
+    base = load_base(str(TINY_L8_BASE), mc, device)
+    draft = load_draft(str(TINY_L8_DRAFT), base.embed, torch.float32)
+    tc = TreeConfig(top_k=6, depth=5, total_tokens=24, expand_tokens=12,
+                    expand_depth=2, node_cap=48, leaf_cap=48, depth_cap=10,
+                    chunk_len=8, chunk_cap=12)
+    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                       max_seq_len=256, prefill_chunk=8,
+                       topology=StageTopology.even(8, stages))
+    return cfg, base, draft, (np.arange(10, 30) % 64).tolist(), 24
+
+
+def struct_gate(stages: int, device):
+    """(engine config, base, draft, prompt, new tokens) of the struct tiny8
+    gate (`__graft_entry__.py:186-231`): f32 on the CPU, bf16 on the
+    card."""
+    from flowspec_tpu_torch.eval.struct_base import (
+        SCALES, load_base, load_draft, model_config,
+    )
+    from flowspec_tpu_torch.eval.synth import gen_struct_corpus
+    s8 = SCALES["tiny8"]
+    mc = dataclasses.replace(model_config(s8), dtype=(
+        "float32" if device.type == "cpu" else "bfloat16"))
+    base = load_base(str(STRUCT_BASE), mc, device)
+    draft = load_draft(str(STRUCT_DRAFT), base.embed, getattr(torch,
+                                                              mc.dtype))
+    tc = TreeConfig(top_k=8, depth=8, total_tokens=48, expand_tokens=24,
+                    expand_depth=2, node_cap=64, leaf_cap=64, depth_cap=12,
+                    chunk_len=8, chunk_cap=12, score_temperature=0.2)
+    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                       max_seq_len=256, prefill_chunk=8,
+                       topology=StageTopology.even(s8["layers"], stages))
+    prompt = gen_struct_corpus(1, 32, vocab=s8["vocab"], seed=2,
+                               n_classes=s8["n_classes"],
+                               copy_dist=s8["copy_dist"])[0, :24]
+    return cfg, base, draft, prompt.tolist(), 32
+
+
+def trained_gates(stages: int, device) -> dict:
+    """The dry run's two trained-fixture gates over `stages` in-process
+    stages (module docstring): continuous and pruned against the AR stream
+    of the unsharded engine, with their accept/round above the bar. A gate
+    whose fixtures are missing is left out, as in the JAX package."""
+    from flowspec_tpu_torch.parallel import PipelineEngine, stage_mesh
+    exact = device.type == "cpu"
+    out = {}
+    gates = (("trained", tiny_l8_gate, 1.5, (TINY_L8_BASE, TINY_L8_DRAFT)),
+             ("struct_d8", struct_gate, 2.5, (STRUCT_BASE, STRUCT_DRAFT)))
+    for tag, make, bar, files in gates:
+        if not all(f.exists() for f in files):
+            continue
+        if tag == "trained" and not exact:
+            out["trained"] = {"ok": None, "run": False, "why": (
+                "head dim 16: the card's attention kernel takes 64 or 128; "
+                "the gate runs where the device is the CPU")}
+            continue
+        cfg, base, draft, prompt, new = make(stages, device)
+        ref = SpecEngine(base, draft, cfg, device=device)
+        ar, _ = ref.generate_ar(prompt, max_new_tokens=new, eos_token_id=-1)
+        for schedule in ("continuous", "pruned"):
+            name = f"{schedule}_{tag}"
+            eng = PipelineEngine(base, draft, cfg, device=device,
+                                 mesh=stage_mesh(stages), schedule=schedule)
+            got, stats = eng.generate(prompt, max_new_tokens=new,
+                                      eos_token_id=-1)
+            apr = stats["accept_per_round"]
+            out[name] = {**_check(name, got, ar, ref, prompt, exact),
+                         "accept_per_round": apr, "stages": stages,
+                         "dtype": cfg.model.dtype,
+                         **{k: stats[k] for k in ("new_tokens", "rounds",
+                                                  "turns") if k in stats}}
+            if stats["new_tokens"] != new or not apr > bar:
+                raise AssertionError(f"dryrun {name}: accept_per_round "
+                                     f"{apr} (bar {bar}), {stats}")
+            print(f"dryrun {name} ({stages} stages): lossless, "
+                  f"accept_per_round={apr:.2f}", flush=True)
+    return out

@@ -1,0 +1,191 @@
+"""Named-span profiler with a cumulative timestamp stream.
+
+Port of `flowspec_tpu/utils/profiler.py`. Reference: profiler/profiler.py —
+named start/stop timers with optional device sync, context managers, and a
+per-run cumulative timestamp stream (every event name + perf_counter
+appended, :33-43) pickled to records/*.rec for pipeline-bubble analysis.
+Here, as in the JAX package: JSON output in the JAX package's format (so
+`tools/show_timestamps.py` renders a file either package saved), a device
+fence that is `torch.cuda.synchronize` on a card and nothing on the CPU,
+`torch.profiler` traces, and the CUDA caching allocator's counters for the
+memory sections.
+
+The profiler's device is `cuda` unless the caller names another; it is
+resolved when first needed (a fence or a memory reading), so that a
+profiler that only times host spans, as the module singleton `prof` does,
+needs no device, and a CUDA one raises without a card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict
+
+import torch
+
+from flowspec_tpu_torch.runtime.engine import resolve_device
+
+
+class Profiler:
+    def __init__(self, sync: bool = True, device=None):
+        self.sync = sync
+        self.device = device
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+        self.stream: list[tuple[str, float]] = []   # (event, t) timestamps
+        self.memory: dict[str, dict] = {}           # memory_context results
+        self._t0 = time.perf_counter()
+        self._open: dict[str, float] = {}
+
+    def _now(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def _device(self) -> torch.device:
+        return resolve_device(self.device)
+
+    def _maybe_sync(self, x=None):
+        """A device fence: wait for the card that `x` (a tensor) lives on,
+        else for the profiler's device; nothing on the CPU."""
+        if self.sync:
+            dev = x.device if isinstance(x, torch.Tensor) else self._device()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def start(self, name: str, sync_on=None):
+        self._maybe_sync(sync_on)
+        t = self._now()
+        self._open[name] = t
+        self.stream.append((f"{name}:start", t))
+
+    def stop(self, name: str, sync_on=None):
+        self._maybe_sync(sync_on)
+        t = self._now()
+        self.stream.append((f"{name}:stop", t))
+        if name in self._open:
+            self.totals[name] += t - self._open.pop(name)
+            self.counts[name] += 1
+
+    @contextlib.contextmanager
+    def time_context(self, name: str, sync_on=None):
+        """Ref: prof.time_context(...) guards saturating the pipeline code
+        (e.g. stage_ea_model.py:1135,1154)."""
+        self.start(name)
+        try:
+            yield
+        finally:
+            self.stop(name, sync_on=sync_on)
+
+    def mark(self, name: str):
+        """Append a bare event to the timestamp stream."""
+        self.stream.append((name, self._now()))
+
+    @contextlib.contextmanager
+    def trace(self, log_dir: str):
+        """A `torch.profiler` trace of the section (host, and the card's
+        kernels on a CUDA device), written as a Chrome trace to
+        `log_dir/trace.json`."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self._device().type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as p:
+            yield
+        p.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+    # ---- device memory (ref memory_context/profile_context,
+    # profiler/profiler.py:137-194: named sections record allocated/peak
+    # deltas; here the CUDA caching allocator's counters) ----------------
+    @staticmethod
+    def memory_stats(device=None) -> dict:
+        """{'bytes_in_use', 'peak_bytes_in_use', 'bytes_limit'} of the
+        device (`cuda` unless named): the allocator's current and peak
+        allocated bytes and the card's memory; zeros on the CPU, as the
+        JAX package gives there."""
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return {"bytes_in_use": 0, "peak_bytes_in_use": 0,
+                    "bytes_limit": 0}
+        st = torch.cuda.memory_stats(dev)
+        return {"bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+                "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak",
+                                                0)),
+                "bytes_limit": int(
+                    torch.cuda.get_device_properties(dev).total_memory)}
+
+    @contextlib.contextmanager
+    def memory_context(self, name: str, device=None, sync_on=None):
+        """Record the named section's allocated-bytes delta and the peak
+        observed across it. Results land in `self.memory[name]` as
+        {'alloc_delta', 'peak', 'peak_is_new', 'count'} and the timestamp
+        stream gets start/stop events like time_context. `device` defaults
+        to the profiler's.
+
+        As in the JAX package, `peak` is the PROCESS-LIFETIME peak as of
+        section exit: the section never resets the allocator's peak counter
+        (`torch.cuda.reset_peak_memory_stats`), since callers read
+        `torch.cuda.max_memory_allocated` across sections. `peak_is_new`
+        disambiguates: True means the peak ROSE during this section (so it
+        was reached inside it); False means some earlier allocation still
+        holds the high-water mark and the section's own peak is unknown,
+        <= the reported value."""
+        dev = device if device is not None else self.device
+        before = self.memory_stats(dev)
+        self.start(name)
+        try:
+            yield
+        finally:
+            self._maybe_sync(sync_on)
+            self.stop(name)
+            after = self.memory_stats(dev)
+            m = self.memory.setdefault(
+                name, {"alloc_delta": 0, "peak": 0, "peak_is_new": False,
+                       "count": 0})
+            m["alloc_delta"] += (after["bytes_in_use"]
+                                 - before["bytes_in_use"])
+            m["peak"] = max(m["peak"], after["peak_bytes_in_use"])
+            m["peak_is_new"] = bool(
+                m["peak_is_new"] or after["peak_bytes_in_use"]
+                > before["peak_bytes_in_use"])
+            m["count"] += 1
+
+    @contextlib.contextmanager
+    def profile_context(self, name: str, device=None, sync_on=None):
+        """time_context + memory_context in one (ref profile_context,
+        profiler/profiler.py:196-220)."""
+        with self.memory_context(name, device=device, sync_on=sync_on):
+            yield
+
+    def summary(self) -> dict:
+        out = {name: {"total_s": round(self.totals[name], 6),
+                      "count": self.counts[name],
+                      "mean_ms": round(1e3 * self.totals[name]
+                                       / max(self.counts[name], 1), 3)}
+               for name in sorted(self.totals)}
+        for name, m in self.memory.items():
+            out.setdefault(name, {}).update(
+                {"alloc_delta_mb": round(m["alloc_delta"] / 2 ** 20, 2),
+                 "peak_mb": round(m["peak"] / 2 ** 20, 2),
+                 # lifetime peak, not per-section (see memory_context)
+                 "peak_is_new": m.get("peak_is_new", False)})
+        return out
+
+    def save(self, path: str):
+        """Ref: save_as -> records/*.rec (profiler/profiler.py:14-16)."""
+        with open(path, "w") as f:
+            json.dump({"summary": self.summary(), "stream": self.stream}, f)
+
+    def reset(self):
+        self.totals.clear()
+        self.counts.clear()
+        self.stream.clear()
+        self.memory.clear()
+        self._open.clear()
+        self._t0 = time.perf_counter()
+
+
+# Module singleton mirroring the reference's `prof` (profiler/profiler.py:275)
+# but opt-in: callers pass it explicitly; this instance is a convenience.
+prof = Profiler(sync=False)

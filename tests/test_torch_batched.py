@@ -48,7 +48,8 @@ def _ints(outs):
 
 
 def setup_pair(batch_size, tree=TREE, sampling=None, adapt_tree=True,
-               dynamic_tree=False, dynamic_batch=False, **engine_kw):
+               dynamic_tree=False, dynamic_batch=False, max_seq_len=128,
+               **engine_kw):
     """(JAX engine, port engine) of tests/test_batched.py's tiny f32 setup
     (vocab 16, two layers), the port's weights bridged from the JAX ones."""
     mc = dataclasses.replace(JModelConfig.tiny(vocab_size=16, n_layers=2),
@@ -56,11 +57,12 @@ def setup_pair(batch_size, tree=TREE, sampling=None, adapt_tree=True,
     sampling = sampling or {}
     jcfg = JEngineConfig(model=mc, tree=JTreeConfig(**tree),
                          sampling=JSamplingConfig(**sampling),
-                         max_seq_len=128, prefill_chunk=16, **engine_kw)
+                         max_seq_len=max_seq_len, prefill_chunk=16,
+                         **engine_kw)
     cfg = tcfg.EngineConfig(
         model=tcfg.ModelConfig(**dataclasses.asdict(mc)),
         tree=tcfg.TreeConfig(**tree),
-        sampling=tcfg.SamplingConfig(**sampling), max_seq_len=128,
+        sampling=tcfg.SamplingConfig(**sampling), max_seq_len=max_seq_len,
         prefill_chunk=16, **engine_kw)
     p = init_llama_params(jax.random.key(0), mc, dtype=jnp.float32)
     d = init_eagle_params(jax.random.key(9), mc, embed=p.embed,

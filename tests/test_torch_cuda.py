@@ -44,7 +44,11 @@ turn, generate_fused equal to generate, and a resume. Tensor parallelism
 card against the same engine on the CPU under the lossless rule, a TP
 round's graph replayed with the eager body's bits, the int8 kernel at the
 7B pair's shard widths (64-column strips at Out 2752 / 704), galaxy at tp 2
-against plain TP, and `entry.dryrun_multichip(4)`.
+against plain TP, and `entry.dryrun_multichip(4)`. The evaluation path:
+`run_eval` (fused, and with the resume) and `run_eval_serve` (two turns, a
+ConversationStore that keeps or evicts) on the struct tiny8 pair in bf16
+(head dim 64) through the port's struct loaders, each answer against AR
+under the lossless rule; the profiler's readings of the CUDA allocator.
 """
 
 import pytest
@@ -1247,3 +1251,114 @@ def test_dryrun_multichip_on_the_card(cuda):
     report = dryrun_multichip(4)
     assert report["device"].startswith("cuda")
     assert report["galaxy_tp4"]["engaged"] > 0
+
+
+def _struct_bf16():
+    """The struct tiny8 pair on the card in bf16 (head dim 64), through the
+    port's struct loaders."""
+    import dataclasses
+    import os
+    from flowspec_tpu_torch.eval.struct_base import (
+        SCALES, load_base, load_draft, model_config)
+    fix = os.path.join(os.path.dirname(__file__), "fixtures")
+    mc = dataclasses.replace(model_config(SCALES["tiny8"]), dtype="bfloat16")
+    base = load_base(os.path.join(fix, "struct_tiny8_base.npz"), mc)
+    draft = load_draft(os.path.join(fix, "struct_tiny8_draft.npz"),
+                       base.embed, torch.bfloat16)
+    assert base.embed.is_cuda and draft.wq.is_cuda
+    return mc, base, draft
+
+
+def test_run_eval_on_the_card_matches_ar(cuda):
+    """`run_eval` over 2 mt_bench questions x 2 turns on the card (bf16),
+    fused and with the longest-common-prefix resume: every turn reaches its
+    budget, the resume takes every turn 2, and every answer equals the AR
+    stream under the lossless rule."""
+    import os
+    from flowspec_tpu_torch.config import (
+        EngineConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.eval.harness import load_questions, run_eval
+    from flowspec_tpu_torch.eval.sweep import byte_tokenizer
+    from flowspec_tpu_torch.runtime import SpecEngine
+    mc, base, draft = _struct_bf16()
+    cfg = EngineConfig(model=mc, tree=TreeConfig(
+        total_tokens=48, depth=8, score_temperature=0.2, node_cap=96,
+        leaf_cap=96, depth_cap=16), sampling=SamplingConfig(),
+        max_seq_len=640)
+    eng = SpecEngine(base, draft, cfg)
+    qs = load_questions(os.path.join(os.path.dirname(__file__), "..",
+                                     "data", "mt_bench", "question.jsonl"),
+                        limit=2)
+    tok, detok = byte_tokenizer(mc.vocab_size)
+    for resume in (False, True):
+        calls = []
+
+        def gen(t, fn=eng.generate if resume else eng.generate_fused):
+            out, stats = fn(t, max_new_tokens=12, eos_token_id=-1)
+            calls.append((list(t), out))
+            return out, stats
+        res = run_eval(gen, tok, detok, qs, max_turns=2,
+                       engine=eng if resume else None, resume=resume,
+                       max_new_tokens=12)
+        assert res.total_new_tokens == 48 and res.n_conv_turns == 4
+        assert res.resume_hits == (2 if resume else 0)
+        for prompt, out in calls:
+            want, _ = eng.generate_ar(prompt, max_new_tokens=12,
+                                      eos_token_id=-1)
+            _near_tie_or_equal(eng, prompt, out, want)
+
+
+def test_run_eval_serve_on_the_card(cuda):
+    """`run_eval_serve` with max_turns=2 and the preamble prefilled once on
+    a 2-lane engine on the card (bf16): every row reaches its budget, the
+    turn-2 row's resumed + cold is its question count, and a store of 2
+    evicts (cold > 0)."""
+    import os
+    from flowspec_tpu_torch.config import (
+        EngineConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.eval.harness import (
+        load_questions, run_eval_serve)
+    from flowspec_tpu_torch.eval.sweep import byte_tokenizer
+    from flowspec_tpu_torch.runtime import BatchedSpecEngine
+    mc, base, draft = _struct_bf16()
+    cfg = EngineConfig(model=mc, tree=TreeConfig(
+        total_tokens=48, depth=8, score_temperature=0.2, node_cap=96,
+        leaf_cap=96, depth_cap=16), sampling=SamplingConfig(),
+        max_seq_len=640)
+    eng = BatchedSpecEngine(base, draft, cfg, batch_size=2)
+    qs = load_questions(os.path.join(os.path.dirname(__file__), "..",
+                                     "data", "mt_bench", "question.jsonl"),
+                        limit=4)
+    tok, detok = byte_tokenizer(mc.vocab_size)
+    for cap in (8, 2):
+        rows = run_eval_serve(eng, tok, qs, max_new_tokens=8,
+                              prefix_cache=True, max_turns=2, store_cap=cap,
+                              detokenize=detok)
+        assert [r["new_tokens"] for r in rows] == [32, 32]
+        assert "cold" not in rows[0] and rows[0]["resumed"] == 0
+        assert rows[1]["resumed"] + rows[1]["cold"] == 4
+        assert (rows[1]["cold"] > 0) == (cap == 2)
+
+
+def test_profiler_cuda_memory_stats(cuda):
+    """The profiler's memory readings on the card: the allocator's current
+    and peak bytes and the card's memory; a section that allocates shows
+    its delta and a new peak, without resetting the peak counter."""
+    from flowspec_tpu_torch.utils.profiler import Profiler
+    p = Profiler()
+    st = Profiler.memory_stats()
+    assert st["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory
+    assert st["bytes_in_use"] == torch.cuda.memory_allocated()
+    peak0 = torch.cuda.max_memory_allocated()
+    with p.memory_context("alloc"):
+        x = torch.ones((64, 2 ** 20), dtype=torch.float32, device="cuda")
+    s = p.summary()["alloc"]
+    assert s["alloc_delta_mb"] == 256.0 and s["count"] == 1
+    assert s["peak_mb"] >= 256.0
+    assert s["peak_is_new"] == (torch.cuda.max_memory_allocated() > peak0)
+    assert torch.cuda.max_memory_allocated() >= peak0
+    with p.time_context("sync", sync_on=x):
+        x.mul_(2)
+    assert p.summary()["sync"]["count"] == 1
+    del x
