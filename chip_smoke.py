@@ -209,7 +209,30 @@ emission, `clock_s`):
      comparison-only entry points 0) and the tok/s line of `python -m
      flowspec_tpu_torch.demo --random 7b --thin-draft ...` run in a child
      process.
-Phases 4-6 and 9-13 run each configuration in a process of its own
+ 14. pipeline_procs  a stage per process (`procs_config`): the pipeline
+     phase's pair and tree through `PipelineEngine` on a distributed
+     stage_mesh(4), 4 stage processes x 8 layers at full width and depth
+     on the one card (`python3 chip_smoke.py --stage <rank> <world> <port>
+     <out.json>`, each drawing the seeded pair, keeping its block and the
+     replicated part), over gloo through pinned host buffers (the one
+     transport processes sharing a card have; NCCL refuses two ranks on one
+     device), continuous and pruned on the serve prompts (2 x 64 tokens)
+     after the in-process engine on the same prompts: `pipeline_procs`:
+     tok/s, rounds, turns, turns and accept a round, wall ms a turn, the
+     stage ring's host ms and gloo bytes a turn by op, flag checks, int8 /
+     attention / head launches per process, each process's drawn, kept and
+     resident weights and peak memory; every stream lossless against AR,
+     equal token for token and stat for stat to the in-process engine's
+     and across the ranks (whose flags every turn's gather compares), the
+     stage layers' launches summed over the processes equal to the
+     in-process engine's and each process's replicated launches to its
+     replicated part; gloo must refuse a CUDA tensor without host staging;
+     `pipeline_procs_resume`: one continuous resume (16 more prompt tokens,
+     32 more) against a fresh run on the whole history;
+     `pipeline_procs_dryrun`: `python -m flowspec_tpu_torch.multihost_dryrun
+     --device cuda` (2 processes x 4 stages, bf16 at hidden 512: the six
+     schedules, PP x TP and galaxy across the processes).
+Phases 4-6 and 9-14 run each configuration in a process of its own
 (`serve_child`,
 `python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
 the run with the kernel phase's rows), so no process opens more than a few
@@ -466,6 +489,22 @@ PIPE_PROFILE_TOKENS = 16
 INT8_SHAPES += [(f"base_{w}_M18", 18, i, o) for w, i, o in BASE_7B]
 ATTN_SHAPES += [("pipe_chunk_T18", 32, 32, 18, 768, 128 + 48 + 18),
                 ("pipe_serial_T192", 32, 32, 192, 768, 128 + 192)]
+# the stage-process phase: the same pair and tree through `PipelineEngine`
+# on a distributed stage_mesh(4): 4 stage processes of 8 layers each on the
+# one card, talking over gloo through pinned host buffers (NCCL refuses two
+# ranks on one device), continuous and pruned on the serve prompts (2 x 64
+# tokens: the tokens cut, not the width or the depth) beside the in-process
+# engine; one continuous resume; `multihost_dryrun --device cuda` (2
+# processes x 4 stages at its small bf16 shape). No new kernel shape: a
+# stage process runs the pipeline phase's shapes.
+PROCS_TAG = "pipeline_procs"
+PROCS = 4
+PROCS_SCHEDULES = ("continuous", "pruned")
+PROCS_NEW = 64
+PROCS_RESUME = (16, 32)           # extra prompt tokens, tokens after them
+PROCS_TIMEOUT = 600               # seconds: the stage processes, the dry run
+PROCS_TRANSPORT = ("gloo through pinned host buffers (init_multihost "
+                   "host_staging=True)")
 # the tensor-parallel phase: the 7B int8 pair through `TPEngine` at tp 2 and
 # 4, in-process on the one card, 2 prompts x 64 tokens (the tokens cut, not
 # the width or the depth); galaxy at tp 2 on a bf16 7B-width base of 8
@@ -2342,6 +2381,16 @@ def profile_turns(fn, prompt, new_tokens) -> dict:
             "kernels_per_turn_by_family": n}
 
 
+def pipe_config(mc, new_tokens: int = NEW_TOKENS):
+    """The pipeline phases' EngineConfig: the JAX TreeConfig defaults with
+    score_temperature 0.2, 4 stages x 8 layers, max_seq PIPE_MAX_SEQ."""
+    from flowspec_tpu_torch.config import (
+        EngineConfig, SamplingConfig, StageTopology, TreeConfig)
+    return EngineConfig(model=mc, tree=TreeConfig(score_temperature=0.2),
+                        sampling=SamplingConfig(), max_new_tokens=new_tokens,
+                        max_seq_len=PIPE_MAX_SEQ, topology=StageTopology())
+
+
 def pipeline_config(dev, counters, smi):
     """The pipeline phase in its own process: the 7B int8 pair through
     `PipelineEngine` (4 stages x 8 layers on the card), every schedule
@@ -2354,16 +2403,12 @@ def pipeline_config(dev, counters, smi):
     launched no int8, attention or head kernel, or if a turn read more than
     three flag vectors."""
     import torch
-    from flowspec_tpu_torch.config import (
-        EngineConfig, SamplingConfig, StageTopology, TreeConfig)
     from flowspec_tpu_torch.parallel import PipelineEngine
     from flowspec_tpu_torch.runtime import SpecEngine
     base, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
                                           NEW_TOKENS)
     mc = base.cfg.model
-    cfg = EngineConfig(model=mc, tree=TreeConfig(score_temperature=0.2),
-                       sampling=SamplingConfig(), max_new_tokens=NEW_TOKENS,
-                       max_seq_len=PIPE_MAX_SEQ, topology=StageTopology())
+    cfg = pipe_config(mc)
     spec = SpecEngine(base.params, base.draft, cfg)
     del base
     total = {n: 0 for n in counters}
@@ -2470,6 +2515,387 @@ def pipeline_config(dev, counters, smi):
     prof = profile_turns(eng.generate, prompts[0], PIPE_PROFILE_TOKENS)
     emit({"phase": "pipeline_profile", "card": smi, "schedule": "continuous",
           "new_tokens": PIPE_PROFILE_TOKENS, **prof})
+    return total
+
+
+class StageLaunches:
+    """Per kernel, the launches made inside stage forwards
+    (`parallel.pipeline._stage_forward`, wrapped for the process: the layers
+    the process holds); a run's other launches are the replicated part (the
+    draft and the beam head), which every stage process runs once."""
+
+    def __init__(self, counters):
+        from flowspec_tpu_torch.parallel import pipeline
+        self.n = {k: 0 for k in counters}
+        inner = pipeline._stage_forward
+
+        def counted(*args, **kw):
+            before = counts(counters)
+            out = inner(*args, **kw)
+            for k, v in counts(counters).items():
+                self.n[k] += v - before[k]
+            return out
+        pipeline._stage_forward = counted
+
+    def zero(self) -> None:
+        for k in self.n:
+            self.n[k] = 0
+
+
+def nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def procs_turn(eng, prompts, counters, stage_n, new_tokens):
+    """One schedule's requests through `eng.generate` (the launch counts set
+    to 0 just before): (outputs past the prompt, the line, each request's
+    (stream, state)). The line: tok/s, rounds, turns, turns a round, accept
+    a round, host wall ms a turn, flag reads a turn, each request's stats,
+    the launches (all, inside stage forwards), and for a distributed engine
+    the stage ring's collectives a turn (calls, gloo payload bytes, host ms,
+    staging copies included) by op and summed (`hop_ms_per_turn`,
+    `gloo_bytes_per_turn`)."""
+    ring = eng.ring
+    kept = []
+
+    def generate(p, **kw):
+        out, stats, st = eng.generate(p, return_state=True, **kw)
+        kept.append((out, st))
+        return out, stats
+    zero(counters)
+    stage_n.zero()
+    if ring is not None:
+        ring.stats.clear()
+    reads = eng.reads.count
+    outs, sec, rounds, new, stats = serve_turn(generate, prompts, new_tokens)
+    turns = sum(st["turns"] for st in stats)
+    line = {"schedule": eng.schedule, "tok_s": new / sum(sec),
+            "request_s": sec, "new_tokens": new, "rounds": rounds,
+            "turns": turns, "turns_per_round": turns / rounds,
+            "accept_per_round": new / rounds,
+            "wall_ms_per_turn": sum(sec) * 1e3 / turns,
+            "host_reads_per_turn": (eng.reads.count - reads) / turns,
+            "stats": stats, "launches": nonzero(counts(counters)),
+            "stage_launches": nonzero(dict(stage_n.n))}
+    if ring is not None:
+        hop = {op: {"calls_per_turn": c / turns, "bytes_per_turn": b / turns,
+                    "ms_per_turn": t * 1e3 / turns}
+               for op, (c, b, t) in ring.stats.items()}
+        line.update(hop=hop,
+                    flag_checks=ring.stats["all_gather_ints"][0],
+                    hop_ms_per_turn=sum(h["ms_per_turn"]
+                                        for h in hop.values()),
+                    gloo_bytes_per_turn=sum(h["bytes_per_turn"]
+                                            for h in hop.values()))
+    return outs, line, kept
+
+
+def weight_bytes(*trees) -> int:
+    """Bytes of the distinct device tensors of `trees` (shared ones once)."""
+    seen = {}
+    for tree in trees:
+        for t in tensors_of(tree).values():
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def stage_child(rank: str, world: str, port: str, out_path: str) -> int:
+    """One stage process of the `pipeline_procs` phase (`procs_config`
+    starts PROCS of them): joins the world over gloo through pinned host
+    buffers, draws the same seeded 7B int8 pair as every process, builds a
+    `PipelineEngine` a schedule on the distributed stage_mesh(PROCS), keeps
+    its block (8 layers) and the replicated part and frees the rest, then
+    serves the prompts with each schedule and runs one continuous resume
+    against a fresh run on the whole history. Writes its record to
+    `out_path`."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from flowspec_tpu_torch.ops import _build
+    from flowspec_tpu_torch.parallel import (
+        PipelineEngine, init_multihost, stage_mesh)
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda")
+    prebuilt = all(_build.lib_path(n).exists() for n in _build.KERNELS)
+    init_multihost(f"127.0.0.1:{port}", world, rank, device=dev,
+                   host_staging=True, timeout=PROCS_TIMEOUT)
+    counters = launch_counts()
+    t0 = time.perf_counter()
+    base, prompts, _ = make_engine(dev, "7b", "int8", N_REQUESTS, PROCS_NEW)
+    cfg = pipe_config(base.cfg.model, PROCS_NEW)
+    whole_gb = weight_bytes(base.params, base.draft) / 1e9
+    engines = {s: PipelineEngine(base.params, base.draft, cfg, schedule=s,
+                                 mesh=stage_mesh(PROCS, distributed=True))
+               for s in PROCS_SCHEDULES}
+    del base
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng = engines["continuous"]
+    rec = {"rank": rank, "kernels_prebuilt": prebuilt,
+           "build_s": time.perf_counter() - t0, "drawn_weights_gb": whole_gb,
+           "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stages_here": list(eng.local), "layers_here": eng.n_layers,
+           "weights_gb": weight_bytes(*[e.params for e in engines.values()],
+                                      eng.draft, eng.beam_head) / 1e9,
+           "block_weights_gb": weight_bytes(eng.params.layers) / 1e9,
+           "resident_gb": torch.cuda.memory_allocated() / 1e9}
+    stage_n = StageLaunches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    kept = None
+    for s in PROCS_SCHEDULES:
+        outs, line, k = procs_turn(engines[s], prompts, counters, stage_n,
+                                   PROCS_NEW)
+        rec[s] = {"outs": outs, **line}
+        kept = k if s == "continuous" else kept
+    first, st = kept[0]
+    extra = random_prompts(cfg.model.vocab_size, [PROCS_RESUME[0]],
+                           SEED + 9)[0]
+    t0 = time.perf_counter()
+    resumed, rstats = eng.resume_and_generate(
+        st, first, extra, max_new_tokens=PROCS_RESUME[1], eos_token_id=-1)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    fresh, _ = eng.generate(first + extra, max_new_tokens=PROCS_RESUME[1],
+                            eos_token_id=-1)
+    rec["resume"] = {"history": first, "extra": extra, "resumed": resumed,
+                     "fresh": fresh, "stats": rstats, "resume_s": resume_s}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    Path(out_path).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def plain_gloo_refuses_cuda() -> str:
+    """A world of one process over gloo without host staging: a CUDA
+    tensor handed to its collectives must raise. Returns the message."""
+    import torch
+    import torch.distributed as dist
+    from flowspec_tpu_torch.multihost_dryrun import free_port
+    from flowspec_tpu_torch.parallel import init_multihost
+    from flowspec_tpu_torch.parallel.comm import DistGroup
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        DistGroup().broadcast(torch.zeros(4, device="cuda"), 0)
+    except ValueError as e:
+        return str(e)
+    finally:
+        dist.destroy_process_group()
+    raise AssertionError("pipeline_procs: gloo took a CUDA tensor without "
+                         "host staging")
+
+
+def run_stage_processes(out_dir: Path) -> tuple:
+    """PROCS `--stage` processes of this script on a free port, each with
+    its log in `out_dir`: (their records, wall seconds). Raises if one
+    fails or outlives PROCS_TIMEOUT."""
+    from flowspec_tpu_torch.multihost_dryrun import free_port
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(PROCS):
+        (out_dir / f"rank{r}.json").unlink(missing_ok=True)
+        logs.append(open(out_dir / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--stage",
+             str(r), str(PROCS), str(port), str(out_dir / f"rank{r}.json")],
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        codes = [q.wait(timeout=max(PROCS_TIMEOUT - (time.perf_counter()
+                                                     - t0), 1))
+                 for q in procs]
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+        for f in logs:
+            f.close()
+    if any(codes):
+        tails = {r: (out_dir / f"rank{r}.log").read_text()[-3000:]
+                 for r in range(PROCS) if codes[r]}
+        raise AssertionError(f"pipeline_procs: stage processes exited "
+                             f"{codes}: {tails}")
+    return ([json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(PROCS)], time.perf_counter() - t0)
+
+
+def first_difference(a, b):
+    """The first (request, position) at which two lists of streams part."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        j = next((k for k, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if j is not None or len(x) != len(y):
+            return i, j
+    return None
+
+
+def procs_config(dev, counters, smi):
+    """The stage-process phase in its own process: the 7B int8 pair through
+    the in-process `PipelineEngine` (continuous, pruned; 2 x PROCS_NEW
+    tokens), then PROCS stage processes (`stage_child`) on the same prompts
+    and schedules, then `multihost_dryrun --device cuda`. Returns its
+    launches (this process's and the stage processes'). Raises if a stream
+    leaves its AR stream off a near-tie, if the stage processes' stream or
+    stats differ from the in-process engine's or from each other's, if a
+    process launched no int8, attention or head kernel, if the stage
+    layers' launches summed over the processes differ from the in-process
+    engine's or a process's replicated part from the in-process one's, if
+    the resume leaves the fresh run off a near-tie, if gloo took a CUDA
+    tensor without host staging, or if the dry run fails."""
+    import torch
+    from flowspec_tpu_torch.parallel import PipelineEngine
+    from flowspec_tpu_torch.runtime import SpecEngine
+    refusal = plain_gloo_refuses_cuda()
+    base, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
+                                          PROCS_NEW)
+    cfg = pipe_config(base.cfg.model, PROCS_NEW)
+    spec = SpecEngine(base.params, base.draft, cfg)
+    del base
+    ar = [spec.generate_ar_fused(p, max_new_tokens=PROCS_NEW,
+                                 eos_token_id=-1)[0][len(p):]
+          for p in prompts]
+    stage_n = StageLaunches(counters)
+    total = {n: 0 for n in counters}
+    local = {}
+    for sched in PROCS_SCHEDULES:
+        eng = PipelineEngine(spec.params, spec.draft, cfg, schedule=sched)
+        torch.cuda.reset_peak_memory_stats()
+        outs, line, kept = procs_turn(eng, prompts, counters, stage_n,
+                                      PROCS_NEW)
+        line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        local[sched] = (outs, line)
+        for n in total:
+            total[n] += line["launches"].get(n, 0)
+        if sched == "continuous":        # the resume the processes run
+            first, st = kept[0]
+            extra = random_prompts(cfg.model.vocab_size, [PROCS_RESUME[0]],
+                                   SEED + 9)[0]
+            local_resume = eng.resume_and_generate(
+                st, first, extra, max_new_tokens=PROCS_RESUME[1],
+                eos_token_id=-1)
+            del first, st, kept
+        del eng
+
+    ranks, procs_s = run_stage_processes(OUT_DIR / "pipeline_procs")
+    lines = []
+    for sched in PROCS_SCHEDULES:
+        mine = [r[sched] for r in ranks]
+        outs, want = mine[0]["outs"], local[sched]
+        for r, m in enumerate(mine):
+            if m["outs"] != outs or m["stats"] != mine[0]["stats"]:
+                raise AssertionError(f"pipeline_procs {sched}: rank {r} "
+                                     f"returned another stream or stats")
+            missing = [k for k in ("int8_matmul", "tree_attention",
+                                   "head_topk") if not m["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"pipeline_procs {sched}: rank {r} "
+                                     f"launched no {missing}")
+        if outs != want[0] or mine[0]["stats"] != want[1]["stats"]:
+            raise AssertionError(
+                f"pipeline_procs {sched}: the stage processes' stream parts "
+                f"from the in-process engine's at (request, position) "
+                f"{first_difference(outs, want[0])}, stats "
+                f"{mine[0]['stats']} against {want[1]['stats']}")
+        m, fl = divergences(spec, prompts, outs, ar)
+        check_lossless(f"pipeline_procs {sched}", fl)
+        stage_sum = nonzero({k: sum(r["stage_launches"].get(k, 0)
+                                    for r in mine) for k in counters})
+        if stage_sum != want[1]["stage_launches"]:
+            raise AssertionError(
+                f"pipeline_procs {sched}: stage launches over the processes "
+                f"{stage_sum}, in-process {want[1]['stage_launches']}")
+        replicated = nonzero({k: want[1]["launches"].get(k, 0)
+                              - want[1]["stage_launches"].get(k, 0)
+                              for k in counters})
+        for r, mr in enumerate(mine):
+            got = nonzero({k: mr["launches"].get(k, 0)
+                           - mr["stage_launches"].get(k, 0)
+                           for k in counters})
+            if got != replicated:
+                raise AssertionError(
+                    f"pipeline_procs {sched}: rank {r}'s replicated launches "
+                    f"{got}, in-process {replicated}")
+        for mr in mine:
+            for n in total:
+                total[n] += mr["launches"].get(n, 0)
+        keys = ("tok_s", "request_s", "rounds", "turns", "turns_per_round",
+                "accept_per_round", "wall_ms_per_turn", "host_reads_per_turn")
+        lines.append({
+            "schedule": sched, **{k: mine[0][k] for k in keys},
+            "hop_ms_per_turn": [r["hop_ms_per_turn"] for r in mine],
+            "gloo_bytes_per_turn": [r["gloo_bytes_per_turn"]
+                                    for r in mine],
+            "hop_by_op": [r["hop"] for r in mine],
+            "flag_checks": [r["flag_checks"] for r in mine],
+            "launches_per_process": [
+                {k: r["launches"].get(k, 0) for k in
+                 ("int8_matmul", "tree_attention", "head_topk")}
+                for r in mine],
+            "stage_launches_per_process": [r["stage_launches"]
+                                           for r in mine],
+            "replicated_launches_per_process": replicated,
+            "match_fraction_vs_ar": m, "first_divergences_vs_ar": fl,
+            "in_process": {k: want[1][k] for k in keys + (
+                "launches", "stage_launches", "peak_gb")}})
+    emit({"phase": "pipeline_procs", "card": smi,
+          "model": "llama_7b int8 (random, seeded)",
+          "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
+          "reduced": None, "processes": PROCS,
+          "stages": [ranks[r]["layers_here"] for r in range(PROCS)],
+          "transport": PROCS_TRANSPORT,
+          "plain_gloo_refuses_cuda": refusal,
+          "tree": "TreeConfig() defaults, score_temperature 0.2",
+          "max_seq_len": PIPE_MAX_SEQ, "prompt_len": PROMPT_LEN,
+          "requests": len(prompts), "new_tokens": PROCS_NEW,
+          "schedules": lines, "streams_equal_in_process": True,
+          "ranks_agree": True,
+          "memory": [{k: r[k] for k in (
+              "drawn_weights_gb", "build_peak_gb", "weights_gb",
+              "block_weights_gb", "resident_gb", "peak_gb", "build_s",
+              "kernels_prebuilt")} for r in ranks],
+          "stage_processes_s": procs_s, "param_build_s": params_s})
+
+    res = ranks[0]["resume"]
+    if any((r["resume"]["resumed"], r["resume"]["fresh"], r["resume"]["stats"])
+           != (res["resumed"], res["fresh"], res["stats"]) for r in ranks):
+        raise AssertionError("pipeline_procs: the ranks' resumes differ")
+    if [res["resumed"], res["stats"]] != list(local_resume):
+        at = first_difference([res["resumed"]], [local_resume[0]])
+        raise AssertionError(f"pipeline_procs: the stage processes' resume "
+                             f"parts from the in-process one at {at}")
+    hist = res["history"] + res["extra"]
+    m, fl = divergences(spec, [hist], [res["resumed"][len(hist):]],
+                        [res["fresh"][len(hist):]])
+    emit({"phase": "pipeline_procs_resume", "card": smi,
+          "history": len(res["history"]), "extra": len(res["extra"]),
+          "new_tokens": PROCS_RESUME[1], "resume_s": res["resume_s"],
+          "stats": res["stats"], "equal_to_in_process_resume": True,
+          "equal_to_fresh": res["resumed"] == res["fresh"],
+          "match_fraction_vs_fresh": m, "first_divergences_vs_fresh": fl})
+    check_lossless("pipeline_procs resume", fl)
+    del spec
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "flowspec_tpu_torch.multihost_dryrun",
+         "--device", "cuda", "--procs", "2", "--stages", "8", "--out",
+         str(OUT_DIR / "multihost_dryrun"), "--timeout",
+         str(PROCS_TIMEOUT)], cwd=ROOT, capture_output=True, text=True,
+        timeout=PROCS_TIMEOUT + 60)
+    if r.returncode != 0:
+        raise AssertionError(f"multihost_dryrun --device cuda exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    emit({"phase": "pipeline_procs_dryrun", "card": smi, "ok": rep["ok"],
+          "procs": rep["procs"], "stages": rep["stages"],
+          "transport": rep["ranks"][0]["transport"],
+          "seconds": time.perf_counter() - t0,
+          "paths": {k: v for k, v in rep["ranks"][0].items()
+                    if isinstance(v, dict)}})
     return total
 
 
@@ -3266,6 +3692,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches = pipeline_config(dev, launch_counts(), smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
         return 0
+    if tag == PROCS_TAG:
+        launches = procs_config(dev, launch_counts(), smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     if tag == TP_TAG:
         launches = tp_config(dev, launch_counts(), kernel_rows, smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
@@ -3285,6 +3715,8 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--serve"]:
         return serve_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--stage"]:
+        return stage_child(*sys.argv[2:6])
     try:
         import torch
     except ImportError:
@@ -3356,8 +3788,8 @@ def main() -> int:
     rows_path.write_text(json.dumps(kernel_rows))
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
-    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG, TP_TAG,
-                                EVAL_TAG]:
+    for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG,
+                                PROCS_TAG, TP_TAG, EVAL_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),

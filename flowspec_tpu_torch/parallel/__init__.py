@@ -1,8 +1,10 @@
 """Distributed runtime (`flowspec_tpu/parallel/`): the `PipelineEngine`
-with its P layer stages in one process, tensor parallelism (`TPEngine`,
-the megatron layout of `tp.py`, the galaxy rings of `galaxy.py`, PP x TP
-on a (stage, tp) mesh) over one collectives interface (`comm.py`),
-in-process or over `torch.distributed`, and the meshes (`mesh.py`)."""
+with its P layer stages in one process or in blocks of stages a process
+(the stage ring, the completed-chunk broadcast and the in-flight count over
+`torch.distributed`), tensor parallelism (`TPEngine`, the megatron layout
+of `tp.py`, the galaxy rings of `galaxy.py`, PP x TP on a (stage, tp)
+mesh) over one collectives interface (`comm.py`), in-process or over
+`torch.distributed`, and the meshes (`mesh.py`)."""
 
 from flowspec_tpu_torch.parallel.mesh import (
     Mesh, init_multihost, put_global, stage_mesh, stage_tp_mesh, tp_mesh,

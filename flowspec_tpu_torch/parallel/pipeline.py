@@ -1,19 +1,38 @@
-"""Pipelined tree-speculative decoding: P layer stages on one card.
+"""Pipelined tree-speculative decoding: P layer stages, in one process or
+in blocks across processes.
 
 Port of `flowspec_tpu/parallel/pipeline.py` (the schedules of the
 reference's `StageEaModel`, stage_ea_model.py:369-1791). The JAX engine
-runs the stages as one SPMD program over a `stage` mesh; here one process
-runs every stage on one card, turn by turn:
+runs the stages as one SPMD program over a `stage` mesh; here a process
+runs its block of stages turn by turn: every stage on a `stage_mesh(p)`
+(one card, or the CPU), or, on a distributed `stage_mesh(p,
+distributed=True)` (`parallel/mesh.py`), a block of p / world stages a
+process of the `torch.distributed` world, one stage a process being the
+reference's own topology:
 
-- stage s owns layers [lo_s, hi_s) of the one stacked layer pytree and of
-  one stacked KV cache, as views (no padding: a stage of 0 layers passes
-  its chunk on unchanged, where JAX pads uneven splits with all-zero
-  identity layers, `:128-157`);
-- the ring hop (`ppermute`, `:111-125`) is a rotation of the list of
-  flights: stage s takes stage s-1's flight of the last turn; the
-  completed chunk (`all_gather(...)[p-1]`) is the last stage's flight;
+- stage s owns layers [lo_s, hi_s) of the stacked layer pytree and of the
+  stacked KV cache, as views (no padding: a stage of 0 layers passes its
+  chunk on unchanged, where JAX pads uneven splits with all-zero identity
+  layers, `:128-157`). Distributed, a process keeps its own copy of its
+  block's layers and only their KV; the embedding, `lm_head`, the draft,
+  the beam head and the whole control plane are replicated, as in JAX
+  (`:13-16`);
+- the ring hop (`ppermute`, `:111-119`): stage s takes stage s-1's flight of
+  the last turn, in memory inside a block; a block's first stage receives
+  it from the previous process (`comm.DistGroup.exchange`, skipped on both
+  ends when the chunk is empty);
+- the completed chunk (`all_gather(...)[p-1]`, `:122-125`) is the last
+  stage's flight, broadcast from the process that holds it at the top of
+  the next turn, when it is not empty;
+- the in-flight count (`psum`, `:1188`) is read C below: every stage's
+  chunk length, gathered from every process, so that every rank holds the
+  same host list. The gathered vector also carries each rank's control
+  flags and a few replicated scalars: the ranks must agree on them bit for
+  bit, and a rank that disagrees makes every rank raise, naming the turn,
+  instead of a hang or a silent drift; a round and a prefill end with one
+  more such check;
 - the replicated draft and control plane (verdict, pruning, expansion)
-  runs once;
+  runs once a process;
 - every `lax.cond` and `while_loop` (`:601`, `:999-1000`, `:1024-1026`,
   `:1062`, `:1149`, `:1177-1179`, `:1202`, `:1261`) is a host branch on a
   device flag. A turn reads back at most three small int vectors through
@@ -35,7 +54,8 @@ pipedec. The base is any family of `models.model_forward`. PP x TP
 each stage's view of the layers is tensor-parallel over the mesh's
 in-process TP group (`parallel/tp.py shard_params_tp`: the megatron layout,
 Mixtral's experts on tp), `lm_head` and the draft replicated as in JAX, and
-every stage's chunk forward runs through the TP forward. The turn runs
+every stage's chunk forward runs through the TP forward; distributed, the
+stage ring crosses processes and each TP group stays in one. The turn runs
 eagerly (its CUDA graph is a later step).
 """
 
@@ -87,8 +107,9 @@ SCHEDULES = ("naive", "pruned", "continuous", "serial", "ar", "pipedec")
 
 @dataclasses.dataclass
 class PipeState:
-    """Cross-round state of one request. `kv` holds every stage's layers
-    in one (L, 1, H, S, D) stack; lengths are 0-d int32 on the device."""
+    """Cross-round state of one request. `kv` holds the layers of the
+    process's stages in one (L, 1, H, S, D) stack (every layer in-process);
+    lengths are 0-d int32 on the device."""
     kv: KVCache
     draft_cache: KVCache
     commit_len: torch.Tensor   # ()
@@ -182,6 +203,23 @@ def _stage_params(params, lo: int, hi: int):
         for f in dataclasses.fields(lp)}))
 
 
+def _own(x):
+    """A copy of `x` (a tensor, or a quantized container of tensors) that
+    shares no storage with it."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.clone()
+    return type(x)(**{f.name: _own(getattr(x, f.name))
+                      for f in dataclasses.fields(x)})
+
+
+def _block_params(params, lo: int, hi: int):
+    """`params` with its layer stack cut to [lo, hi), copied, so that the
+    rest of the stack is freed once the caller drops it."""
+    lp = _stage_params(params, lo, hi).layers
+    return dataclasses.replace(params, layers=dataclasses.replace(lp, **{
+        f.name: _own(getattr(lp, f.name)) for f in dataclasses.fields(lp)}))
+
+
 # ---- small helpers ---------------------------------------------------------
 
 def _i32(x, device) -> torch.Tensor:
@@ -228,10 +266,14 @@ def _queue_appended(lens: torch.Tensor, n_chunks: torch.Tensor, n_app,
 # ---- the engine ------------------------------------------------------------
 
 class PipelineEngine:
-    """The pipeline engine (`flowspec_tpu/parallel/pipeline.py:196`) with
-    its P stages in one process on one device; `device` defaults to cuda.
-    `mesh` (`parallel/mesh.py`): a `stage_mesh(p)` (the default) or a
-    `stage_tp_mesh(p, tp)`, whose stages are tensor-parallel."""
+    """The pipeline engine (`flowspec_tpu/parallel/pipeline.py:196`);
+    `device` defaults to cuda. `mesh` (`parallel/mesh.py`): a
+    `stage_mesh(p)` (the default: every stage in this process) or a
+    `stage_tp_mesh(p, tp)`, whose stages are tensor-parallel; either
+    distributed puts a block of stages in each process of the world (the
+    module's notes), and every process then builds the engine from the same
+    whole weights and keeps its block's layers (a copy: drop the whole
+    stack after building to free it)."""
 
     def __init__(self, params, draft: EagleParams, cfg: EngineConfig,
                  schedule: str = "continuous", device=None, mesh=None):
@@ -239,13 +281,27 @@ class PipelineEngine:
             raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
         mc = cfg.model
         if mesh is not None:
-            if mesh.distributed or "stage" not in mesh.axis_names:
-                raise ValueError(f"PipelineEngine takes an in-process stage "
-                                 f"or (stage, tp) mesh, got {mesh}")
+            if "stage" not in mesh.axis_names or (
+                    mesh.group is not None and mesh.group.distributed):
+                raise ValueError(f"PipelineEngine takes a stage or (stage, "
+                                 f"tp) mesh with an in-process tp group, got "
+                                 f"{mesh}")
             if mesh.shape["stage"] != cfg.topology.num_stages:
                 raise ValueError(f"{mesh} for {cfg.topology.num_stages} "
                                  "stages")
         self.mesh = mesh
+        self.ring = mesh.stages if mesh is not None else None
+        self.p = p = cfg.topology.num_stages
+        self.layer_split = layer_split(cfg)
+        off = np.concatenate([[0], np.cumsum(self.layer_split)]).tolist()
+        self.stage_layers = [(off[s], off[s + 1]) for s in range(p)]
+        s0, s1 = self.block = (mesh.stage_block() if mesh is not None
+                               else (0, p))
+        self.local = range(s0, s1)
+        # the block's layers: [layer0, layer0 + n_layers) of the stack
+        self.layer0, self.n_layers = off[s0], off[s1] - off[s0]
+        if self.ring is not None:
+            params = _block_params(params, off[s0], off[s1])
         self.tp = mesh.shape.get("tp", 1) if mesh is not None else 1
         if self.tp > 1:
             assert mc.num_attention_heads % self.tp == 0
@@ -262,13 +318,11 @@ class PipelineEngine:
         self.cfg = cfg
         self.schedule = schedule
         mc, tc = cfg.model, cfg.tree
-        self.p = p = cfg.topology.num_stages
-        self.layer_split = layer_split(cfg)
-        off = np.concatenate([[0], np.cumsum(self.layer_split)]).tolist()
-        self.stage_layers = [(off[s], off[s + 1]) for s in range(p)]
         self.params = params
-        self.stage_params = [_stage_params(params, lo, hi)
-                             for lo, hi in self.stage_layers]
+        self.stage_params = {
+            s: _stage_params(params, self.stage_layers[s][0] - self.layer0,
+                             self.stage_layers[s][1] - self.layer0)
+            for s in self.local}
         self.draft = draft
         self.dcfg = draft_view(draft, mc)
         self.beam_head = make_beam_head(params, draft, cfg)
@@ -309,8 +363,8 @@ class PipelineEngine:
                                   2 * tc.node_cap + tc.depth_cap + self.ctx)))
 
     def stage_cache(self, kv: KVCache, s: int) -> KVCache:
-        """Stage s's view of the stacked cache."""
-        lo, hi = self.stage_layers[s]
+        """Stage s's view of the process's stacked cache."""
+        lo, hi = (x - self.layer0 for x in self.stage_layers[s])
         return KVCache(k=kv.k[lo:hi], v=kv.v[lo:hi], length=kv.length)
 
     # ------------------------------------------------------------------
@@ -318,7 +372,7 @@ class PipelineEngine:
         mc = self.cfg.model
         dt = getattr(torch, mc.dtype)
         dev = self.device
-        kv = init_kv_cache(mc.num_hidden_layers, 1, mc.num_key_value_heads,
+        kv = init_kv_cache(self.n_layers, 1, mc.num_key_value_heads,
                            self.base_rows, mc.head_dim_, dt, dev)
         dc = init_kv_cache(1, 1, self.dcfg.num_key_value_heads,
                            self.draft_rows, self.dcfg.head_dim_, dt, dev)
@@ -331,6 +385,50 @@ class PipelineEngine:
             pend_n=_i32(0, dev),
             rng=lane_rng(torch.full((1,), seed, dtype=torch.int64,
                                     device=dev)))
+
+    def local_state(self, state: PipeState) -> PipeState:
+        """A whole state (every layer's KV, as `gather_state` or a
+        checkpoint gives it) cut to this process's block (a copy); a
+        state that is already the block's is returned as it is."""
+        n_all = self.stage_layers[-1][1]
+        if state.kv.k.shape[0] == self.n_layers or self.ring is None:
+            return state
+        if state.kv.k.shape[0] != n_all:
+            raise ValueError(f"a state of {state.kv.k.shape[0]} layers for "
+                             f"a block of {self.n_layers} of {n_all}")
+        lo, hi = self.layer0, self.layer0 + self.n_layers
+        return dataclasses.replace(state, kv=KVCache(
+            k=state.kv.k[lo:hi].clone(), v=state.kv.v[lo:hi].clone(),
+            length=state.kv.length))
+
+    def gather_state(self, state: PipeState) -> PipeState:
+        """The whole state on every rank: each process's block of the KV
+        joined in layer order (every rank takes part); in-process the state
+        itself."""
+        if self.ring is None:
+            return state
+        b = len(self.local)
+        counts = [self.stage_layers[(r + 1) * b - 1][1]
+                  - self.stage_layers[r * b][0]
+                  for r in range(self.ring.size)]
+        m = max(counts)
+
+        def whole(x):
+            pad = x.new_zeros((m - x.shape[0],) + tuple(x.shape[1:]))
+            got = self.ring.all_gather([torch.cat([x, pad])], 0)
+            return torch.cat([got[r * m:r * m + n]
+                              for r, n in enumerate(counts)])
+        return dataclasses.replace(state, kv=KVCache(
+            k=whole(state.kv.k), v=whole(state.kv.v), length=state.kv.length))
+
+    def save_state(self, state: PipeState, out_dir: str) -> None:
+        """Save the whole state in the padded slot layout of the engine's
+        split (`models/checkpoint.py save_state`); distributed, every rank
+        gathers and rank 0 writes."""
+        from flowspec_tpu_torch.models.checkpoint import save_state
+        whole = self.gather_state(state)
+        if self.ring is None or self.ring.rank == 0:
+            save_state(whole, out_dir, layer_split=self.layer_split)
 
     def _fit_state(self, state: PipeState) -> PipeState:
         """A state (say, one the JAX package saved, with its own margins)
@@ -466,7 +564,7 @@ class PipelineEngine:
                 f"history+extra+max_new+depth_cap = {need} exceeds "
                 f"max_seq_len {self.cfg.max_seq_len}")
         dev = self.device
-        state = self._fit_state(state)
+        state = self._fit_state(self.local_state(state))
         state = dataclasses.replace(
             state, kv=state.kv.with_length(keep),
             draft_cache=state.draft_cache.with_length(keep),
@@ -488,43 +586,50 @@ def _prefill_all(eng: PipelineEngine, state: PipeState, padded: np.ndarray,
     what stage s-1 sent; the completed chunk's final-normed hiddens gather
     into a buffer), the root sampled from the last prompt token's logits,
     then the draft context drained over the (prompt[i+1], hidden_i) pairs.
-    The chunk schedule is known on the host: nothing is read back."""
+    The chunk schedule is known on the host: nothing is read back.
+    Distributed, a block's first stage receives its chunk from the previous
+    process, and the last stage's process broadcasts the buffer."""
     mc = eng.cfg.model
     p, pc = eng.p, eng.cfg.prefill_chunk
     dev = eng.device
-    params = eng.params
+    params, ring = eng.params, eng.ring
+    s0, s1 = eng.block
     n_chunks = len(padded) // pc
     dt = getattr(torch, mc.dtype)
     tok = torch.from_numpy(padded).to(dev)
     s_max = state.kv.max_len
     buf = torch.zeros((n_chunks * pc, mc.hidden_size), dtype=dt, device=dev)
     steps = torch.arange(pc, device=dev)
-    outs = [None] * p            # (h, start, n) of each stage's last chunk
+
+    def live(c):                 # chunk c exists and holds a prompt token
+        return 0 <= c < n_chunks and n - c * pc > 0
+
+    outs, got = {}, None         # each stage's last chunk; the ring's
     for t in range(n_chunks + p):
-        comp = outs[p - 1]
-        if comp is not None:
-            off = comp[1] - start
-            buf[off:off + pc] = final_hidden(params, comp[0][None], mc)[0]
-        mine = [None] * p
-        nv = min(max(n - t * pc, 0), pc) if t < n_chunks else 0
-        if nv > 0:
-            mine[0] = (embed_tokens(params, tok[t * pc:(t + 1) * pc][None])[0],
-                       start + t * pc, nv)
-        for s in range(1, p):
-            mine[s] = outs[s - 1]
-        for s, fl in enumerate(mine):
-            if fl is None:
+        if s1 == p and live(t - p):
+            c = t - p
+            buf[c * pc:(c + 1) * pc] = final_hidden(params,
+                                                    outs[p - 1][None], mc)[0]
+        mine = {}
+        for s in eng.local:
+            c = t - s
+            if not live(c):
                 continue
-            h, cs, _ = fl
-            lo, hi = eng.stage_layers[s]
-            if hi > lo:
-                h, _ = model_forward(
-                    eng.stage_params[s], eng.stage_cache(state.kv, s),
-                    h[None], cs + steps, prefill_bias(cs, pc, s_max,
-                                                      device=dev), cs, mc)
-                h = h[0].to(dt)
-            mine[s] = (h, cs, fl[2])
+            h = (embed_tokens(params, tok[c * pc:(c + 1) * pc][None])[0]
+                 if s == 0 else got if s == s0 else outs[s - 1])
+            cs = start + c * pc
+            mine[s] = _stage_forward(eng, s, state.kv, h, cs + steps,
+                                     prefill_bias(cs, pc, s_max, device=dev),
+                                     cs)
         outs = mine
+        if ring is not None:
+            send = s1 < p and live(t + 1 - s1)
+            recv = s0 > 0 and live(t + 1 - s0)
+            got = ring.exchange(outs[s1 - 1] if send else None,
+                                ring.rank + 1 if send else None,
+                                ring.rank - 1 if recv else None, like=buf[:pc])
+    if ring is not None:
+        buf = ring.broadcast(buf, ring.size - 1)
     kv = state.kv.with_length(state.kv.length.clamp_min(start + n))
 
     h_last = buf[min(max(n - 1, 0), n_chunks * pc - 1)]
@@ -543,6 +648,7 @@ def _prefill_all(eng: PipelineEngine, state: PipeState, padded: np.ndarray,
     pend_tok[0].copy_(root)
     pend_hid = torch.zeros_like(state.pend_hid)
     pend_hid[0, 0].copy_(h_last)
+    _agree(eng, "prefill", 0, [], [root, dcache.length])
     return dataclasses.replace(
         state, kv=kv, draft_cache=dcache, rng=draws.rng, root_token=root,
         commit_len=_i32(start + n, dev), pend_tok=pend_tok,
@@ -550,6 +656,19 @@ def _prefill_all(eng: PipelineEngine, state: PipeState, padded: np.ndarray,
 
 
 # ---- one round -------------------------------------------------------------
+
+def _stage_forward(eng: PipelineEngine, s: int, kv: KVCache, h, positions,
+                   bias, write_start) -> torch.Tensor:
+    """Stage s's layers over a (T, H) chunk, its KV appended at
+    `write_start`; a stage of 0 layers passes the chunk on."""
+    lo, hi = eng.stage_layers[s]
+    if hi == lo:
+        return h
+    out, _ = model_forward(eng.stage_params[s], eng.stage_cache(kv, s),
+                           h[None], positions, bias, write_start,
+                           eng.cfg.model)
+    return out[0].to(h.dtype)
+
 
 def _forward_chunk(eng: PipelineEngine, s: int, kv: KVCache, anc_rows,
                    depth: torch.Tensor, fl: Flight, commit) -> torch.Tensor:
@@ -565,10 +684,45 @@ def _forward_chunk(eng: PipelineEngine, s: int, kv: KVCache, anc_rows,
     rows = anc_rows[safe] & (torch.arange(c_buf, device=ids.device)[:, None]
                              < fl.n)
     bias = tree_bias(torch.where(rows, 0.0, NEG_INF), commit, kv.max_len)
-    h, _ = model_forward(eng.stage_params[s], eng.stage_cache(kv, s),
-                         fl.h[None], commit + depth[safe], bias,
-                         commit + fl.start, eng.cfg.model)
-    return h[0].to(fl.h.dtype)
+    return _stage_forward(eng, s, kv, fl.h, commit + depth[safe], bias,
+                          commit + fl.start)
+
+
+_AGREE_KINDS = ("prefill", "turn", "round")
+_AGREE_WIDTH = 16                 # [kind, turn, flags...], padded with -1
+
+
+def _agree(eng: PipelineEngine, kind: str, turn: int, local: list,
+           flags: list):
+    """Distributed only (in-process: None): this rank's `local` ints (its
+    stages' chunk lengths and starts; none outside a turn) and [kind, turn]
+    + `flags` (the replicated control plane's, which every rank must hold
+    bit for bit) gathered from every rank, the device values among them
+    read in one host read. Every check has the same width, so that ranks at
+    different checks still meet in one gather. Raises, on every rank at
+    once, unless every rank's flags equal rank 0's; returns (every rank's
+    `local` in rank order, the flags)."""
+    ring = eng.ring
+    if ring is None:
+        return None
+    width = 2 * len(eng.local)
+    vals = (list(local) + [-1] * (width - len(local))
+            + [_AGREE_KINDS.index(kind), turn] + list(flags))
+    vals += [-1] * (width + _AGREE_WIDTH - len(vals))
+    on_dev = [i for i, v in enumerate(vals) if isinstance(v, torch.Tensor)]
+    if on_dev:
+        for i, v in zip(on_dev, eng.reads(*[vals[i] for i in on_dev])):
+            vals[i] = v
+    every = ring.all_gather_ints([int(v) for v in vals])
+    ref = every[0][width:]
+    bad = [r for r, v in enumerate(every) if v[width:] != ref]
+    if bad:
+        raise RuntimeError(
+            f"pipeline ranks disagree at the {kind} check of turn {turn}: "
+            f"ranks {bad} differ from rank 0 (rank {bad[0]}: "
+            f"{every[bad[0]][width:]}, rank 0: {ref}; [kind, turn, "
+            f"flags...])")
+    return [v[:width] for v in every], ref
 
 
 def _pipeline_round(eng: PipelineEngine, state: PipeState, eos_id: int,
@@ -634,22 +788,33 @@ def _pipeline_round(eng: PipelineEngine, state: PipeState, eos_id: int,
                                   torch.zeros_like(state.pend_hid),
                                   _i32(0, dev))
     kv = state.kv
-    kv_tree_len = [_i32(0, dev)] * p
+    ring, local = eng.ring, eng.local
+    s0, s1 = eng.block
+    kv_tree_len = {s: _i32(0, dev) for s in local}
     empty = Flight(h=torch.zeros((c_buf, h_dim), dtype=dt, device=dev),
                    start=_i32(0, dev), n=_i32(0, dev))
-    outs, out_n = [empty] * p, [0] * p
+    # each local stage's flight of the last turn, the one the ring brought
+    # to the block's first stage, every stage's chunk length and start
+    outs, arrived, out_n, out_start = {s: empty for s in local}, empty, \
+        [0] * p, [0] * p
     truncate = eos_hit = over_budget = False
     turn = skips = ne_fires = verdicts = 0
     beam_ok = ne_on
     alive = True
 
     while alive and turn < eng.max_turns:
-        comp, comp_n = outs[p - 1], out_n[p - 1]
-        inc, inc_n = [outs[s - 1] for s in range(p)], \
-            [out_n[s - 1] for s in range(p)]
+        comp_n = out_n[p - 1]
+        inc = {s: outs[s - 1] if s > s0 else arrived
+               for s in local if s > 0}
+        inc_n = [out_n[s - 1] for s in range(p)]
 
         # ---- collect the completed chunk into the verified buffers ----
         if comp_n > 0:
+            comp = outs.get(p - 1)
+            if ring is not None:      # from the last stage's process
+                comp = Flight(h=ring.broadcast(
+                    comp.h if comp is not None else empty.h, ring.size - 1),
+                    start=_i32(out_start[p - 1], dev), n=_i32(comp_n, dev))
             normed = final_hidden(params, comp.h[None], mc)[0]
             logits = lm_head_logits(params, normed)
             rows = (comp.start + ar_c[:comp_n]).long()
@@ -743,7 +908,7 @@ def _pipeline_round(eng: PipelineEngine, state: PipeState, eos_id: int,
             can_expand = pipedec and not truncate and bool(got[-1])
 
             # per-stage KV compaction
-            for s in range(p):
+            for s in local:
                 lo, hi = eng.stage_layers[s]
                 src_pos, n_src = kv_keep_positions(
                     info, commit, kv_tree_len[s], n_cap + d_cap)
@@ -783,8 +948,8 @@ def _pipeline_round(eng: PipelineEngine, state: PipeState, eos_id: int,
             next_inject = next_inject.clamp_min(0)
 
             # in-flight pruning of every stage's incoming chunk
-            incoming = list(inc)
-            for s in range(1, p):
+            incoming = dict(inc)
+            for s in inc:
                 if inc_n[s] > 0:
                     incoming[s] = _remap_flight(inc[s], old2new, n_cap)
 
@@ -833,47 +998,78 @@ def _pipeline_round(eng: PipelineEngine, state: PipeState, eos_id: int,
 
         # ---- stage 0 injects the next queued chunk, the others take the
         # ring's ----
-        cum = torch.cumsum(lens, 0)
-        q = next_inject.clamp(0, s_cap - 1)
-        inj_start = verified + torch.where(
-            q > 0, take(cum, (q - 1).clamp_min(0)), 0).to(torch.int32)
-        inj_len = torch.where((next_inject >= 0) & (next_inject < n_chunks),
-                              take(lens, q), 0).to(torch.int32)
-        inj_tok = torch.where(
-            ar_c < inj_len,
-            tree.tokens[(inj_start + ar_c).clamp(0, n_cap - 1).long()], 0)
-        mine = [Flight(h=embed_tokens(params, inj_tok[None])[0].to(dt),
-                       start=inj_start, n=inj_len)] + incoming[1:]
+        mine = {s: incoming[s] for s in local if s > 0}
+        if s0 == 0:
+            cum = torch.cumsum(lens, 0)
+            q = next_inject.clamp(0, s_cap - 1)
+            inj_start = verified + torch.where(
+                q > 0, take(cum, (q - 1).clamp_min(0)), 0).to(torch.int32)
+            inj_len = torch.where(
+                (next_inject >= 0) & (next_inject < n_chunks),
+                take(lens, q), 0).to(torch.int32)
+            inj_tok = torch.where(
+                ar_c < inj_len,
+                tree.tokens[(inj_start + ar_c).clamp(0, n_cap - 1).long()], 0)
+            mine[0] = Flight(h=embed_tokens(params, inj_tok[None])[0].to(dt),
+                             start=inj_start, n=inj_len)
         next_inject = torch.where(next_inject < n_chunks, next_inject + 1,
                                   next_inject)
         more = (next_inject < n_chunks) | (verified < tree.n_nodes)
 
-        # ---- read C: every stage's chunk length, the aliveness ----
-        flags = [fl.n for fl in mine] + [more]
-        if beam_next is not None:
-            flags.append(okq)
-        got = read(*flags)
-        my_n = got[:p]
-        if beam_next is not None and got[-1]:
+        # ---- read C: every stage's chunk length, the aliveness (the
+        # in-flight count); distributed, gathered from every process with
+        # the control flags that every rank must share ----
+        if ring is None:
+            flags = [mine[s].n for s in local] + [more]
+            if beam_next is not None:
+                flags.append(okq)
+            got = read(*flags)
+            my_n, more_c, queued = got[:p], got[p], got[-1]
+        else:
+            every, agreed = _agree(
+                eng, "turn", turn,
+                [mine[s].n for s in local] + [mine[s].start for s in local],
+                [do_verdict, can_ne, can_expand, more,
+                 okq if beam_next is not None else -1, tree.n_nodes,
+                 verified, n_chunks, next_inject, commit, n_out])
+            b = len(local)
+            my_n = [x for v in every for x in v[:b]]
+            out_start = [x for v in every for x in v[b:]]
+            more_c, queued = agreed[5], agreed[6]
+        if beam_next is not None and queued:
             beam = beam_next
 
         # ---- forward ----
         anc = (ancestor_matrix(tree.parents, d_cap, tree.valid())
-               if any(my_n) else None)
-        outs = []
-        for s, fl in enumerate(mine):
+               if any(my_n[s] for s in local) else None)
+        for s in local:
+            fl = mine[s]
             if my_n[s] > 0:
                 h = _forward_chunk(eng, s, kv, anc, tree.depth, fl, commit)
                 kv_tree_len[s] = torch.maximum(kv_tree_len[s],
                                                fl.start + fl.n)
-                outs.append(Flight(h=h, start=fl.start, n=fl.n))
-            else:
-                outs.append(fl)
+                fl = Flight(h=h, start=fl.start, n=fl.n)
+            outs[s] = fl
         out_n = my_n
-        alive = any(my_n) or bool(got[p])
+        alive = any(my_n) or bool(more_c)
         turn += 1
         skips += 0 if do_verdict else 1
 
+        # ---- the ring hop to the next process (empty chunks stay) ----
+        if ring is not None and alive and turn < eng.max_turns:
+            send = s1 < p and my_n[s1 - 1] > 0
+            recv = s0 > 0 and my_n[s0 - 1] > 0
+            h = ring.exchange(outs[s1 - 1].h if send else None,
+                              ring.rank + 1 if send else None,
+                              ring.rank - 1 if recv else None, like=empty.h)
+            arrived = Flight(h=h, start=_i32(out_start[s0 - 1], dev),
+                             n=_i32(my_n[s0 - 1], dev)) if recv else empty
+
+    _agree(eng, "round", turn, [],
+           [truncate, eos_hit, over_budget, verdicts, skips, ne_fires, n_out,
+            commit, torch.remainder((out_tokens[:out_cap].long() * (
+                torch.arange(out_cap, device=dev) + 1)).sum(), 2 ** 31 - 1),
+            sampled_root, dcache.length])
     new_state = PipeState(
         kv=kv.with_length(commit), draft_cache=dcache, commit_len=commit,
         root_token=sampled_root if truncate else state.root_token,
