@@ -36,9 +36,10 @@ emission, `clock_s`):
      the same four with suffix _13b_mixed   13B, attention int4 + FFN int8,
                                   the 13B thin draft in int8;
      and with suffix _7b_nf4                7B, base and thin draft nf4.
-     Each at full width (7B int8 also at full depth; 13B mixed cut to 20
-     of 40 layers and 7B nf4 to 16 of 32 since the pipeline phase came in,
-     for the run's time, `reduced` in their lines): random base from a
+     Each at full width (7B int8 also at full depth; 13B mixed cut to 10
+     of 40 layers and 7B nf4 to 8 of 32 for the run's time, half the
+     depth they had between the pipeline and train phases, `reduced` in
+     their lines): random base from a
      seeded torch.Generator, the committed thin draft, 64-token prompts, 2
      requests x 128 new tokens (3 at 7B int8 before the batched phase came
      in, and at 13B mixed and 7B nf4 before the families), served in turns
@@ -74,13 +75,14 @@ emission, `clock_s`):
   6. the model families, the same four lines each with suffix
      _qwen2_7b_int8       Qwen2-7B (Qwen/Qwen2-7B config.json: 28/4 heads,
                           G 7, V 152064, qkv biases, rope 1e6) at full
-                          width, cut to 14 of 28 layers (since the pipeline
-                          phase), int8 base, qkv biases N(0, 0.1);
+                          width, cut to 7 of 28 layers (14 between the
+                          pipeline and train phases), int8 base, qkv
+                          biases N(0, 0.1);
      _mixtral_8x7b_bf16   Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1: 8
                           experts top-2, 32/8 heads) in bf16 at full width,
-                          cut to 8 of 32 layers (`reduced` in its line: 32
+                          cut to 4 of 32 layers (`reduced` in its line: 32
                           layers of bf16 experts are 92.8 GB; 16 before the
-                          pipeline phase);
+                          pipeline phase, 8 before the train phase);
      both random from a seeded generator with a random full-width int8
      draft (so the beam head is int8), 2 requests x 64 new tokens, served
      and checked as in 4, the fused request profiled (not the eager one);
@@ -95,7 +97,8 @@ emission, `clock_s`):
      quantization through `save_params` / `load_params`, bit-equal; an
      engine state saved after 4 rounds and resumed, equal to the
      uninterrupted stream.
-  9. batched   7B int8 at full width and depth with the committed thin
+  9. batched   7B int8 at full width, cut to 8 of 32 layers for the run's
+     time (whole before the train phase came in), with the committed thin
      draft in int8, served by BatchedSpecEngine over 4 lanes (adapt_tree:
      32-node trees a lane), max_seq_len 480 (512 base KV rows):
      `batched`: generate_batch eager and generate_batch_fused (the gated
@@ -147,7 +150,8 @@ emission, `clock_s`):
      192 and 324 and the draft's M 20, attention over 1, 2 and 4 lanes at
      T 81 / 48 / 32, head top-k at T 2 and T 20.
  11. pipeline  the same 7B int8 pair through `PipelineEngine`
-     (`pipeline_config`), 4 stages x 8 layers on the card, the JAX
+     (`pipeline_config`), 4 stages x 2 layers on the card (8 of the 7B's
+     32 layers for the run's time; 4 x 8 before the train phase), the JAX
      TreeConfig defaults (81 nodes in chunks of 16, c_buf 18, node_cap 192,
      depth_cap 24) with score_temperature 0.2, max_seq 216 (768 base and
      draft KV rows): every schedule (continuous, pruned, naive, serial,
@@ -163,7 +167,8 @@ emission, `clock_s`):
      share). The kernel phase adds the pipeline's shapes: attention T 18
      and T 192 over 768 rows, int8 at M 18 on the 7B widths.
  12. tp        tensor parallelism in-process on the one card
-     (`tp_config`): the 7B int8 pair at full width and depth through
+     (`tp_config`): the 7B int8 pair at full width, cut to 8 of 32
+     layers for the run's time (whole before the train phase), through
      `TPEngine` at tp 2 and tp 4 (each rank's shards run one after
      another; the collectives are memory operations), `generate` and
      `generate_fused` (the TP round as one CUDA graph) in turns beside
@@ -211,7 +216,8 @@ emission, `clock_s`):
      process.
  14. pipeline_procs  a stage per process (`procs_config`): the pipeline
      phase's pair and tree through `PipelineEngine` on a distributed
-     stage_mesh(4), 4 stage processes x 8 layers at full width and depth
+     stage_mesh(4), 4 stage processes x 2 layers at full width (8 of 32
+     layers for the run's time; 4 x 8 before the train phase)
      on the one card (`python3 chip_smoke.py --stage <rank> <world> <port>
      <out.json>`, each drawing the seeded pair, keeping its block and the
      replicated part), over gloo through pinned host buffers (the one
@@ -232,15 +238,38 @@ emission, `clock_s`):
      `pipeline_procs_dryrun`: `python -m flowspec_tpu_torch.multihost_dryrun
      --device cuda` (2 processes x 4 stages, bf16 at hidden 512: the six
      schedules, PP x TP and galaxy across the processes).
-Phases 4-6 and 9-14 run each configuration in a process of its own
-(`serve_child`,
-`python3 chip_smoke.py --serve <tag> <rows.json> <out.json>`, started by
-the run with the kernel phase's rows), so no process opens more than a few
-profiler sessions. Every line of phases 4-8 carries the card's name and
-power limit. The kernel phase also holds the families' shapes: attention
-at G 7 (4 KV heads) and G 4 (8 KV heads), head top-k at V 152064 (and a
-tie across its strips), int8 at Qwen2-7B's widths (In 3584 and 18944) and
-the full-width drafts' (M 10).
+ 15. train     training on the card (`train_config`):
+     `train_bench_7b_int8`: `train.bench_draft.run` with TRAIN_BENCH, the
+     7B int8 base at full width and depth (seeded draw), 8 rollouts + 2
+     held out of 64 + 64 tokens through generate_ar_fused, the teacher's
+     hiddens by one prefill a sequence (T 128 over 256 KV rows), a thin W
+     1024 f32 draft trained 60 steps at batch 8, the delta shrink on the
+     held-out rollouts, the draft in int8 in SpecEngine on 2 held-out
+     prompts: ms a step, steps/s, peak memory, alpha, accept a round;
+     `train_struct_mid`: `train.struct_base.run("mid")` cut to
+     TRAIN_STRUCT (20 base steps with f32 masters and bf16 compute, 2
+     streaming pools of 256 with the teacher on 32 lanes x T 320 over 512
+     rows), then the bf16 engine on 2 prompts of 64 tokens; `train`: the
+     launches and the attention shapes. Gates: every trainable field's
+     step-1 gradient finite and nonzero; int8 and attention launched in
+     the rollouts and the teacher, int8, attention and head in the
+     evaluation, and no kernel across the training steps, the base's
+     steps and the shrink; the last logged loss below the first (the base's
+     CE: the mean of its last 5 steps below its first); the saved npz
+     reloaded through load_thin_draft bit for bit; every speculative
+     stream against AR under the near-tie rule; every attention shape the
+     phase gave the kernel held by a kernel row (the `train_*` and
+     `struct_*` rows, head dim 64 for the struct ones, and the teacher's
+     32 lanes).
+Phases 4-6 and 9-15 run each configuration in a process of its own
+(`serve_child` with the kernel phase's rows, forked from a
+multiprocessing forkserver that imported torch once; `python3
+chip_smoke.py --serve <tag> <rows.json> <out.json>` runs one alone), so no
+process opens more than a few profiler sessions. Every line of phases 4-8
+carries the card's name and power limit. The kernel phase also holds the
+families' shapes: attention at G 7 (4 KV heads) and G 4 (8 KV heads), head
+top-k at V 152064 (and a tie across its strips), int8 at Qwen2-7B's widths
+(In 3584 and 18944) and the full-width drafts' (M 10).
 Then the `kernels` line (each kernel of the path, with its comparison-only
 old entry point under "old") and, last, {"ok": true,
 "device": {...}}. Per-shape
@@ -251,6 +280,9 @@ phase catches an error and still exits 0.
 from __future__ import annotations
 
 import json
+import math
+import multiprocessing
+import multiprocessing.forkserver
 import statistics
 import subprocess
 import sys
@@ -377,13 +409,19 @@ OLD = {"int8_matmul": "int8_matmul_strip", "nf4_matmul": "nf4_matmul_strip",
        "int4_matmul_smallm": "int4_matmul_splitk"}
 BASE_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # Mixtral-8x7B's 32 layers of bf16 experts (2.90 GB a layer, 92.8 GB) do not
-# fit the card's 80 GB: the served Mixtral keeps 8 (16 before the pipeline
-# phase came in: the run's time)
-MIXTRAL_LAYERS = 8
-# the earlier serve phases cut in depth since the pipeline phase came in, to
-# keep the run inside its time limit (full width; 7B int8 stays whole)
-CUT_LAYERS = {"13b_mixed": 20, "7b_nf4": 16, "qwen2_7b_int8": 14}
+# fit the card's 80 GB: the served Mixtral keeps 4 (16 before the pipeline
+# phase came in, 8 before the train phase: the run's time)
+MIXTRAL_LAYERS = 4
+# the earlier serve phases cut in depth, to keep the run well inside its
+# time limit (full width; the 7B int8 serve path, the stream, eval and train
+# phases stay whole): halved again since the train phase came in
+CUT_LAYERS = {"13b_mixed": 10, "7b_nf4": 8, "qwen2_7b_int8": 7}
 CUT_FULL = {"13b_mixed": 40, "7b_nf4": 32, "qwen2_7b_int8": 28}
+# the batched, pipeline, stage-process and TP phases' 7B int8 base, cut from
+# 32 layers since the train phase came in (the pipeline's 4 stages x 2)
+PATH_LAYERS = 8
+PATH_REDUCED = (f"32 -> {PATH_LAYERS} layers: the run's time, since the "
+                "train phase")
 FAMILY_REQUESTS, FAMILY_NEW_TOKENS = 2, 64
 # configurations whose eager request is profiled too (the families profile
 # their fused request only: with a random draft a request runs ~64 rounds,
@@ -475,7 +513,7 @@ LANE_ATTN_SHAPES += [
     ("lanes4_verify_T81", 4, 32, 32, 81, 512, [96, 200, 330, 430]),
     ("lanes2_beam_T10", 2, 8, 8, 10, 768, [270, 600])]
 # the pipeline phase: the 7B int8 pair through `PipelineEngine` at the JAX
-# TreeConfig defaults (81-node trees in chunks of 16 over 4 stages x 8 layers,
+# TreeConfig defaults (81-node trees in chunks of 16 over 4 stages x 2 layers,
 # node_cap 192, depth_cap 24) with score_temperature 0.2, max_seq 216 (768
 # base and draft KV rows); every schedule through `generate` on the serve
 # prompts, continuous also through `generate_fused` and a resume; the kernels
@@ -490,11 +528,11 @@ INT8_SHAPES += [(f"base_{w}_M18", 18, i, o) for w, i, o in BASE_7B]
 ATTN_SHAPES += [("pipe_chunk_T18", 32, 32, 18, 768, 128 + 48 + 18),
                 ("pipe_serial_T192", 32, 32, 192, 768, 128 + 192)]
 # the stage-process phase: the same pair and tree through `PipelineEngine`
-# on a distributed stage_mesh(4): 4 stage processes of 8 layers each on the
+# on a distributed stage_mesh(4): 4 stage processes of 2 layers each on the
 # one card, talking over gloo through pinned host buffers (NCCL refuses two
 # ranks on one device), continuous and pruned on the serve prompts (2 x 64
-# tokens: the tokens cut, not the width or the depth) beside the in-process
-# engine; one continuous resume; `multihost_dryrun --device cuda` (2
+# tokens: the tokens cut, and the depth as the pipeline's) beside the
+# in-process engine; one continuous resume; `multihost_dryrun --device cuda` (2
 # processes x 4 stages at its small bf16 shape). No new kernel shape: a
 # stage process runs the pipeline phase's shapes.
 PROCS_TAG = "pipeline_procs"
@@ -506,10 +544,11 @@ PROCS_TIMEOUT = 600               # seconds: the stage processes, the dry run
 PROCS_TRANSPORT = ("gloo through pinned host buffers (init_multihost "
                    "host_staging=True)")
 # the tensor-parallel phase: the 7B int8 pair through `TPEngine` at tp 2 and
-# 4, in-process on the one card, 2 prompts x 64 tokens (the tokens cut, not
-# the width or the depth); galaxy at tp 2 on a bf16 7B-width base of 8
-# layers with an 80-node tree (tp divides the verify's 80 rows); PP x TP on
-# stage_tp_mesh(4, 2), pruned, 2 x 32 tokens; the kernels at shard width
+# 4, in-process on the one card, 2 prompts x 64 tokens (the tokens cut, and
+# the depth to PATH_LAYERS, not the width); galaxy at tp 2 on a bf16
+# 7B-width base of 8 layers with an 80-node tree (tp divides the verify's 80
+# rows); PP x TP on stage_tp_mesh(4, 2), pruned, 2 x 32 tokens; the kernels
+# at shard width
 TP_TAG = "tp_7b_int8"
 TP_SIZES = (2, 4)
 TP_NEW_TOKENS = 64
@@ -585,6 +624,48 @@ DEMO_ATTN_SHAPES = [("demo_verify_T81", 32, 32, 81, 1280, 177),
                     ("demo_draft_ctx_T8", 8, 8, 8, 1280, 102)]
 ATTN_SHAPES += EVAL_ATTN_SHAPES + DEMO_ATTN_SHAPES
 LANE_ATTN_SHAPES += EVAL_LANE_ATTN_SHAPES
+# the training phase (`train_config`): (a) `python -m
+# flowspec_tpu_torch.train.bench_draft` at 7B int8, full width and depth:
+# 8 rollouts + 2 held out of 64 + 64 tokens, a thin W 1024 draft, batch 8,
+# 60 steps, 2 eval prompts; (b) `train.struct_base.run("mid")`, cut to 20
+# base steps, 2 pools, 1024 training sequences, 2 eval prompts of 64 tokens
+TRAIN_TAG = "train"
+TRAIN_LOG_EVERY = 10
+TRAIN_BENCH = ["--scale", "7b", "--steps", "60", "--rollouts", "8",
+               "--holdout", "2", "--gen-tokens", "64", "--batch", "8",
+               "--width", "1024", "--eval-prompts", "2", "--log-every",
+               str(TRAIN_LOG_EVERY), "--device", "cuda"]
+TRAIN_STRUCT = {"steps": 20, "distill_outer": 2, "n_seqs": 1024}
+TRAIN_STRUCT_EVAL = (2, 64)
+# attention at the training phase's shapes, from a CPU trace of the phase
+# (one layer, the rest as here): (a) max_seq 152 gives the 7B base 256 KV
+# rows (152 + 81 nodes) and the thin draft 512 (152 + 12 levels x top-k
+# 10): the rollouts' and the evaluation's prefill chunks (T 64), AR steps,
+# verify (T 81), the draft's context (T 8; its beam's T 10 over 512 rows is
+# `beam_T10`), the teacher's prefill (T 128 over 256 rows); (b) the mid
+# base and its full-width draft at head dim 64, 16 heads, 512 rows (max_seq
+# 344: + 49 nodes, + 8 levels x top-k 8): prefill chunks T 32, verify T 49,
+# the draft's context and beam T 8, AR; the teacher's 32 lanes x T 320.
+# A row's optional last entries: its head dim (128 if absent) and "causal"
+# for a teacher's prefill, whose mask is the lower triangle (a random tree
+# over all 320 rows leaves its first rows one or two keys, whose outputs
+# reach |x| >= 4, where one bf16 rounding is 0.031)
+TRAIN_ATTN_SHAPES = [
+    ("train_prefill_T64", 32, 32, 64, 256, 64),
+    ("train_ar_T1", 32, 32, 1, 256, 100),
+    ("train_verify_T81", 32, 32, 81, 256, 64 + 32 + 81),
+    ("train_teacher_T128", 32, 32, 128, 256, 128, 128, "causal"),
+    ("train_draft_prefill_T64", 8, 8, 64, 512, 64),
+    ("train_draft_ctx_T8", 8, 8, 8, 512, 100),
+    ("struct_prefill_T32", 16, 16, 32, 512, 64, 64),
+    ("struct_verify_T49", 16, 16, 49, 512, 64 + 32 + 49, 64),
+    ("struct_ar_T1", 16, 16, 1, 512, 100, 64),
+    ("struct_draft_T8", 16, 16, 8, 512, 150, 64)]
+TRAIN_LANE_ATTN_SHAPES = [
+    ("struct_teacher_lanes32_T320", 32, 16, 16, 320, 512, [320] * 32, 64,
+     "causal")]
+ATTN_SHAPES += TRAIN_ATTN_SHAPES
+LANE_ATTN_SHAPES += TRAIN_LANE_ATTN_SHAPES
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -614,8 +695,9 @@ DESCRIBE = {
                  "config.json) bf16, random, seeded",
         "draft": "init_eagle_params full width (int8)",
         "reduced": f"32 -> {MIXTRAL_LAYERS} layers: 32 layers of bf16 "
-                   "experts are 92.8 GB, more than the card's 80 GB; 8, "
-                   "not 16, for the run's time since the pipeline phase"}}
+                   "experts are 92.8 GB, more than the card's 80 GB; 4, "
+                   "not 16 or 8, for the run's time since the pipeline "
+                   "and train phases"}}
 
 
 def emit(obj) -> None:
@@ -811,10 +893,12 @@ def check_packed4(kernel, shapes, dev, gen, flush, details):
     return rows
 
 
-def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128):
+def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128,
+                     causal=False):
     """q, k, v (bf16) and the (T, S) f32 bias of one ATTN_SHAPES row:
     context [0, n_valid - t) visible, a random tree mask (diagonal always
-    live) over the last t live rows, -1e9 past n_valid."""
+    live; `causal`: the prefill's lower triangle) over the last t live
+    rows, -1e9 past n_valid."""
     import torch
     q = torch.randn((1, nq, t, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -825,6 +909,8 @@ def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128):
     ctx = n_valid - t
     tree = (torch.rand((t, t), generator=gen, device=dev) < 0.3).tril()
     tree |= torch.eye(t, dtype=torch.bool, device=dev)
+    if causal:
+        tree = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     bias = torch.full((t, s_max), -1e9, device=dev)
     bias[:, :ctx] = 0.0
     bias[:, ctx:n_valid] = torch.where(tree, 0.0, -1e9)
@@ -843,10 +929,10 @@ def check_attention(dev, gen, flush, details):
         attention_plan, kernel_keys, live_keys, tree_attention,
         tree_attention_plain, tree_attention_simt)
     rows = {}
-    d = 128
-    for name, nq, nkv, t, s_max, n_valid in ATTN_SHAPES:
+    for name, nq, nkv, t, s_max, n_valid, *more in ATTN_SHAPES:
+        d = more[0] if more else 128
         q, k, v, bias = attention_inputs(gen, dev, nq, nkv, t, s_max,
-                                         n_valid, d)
+                                         n_valid, d, "causal" in more)
         n_keys = live_keys(s_max, n_valid)
         n_read = kernel_keys(s_max, n_valid)
         nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
@@ -921,10 +1007,10 @@ def check_attention_lanes(dev, gen, flush, details):
         attention_plan, kernel_keys, live_keys, tree_attention,
         tree_attention_plain)
     rows = {}
-    d = 128
-    for name, b, nq, nkv, t, s_max, n_valid in LANE_ATTN_SHAPES:
-        parts = [attention_inputs(gen, dev, nq, nkv, t, s_max, n, d)
-                 for n in n_valid]
+    for name, b, nq, nkv, t, s_max, n_valid, *more in LANE_ATTN_SHAPES:
+        d = more[0] if more else 128
+        parts = [attention_inputs(gen, dev, nq, nkv, t, s_max, n, d,
+                                  "causal" in more) for n in n_valid]
         q, k, v = (torch.cat([p[i] for p in parts]) for i in range(3))
         bias = torch.stack([p[3] for p in parts])
         nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
@@ -1337,6 +1423,29 @@ def counts(counters) -> dict:
 GEMM_KEYS = ("gemm", "sm90_xmma", "nvjet", "cutlass")
 
 
+def device_events(prof):
+    """(name, seconds) of each device event of a finished torch.profiler
+    session, read from its raw kineto records: the events, names and
+    durations `prof.events()` gives (the same filter, the same demangled
+    names), without building its Python event objects, which took many
+    times as long on the card's host (a profile's `trace_read_s`; PERF.md,
+    section 6)."""
+    import torch
+    from torch.autograd.profiler_util import _filter_name
+    cuda = torch.autograd.DeviceType.CUDA
+    names = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda:
+            continue
+        raw = ev.name()
+        if _filter_name(raw) or getattr(ev, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        yield names[raw], ev.duration_ns() / 1e9
+
+
 def family(name: str, moe=frozenset()) -> str:
     """The kernel family of a device kernel's name in a profiler trace: this
     port's six CUDA kernels, the split-K reduce pass of int8 / nf4 / int4
@@ -1395,9 +1504,8 @@ def moe_gemm_names(eng) -> tuple:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA
-                 and any(k in ev.name.lower() for k in GEMM_KEYS)}
+        names = {name for name, _ in device_events(prof)
+                 if any(k in name.lower() for k in GEMM_KEYS)}
         if not names:
             raise AssertionError("moe_gemm_names: no GEMM kernel in the "
                                  "trace")
@@ -1426,27 +1534,32 @@ def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, stats = fn(prompt, max_new_tokens=new_tokens, eos_token_id=-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_read = time.perf_counter()
     rounds = stats.get("rounds", stats["new_tokens"])
-    ms, n, other, busy, kernels = {}, {}, {}, 0.0, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = ev.time_range.elapsed_us() / 1e6
-        fam = family(ev.name, moe)
+    ms, n, other, busy, kernels, fams = {}, {}, {}, 0.0, 0, {}
+    for name, dt in device_events(prof):
+        if name not in fams:
+            fams[name] = family(name, moe)
+        fam = fams[name]
         ms[fam] = ms.get(fam, 0.0) + dt * 1e3 / rounds
         n[fam] = n.get(fam, 0) + 1
         if fam == "other":
-            o = other.setdefault(ev.name[:80], [0.0, 0])
+            o = other.setdefault(name[:80], [0.0, 0])
             o[0] += dt * 1e3 / rounds
             o[1] += 1
         busy += dt
         kernels += 1
     return {"wall_s": wall, "rounds": rounds,
+            # host seconds to start the session (a process's first start
+            # loads the device tracer) and to read the trace
+            "session_start_s": t0 - t_start,
+            "trace_read_s": time.perf_counter() - t_read,
             "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
             "device_kernels": kernels, "kernels_per_round": kernels / rounds,
@@ -1791,12 +1904,13 @@ def bucket_and_force_runs(eng, prompts, ar_out, smi):
 
 def make_batched_engine(dev):
     """(BatchedSpecEngine over BATCH lanes, its 4 prompts, build seconds):
-    7B int8 at full width and depth and the committed thin draft in int8,
-    as `make_engine` builds them, max_seq_len BATCH_MAX_SEQ, adapt_tree on
-    (32-node trees a lane)."""
+    7B int8 at full width, PATH_LAYERS deep, and the committed thin draft
+    in int8, as `make_engine` builds them, max_seq_len BATCH_MAX_SEQ,
+    adapt_tree on (32-node trees a lane)."""
     import dataclasses
     from flowspec_tpu_torch.runtime import BatchedSpecEngine
-    eng, prompts, build_s = make_engine(dev, "7b", "int8", BATCH, NEW_TOKENS)
+    eng, prompts, build_s = make_engine(dev, "7b", "int8", BATCH, NEW_TOKENS,
+                                        PATH_LAYERS)
     beng = BatchedSpecEngine(
         eng.params, eng.draft,
         dataclasses.replace(eng.cfg, max_seq_len=BATCH_MAX_SEQ),
@@ -1886,7 +2000,7 @@ def batched_config(dev, counters, smi):
     emit({"phase": "batched", "card": smi,
           "model": "llama_7b int8 (random, seeded)",
           "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
-          "reduced": None, "lanes": b, "tree": {
+          "reduced": PATH_REDUCED, "lanes": b, "tree": {
               "total_tokens": beng.cfg.tree.total_tokens,
               "node_cap": beng.cfg.tree.node_cap,
               "depth_cap": beng.cfg.tree.depth_cap},
@@ -2347,43 +2461,49 @@ def pipe_line(eng, sched, outs, sec, new, stats, launches, reads, peak):
 
 def profile_turns(fn, prompt, new_tokens) -> dict:
     """One pipeline request through `fn` under torch.profiler, device
-    activity only, read from `key_averages` (a turn launches ~2.5k kernels;
-    walking every CPU and device event of a 128-token request took ~370 s):
+    activity only, read from the raw records (`device_events`; a turn
+    launches ~2.5k kernels; walking every CPU and device event of a
+    128-token request took ~370 s):
     wall and device ms a turn, the idle share, kernels a turn, and device ms
     and kernels a turn by family. A trace without device time fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, stats = fn(prompt, max_new_tokens=new_tokens, eos_token_id=-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_read = time.perf_counter()
     turns = stats["turns"]
-    ms, n, busy, kernels = {}, {}, 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
-        fam = family(ev.key)
-        ms[fam] = ms.get(fam, 0.0) + us / 1e3 / turns
-        n[fam] = n.get(fam, 0) + ev.count / turns
-        busy += us / 1e6
-        kernels += ev.count
+    ms, n, busy, kernels, fams = {}, {}, 0.0, 0, {}
+    for name, dt in device_events(prof):
+        if name not in fams:
+            fams[name] = family(name)
+        fam = fams[name]
+        ms[fam] = ms.get(fam, 0.0) + dt * 1e3 / turns
+        n[fam] = n.get(fam, 0) + 1
+        busy += dt
+        kernels += 1
     if not kernels:
         raise AssertionError("profile_turns: no device kernel in the trace")
     return {"turns": turns, "rounds": stats["rounds"], "wall_s": wall,
+            "session_start_s": t0 - t_start,
+            "trace_read_s": time.perf_counter() - t_read,
             "wall_ms_per_turn": wall * 1e3 / turns,
             "device_ms_per_turn": busy * 1e3 / turns,
             "device_idle_share": 1 - busy / wall,
             "kernels_per_turn": kernels / turns,
             "device_ms_per_turn_by_family": ms,
-            "kernels_per_turn_by_family": n}
+            "kernels_per_turn_by_family": {f: c / turns
+                                           for f, c in n.items()}}
 
 
 def pipe_config(mc, new_tokens: int = NEW_TOKENS):
     """The pipeline phases' EngineConfig: the JAX TreeConfig defaults with
-    score_temperature 0.2, 4 stages x 8 layers, max_seq PIPE_MAX_SEQ."""
+    score_temperature 0.2, 4 even stages of mc's layers, max_seq
+    PIPE_MAX_SEQ."""
     from flowspec_tpu_torch.config import (
         EngineConfig, SamplingConfig, StageTopology, TreeConfig)
     return EngineConfig(model=mc, tree=TreeConfig(score_temperature=0.2),
@@ -2393,7 +2513,7 @@ def pipe_config(mc, new_tokens: int = NEW_TOKENS):
 
 def pipeline_config(dev, counters, smi):
     """The pipeline phase in its own process: the 7B int8 pair through
-    `PipelineEngine` (4 stages x 8 layers on the card), every schedule
+    `PipelineEngine` (4 stages x 2 layers on the card), every schedule
     through `generate` on the serve prompts, continuous also through
     `generate_fused`, beside `SpecEngine.generate_fused` on the same pair
     and tree in turns (before and after); one resume; one profiled
@@ -2406,7 +2526,7 @@ def pipeline_config(dev, counters, smi):
     from flowspec_tpu_torch.parallel import PipelineEngine
     from flowspec_tpu_torch.runtime import SpecEngine
     base, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
-                                          NEW_TOKENS)
+                                          NEW_TOKENS, PATH_LAYERS)
     mc = base.cfg.model
     cfg = pipe_config(mc)
     spec = SpecEngine(base.params, base.draft, cfg)
@@ -2473,7 +2593,7 @@ def pipeline_config(dev, counters, smi):
     emit({"phase": "pipeline", "card": smi,
           "model": "llama_7b int8 (random, seeded)",
           "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
-          "reduced": None, "stages": list(eng.layer_split),
+          "reduced": PATH_REDUCED, "stages": list(eng.layer_split),
           "tree": "TreeConfig() defaults, score_temperature 0.2",
           "max_seq_len": PIPE_MAX_SEQ, "base_kv_rows": eng.base_rows,
           "draft_kv_rows": eng.draft_rows, "prompt_len": PROMPT_LEN,
@@ -2604,7 +2724,7 @@ def stage_child(rank: str, world: str, port: str, out_path: str) -> int:
     starts PROCS of them): joins the world over gloo through pinned host
     buffers, draws the same seeded 7B int8 pair as every process, builds a
     `PipelineEngine` a schedule on the distributed stage_mesh(PROCS), keeps
-    its block (8 layers) and the replicated part and frees the rest, then
+    its block (2 layers) and the replicated part and frees the rest, then
     serves the prompts with each schedule and runs one continuous resume
     against a fresh run on the whole history. Writes its record to
     `out_path`."""
@@ -2623,7 +2743,8 @@ def stage_child(rank: str, world: str, port: str, out_path: str) -> int:
                    host_staging=True, timeout=PROCS_TIMEOUT)
     counters = launch_counts()
     t0 = time.perf_counter()
-    base, prompts, _ = make_engine(dev, "7b", "int8", N_REQUESTS, PROCS_NEW)
+    base, prompts, _ = make_engine(dev, "7b", "int8", N_REQUESTS, PROCS_NEW,
+                                   PATH_LAYERS)
     cfg = pipe_config(base.cfg.model, PROCS_NEW)
     whole_gb = weight_bytes(base.params, base.draft) / 1e9
     engines = {s: PipelineEngine(base.params, base.draft, cfg, schedule=s,
@@ -2750,7 +2871,7 @@ def procs_config(dev, counters, smi):
     from flowspec_tpu_torch.runtime import SpecEngine
     refusal = plain_gloo_refuses_cuda()
     base, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
-                                          PROCS_NEW)
+                                          PROCS_NEW, PATH_LAYERS)
     cfg = pipe_config(base.cfg.model, PROCS_NEW)
     spec = SpecEngine(base.params, base.draft, cfg)
     del base
@@ -2843,7 +2964,7 @@ def procs_config(dev, counters, smi):
     emit({"phase": "pipeline_procs", "card": smi,
           "model": "llama_7b int8 (random, seeded)",
           "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
-          "reduced": None, "processes": PROCS,
+          "reduced": PATH_REDUCED, "processes": PROCS,
           "stages": [ranks[r]["layers_here"] for r in range(PROCS)],
           "transport": PROCS_TRANSPORT,
           "plain_gloo_refuses_cuda": refusal,
@@ -3019,7 +3140,7 @@ def tp_config(dev, counters, kernel_rows, smi):
     from flowspec_tpu_torch.runtime import SpecEngine
     total = {n: 0 for n in counters}
     spec, prompts, params_s = make_engine(dev, "7b", "int8", N_REQUESTS,
-                                          TP_NEW_TOKENS)
+                                          TP_NEW_TOKENS, PATH_LAYERS)
     t0 = time.perf_counter()
     ar = [spec.generate_ar_fused(p, max_new_tokens=TP_NEW_TOKENS,
                                  eos_token_id=-1)[0][len(p):]
@@ -3064,7 +3185,8 @@ def tp_config(dev, counters, kernel_rows, smi):
     emit({"phase": "tp", "card": smi,
           "model": "llama_7b int8 (random, seeded)",
           "draft": "checkpoints/draft_7b_thin_fp16.npz (int8)",
-          "reduced": None, "mesh": "tp_mesh(tp), in-process on one card",
+          "reduced": PATH_REDUCED,
+          "mesh": "tp_mesh(tp), in-process on one card",
           "tree": "node_cap 96 (81 nodes), depth 8, score_temperature 0.2",
           "prompt_len": PROMPT_LEN, "requests": len(prompts),
           "new_tokens": TP_NEW_TOKENS,
@@ -3395,6 +3517,172 @@ def eval_config(dev, counters, kernel_rows, smi):
     return total
 
 
+class PhaseLaunches:
+    """`mark(phase)` for the trainers' `run`: the launches since the last
+    mark go to the phase then begun (a phase that recurs, as the struct
+    distillation's per-pool teacher and train, adds up)."""
+
+    def __init__(self, counters, prefix):
+        self.counters, self.prefix = counters, prefix
+        self.current, self.by_phase = None, {}
+
+    def __call__(self, phase):
+        if self.current is not None:
+            got = self.by_phase.setdefault(self.current,
+                                           dict.fromkeys(self.counters, 0))
+            for n, c in counts(self.counters).items():
+                got[n] += c
+        zero(self.counters)
+        self.current = f"{self.prefix}_{phase}"
+
+    def check(self, kernels_in, none_in):
+        """Each phase of `kernels_in` launched each of its kernels; the
+        phases of `none_in` launched nothing (autograd cannot see into a
+        kernel's output: training must not reach one)."""
+        for phase, kernels in kernels_in.items():
+            got = self.by_phase[f"{self.prefix}_{phase}"]
+            if any(got[n] == 0 for n in kernels):
+                raise AssertionError(f"train {phase}: launches {got}")
+        for phase in none_in:
+            got = self.by_phase[f"{self.prefix}_{phase}"]
+            if any(got.values()):
+                raise AssertionError(f"train {phase} launched a kernel: "
+                                     f"{got}")
+
+
+def train_config(dev, counters, kernel_rows, smi):
+    """The training phase in its own process (`train/`): (a) the 7B int8
+    bench distillation at full width and depth (`bench_draft.run` with
+    TRAIN_BENCH: rollouts through `generate_ar_fused`, teacher prefills,
+    the f32 thin draft's steps, the delta shrink, the int8 draft in
+    `SpecEngine` on held-out prompts, the saved npz); (b) the struct
+    protocol at mid width (`struct_base.run("mid")`, cut to TRAIN_STRUCT:
+    base steps with f32 masters and bf16 compute, streaming pools of 32
+    teacher lanes x T 320, the bf16 engine on held-out prompts). Returns
+    its launches. Raises if a trainable field has no finite nonzero
+    gradient at step 1, if the rollouts, teacher or evaluation launch none
+    of their kernels or a training step launches any, if the last logged
+    loss is not below the first (in (b): the mean of the base's last 5
+    CEs not below its first), if the saved draft
+    does not reload bit-equal, if a speculative stream leaves AR off a
+    near-tie, or if the attention kernel saw a shape no row checked."""
+    import torch
+    from flowspec_tpu_torch.draft.eagle import load_thin_draft
+    from flowspec_tpu_torch.train import bench_draft
+    from flowspec_tpu_torch.train import struct_base as train_struct
+    total = {n: 0 for n in counters}
+    attn = AttentionShapes()
+    logs = []
+
+    # (a) 7B int8 distillation
+    out = OUT_DIR / "chip_smoke_train_draft.npz"
+    bench = PhaseLaunches(counters, "bench")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with attn:
+        res = bench_draft.run(bench_draft.parse_args(
+            TRAIN_BENCH + ["--out", str(out)]), log=logs.append, mark=bench)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trainer = res["trainer"]
+    norms = trainer.first_grad_norms
+    if not all(n is not None and math.isfinite(n) and n > 0
+               for n in norms.values()):
+        raise AssertionError(f"train: step-1 gradients {norms}")
+    bench.check({"rollouts": ("int8_matmul", "tree_attention"),
+                 "teacher": ("int8_matmul", "tree_attention"),
+                 "eval": ("int8_matmul", "tree_attention", "head_topk")},
+                ("train", "select"))
+    every = TRAIN_LOG_EVERY
+    logged = [h[0] for h in res["losses"][every - 1::every]]
+    if not logged[-1] < logged[0]:
+        raise AssertionError(f"train: loss did not fall: {logged}")
+    reloaded = load_thin_draft(str(out), trainer.embed, dtype=torch.float16)
+    unequal_fields = [f for f, t in trainer.trainable.items()
+                      if not torch.equal(getattr(reloaded, f),
+                                         t.detach().half())]
+    if unequal_fields:
+        raise AssertionError(f"train: reloaded draft differs {unequal_fields}")
+    ev = res["eval"]
+    p_len = bench_draft.PROMPT_LEN
+    prompts = [list(o[:p_len]) for o in ev["ar"]]
+    match, faults = divergences(res["engine"], prompts,
+                                [o[p_len:] for o in ev["spec"]],
+                                [o[p_len:] for o in ev["ar"]])
+    check_lossless("train 7b int8", faults)
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    emit({"phase": "train_bench_7b_int8", "card": smi,
+          "model": "ModelConfig.llama_7b() int8, random (seed 0), full "
+                   "width and depth", "argv": TRAIN_BENCH,
+          "draft": f"thin W {trainer.dcfg.hidden_size}, "
+                   f"{trainer.dcfg.num_attention_heads} heads, f32",
+          "seconds": seconds, "step_ms": step_ms,
+          "first_step_ms": res["step_s"][0] * 1e3,
+          "steps_per_s": 1e3 / step_ms, "peak_gb": peak,
+          "logged_losses": logged, "step1_grad_norms": norms,
+          "alpha": res["stats"]["w_out_alpha"],
+          "alpha_table": res["stats"]["alpha_table"],
+          "holdout_top1_agree": res["stats"]["holdout_top1_agree"],
+          "accept_per_round": ev["accept_per_round"],
+          "accepts": ev["accepts"], "match_fraction_vs_ar": match,
+          "first_divergences_vs_ar": faults,
+          "launches_by_phase": {p: nonzero(c)
+                                for p, c in bench.by_phase.items()},
+          "reloaded_bit_equal": True, "log": logs[-12:]})
+    del res, trainer, reloaded
+    torch.cuda.empty_cache()
+
+    # (b) the struct protocol at mid width, cut
+    struct = PhaseLaunches(counters, "struct")
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    t0 = time.perf_counter()
+    with attn:
+        _, _, report, extra = train_struct.run(
+            "mid", dev, TRAIN_STRUCT, log=logs.append, mark=struct,
+            n_eval=TRAIN_STRUCT_EVAL[0], eval_tokens=TRAIN_STRUCT_EVAL[1])
+    seconds = time.perf_counter() - t0
+    ces = [c for c, _ in extra["base"]]
+    if not statistics.mean(ces[-5:]) < ces[0]:
+        raise AssertionError(f"train struct: base CE did not fall: {ces}")
+    struct.check({"teacher": ("tree_attention",),
+                  "eval": ("tree_attention",)}, ("base", "train", "select"))
+    p_len = train_struct.SCALES["mid"]["prompt_len"]
+    match, faults = divergences(
+        extra["eval_engine"], [list(o[:p_len]) for o in extra["ar"]],
+        [o[p_len:] for o in extra["spec"]], [o[p_len:] for o in extra["ar"]])
+    check_lossless("train struct mid", faults)
+    emit({"phase": "train_struct_mid", "card": smi,
+          "model": "struct mid (H 1024, 12 layers, V 8192), trained from a "
+                   "seeded init", "cut": TRAIN_STRUCT,
+          "reduced": "base steps 12000 -> {steps}, pools 300 -> "
+                     "{distill_outer}, training sequences 16384 -> {n_seqs}; "
+                     "2 eval prompts of 64 tokens (6 of 256)".format(
+                         **TRAIN_STRUCT),
+          "seconds": seconds, "peak_gb": torch.cuda.max_memory_allocated()
+          / 1e9, "base_ce": ces, "report": report,
+          "match_fraction_vs_ar": match, "first_divergences_vs_ar": faults,
+          "launches_by_phase": {p: nonzero(c)
+                                for p, c in struct.by_phase.items()},
+          "log": logs[-12:]})
+
+    for phases in (bench.by_phase, struct.by_phase):
+        for c in phases.values():
+            for n, k in c.items():
+                total[n] += k
+    if any(total[n] for n in OLD.values()):
+        raise AssertionError(f"train: launches {total}")
+    shapes = attn.checked_by(kernel_rows["tree_attention"])
+    if not shapes or not all(shapes.values()):
+        raise AssertionError(f"train: attention shapes unchecked {shapes}")
+    emit({"phase": "train", "card": smi,
+          "launches": {k: n for k, n in total.items() if n},
+          "attention_shapes_checked_by": shapes,
+          "comparison_only_launches": {n: total[n] for n in OLD.values()}})
+    return total
+
+
 def lm_head_check(dev, gen, smi):
     """lm_head_logits at verify width (81 rows) at 7B: within f32 summation
     order of the f32 product, and one call's peak memory below one f32 copy
@@ -3704,6 +3992,10 @@ def serve_child(tag: str, rows_path: str, out_path: str) -> int:
         launches = eval_config(dev, launch_counts(), kernel_rows, smi)
         Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
         return 0
+    if tag == TRAIN_TAG:
+        launches = train_config(dev, launch_counts(), kernel_rows, smi)
+        Path(out_path).write_text(json.dumps([launches, {}, {}, {}]))
+        return 0
     *results, served = serve_config(tag, dev, launch_counts(), kernel_rows,
                                     smi)
     if tag == "7b_int8":
@@ -3717,11 +4009,13 @@ def main() -> int:
         return serve_child(*sys.argv[2:5])
     if sys.argv[1:2] == ["--stage"]:
         return stage_child(*sys.argv[2:6])
+    t_import = time.perf_counter()
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    import_s = time.perf_counter() - t_import
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3733,13 +4027,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
     dev = torch.device("cuda")
+    # the configurations' processes fork from a server that imported torch
+    # once (the device line's `import_torch_s` a process otherwise), started
+    # now, beside the build
+    forks = multiprocessing.get_context("forkserver")
+    forks.set_forkserver_preload(["__main__", "torch"])
+    multiprocessing.forkserver.ensure_running()
 
     # 1. device
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "import_torch_s": import_s})
     print(smi, flush=True)
 
     # 2. build
@@ -3789,12 +4090,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_config, sums, ar_sums, profiled = {}, {}, {}, {}
     for tag in list(CONFIGS) + [BATCHED_TAG, STREAM_TAG, PIPE_TAG,
-                                PROCS_TAG, TP_TAG, EVAL_TAG]:
+                                PROCS_TAG, TP_TAG, EVAL_TAG, TRAIN_TAG]:
         out = OUT_DIR / f"chip_smoke_{tag}.json"
         out.unlink(missing_ok=True)
-        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--serve", tag, str(rows_path),
-                             str(out)]).returncode
+        child = forks.Process(target=serve_child,
+                              args=(tag, str(rows_path), str(out)))
+        child.start()
+        child.join()
+        rc = child.exitcode
         if rc != 0:
             raise AssertionError(f"{tag}: its serve process exited with {rc}")
         by_config[tag], sums[tag], ar_sums[tag], profiled[tag] = json.loads(

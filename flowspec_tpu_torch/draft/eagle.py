@@ -90,13 +90,14 @@ def project_out(p: EagleParams, x: torch.Tensor,
 
 def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
                 positions: torch.Tensor, bias: torch.Tensor, write_start,
-                cfg: ModelConfig,
-                live: torch.Tensor | None = None) -> torch.Tensor:
+                cfg: ModelConfig, live: torch.Tensor | None = None,
+                attn=None) -> torch.Tensor:
     """x (B, T, W) already fc-fused; no input RMSNorm. k/v_cache are the
     draft layer's (B, nkv, S, D) buffers, appended in place at
     `write_start` (host int, device scalar or (B,) per lane; `live` as in
-    `models/kv_cache.py`). A tensor-parallel draft (`parallel/tp.py
-    TPDraft`) runs its own layer over the ranks' shards."""
+    `models/kv_cache.py`); `attn` as in `models/llama.py attention_block`.
+    A tensor-parallel draft (`parallel/tp.py TPDraft`) runs its own layer
+    over the ranks' shards."""
     if not isinstance(p, EagleParams):
         return p.layer(x, k_cache, v_cache, positions, bias, write_start,
                        cfg, live)
@@ -104,7 +105,7 @@ def eagle_layer(x: torch.Tensor, p: EagleParams, k_cache, v_cache,
         write_start = kv_write(write_start, x.shape[1], k_cache, live)
     res = x
     x = res + attention_block(x, p.wq, p.wk, p.wv, p.wo, k_cache, v_cache,
-                              positions, bias, write_start, cfg)
+                              positions, bias, write_start, cfg, attn=attn)
     res = x
     x = rms_norm(x, p.post_ln, cfg.rms_norm_eps)
     return res + qmatmul(F.silu(qmatmul(x, p.w_gate)) * qmatmul(x, p.w_up),

@@ -1,14 +1,16 @@
-"""Loaders of the trained structured base and its draft (the struct fixtures).
+"""The structured base's and its draft's files (the struct fixtures).
 
-The loading half of `tools/train_struct_base.py` (`:48 SCALES`, `:99
-DRAFT_FIELDS`, `:103 model_config`, `:159 load_base`, `:181 load_draft`);
-training stays in the JAX package's tool: the port serves.
+The file half of `tools/train_struct_base.py` (`:48 SCALES`, `:99
+DRAFT_FIELDS`, `:103 model_config`, `:152 save_base`, `:159 load_base`,
+`:175 save_draft`, `:181 load_draft`); the port's training of the pair is
+`train/struct_base.py`.
 
 `save_base` there writes the base's leaves as `p0..pN` in the order
 `jax.tree_util` flattens `init_llama_params`'s structure: the fields of
 `LlamaParams` in declaration order, `layers` expanded into the fields of
 `LlamaLayerParams` (which lists the qkv biases after wo). The port cannot
-flatten a JAX tree, so `BASE_LEAVES` writes that order out.
+flatten a JAX tree, so `BASE_LEAVES` writes that order out. Both packages
+write fp16 and read the files either one wrote.
 """
 
 from __future__ import annotations
@@ -67,6 +69,31 @@ def model_config(s) -> ModelConfig:
                        num_attention_heads=s["heads"],
                        num_key_value_heads=s["kv"],
                        max_position_embeddings=2560)
+
+
+def _leaf(params: LlamaParams, name: str) -> torch.Tensor:
+    """Leaf `name` of BASE_LEAVES."""
+    if name.startswith("layers."):
+        return getattr(params.layers, name[len("layers."):])
+    return getattr(params, name)
+
+
+def save_base(params: LlamaParams, path: str) -> None:
+    """The base's leaves as fp16 `p0..pN` in BASE_LEAVES order, compressed
+    (`tools/train_struct_base.py:152`): an unquantized base with qkv biases,
+    as `init_llama_params` draws one."""
+    np.savez_compressed(path, **{
+        f"p{i}": _leaf(params, name).detach().float().cpu().numpy().astype(
+            np.float16) for i, name in enumerate(BASE_LEAVES)})
+
+
+def save_draft(draft: EagleParams, path: str) -> None:
+    """The draft's DRAFT_FIELDS that it has, fp16, compressed
+    (`tools/train_struct_base.py:175`)."""
+    np.savez_compressed(path, **{
+        f: getattr(draft, f).detach().float().cpu().numpy().astype(
+            np.float16)
+        for f in DRAFT_FIELDS if getattr(draft, f) is not None})
 
 
 def load_base(path: str, mc: ModelConfig, device=None) -> LlamaParams:

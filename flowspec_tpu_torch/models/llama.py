@@ -125,7 +125,7 @@ def kv_write(write_start, t: int, layer_cache: torch.Tensor,
 
 def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
                     write_start, cfg: ModelConfig, bq=None, bk=None,
-                    bv=None, heads: tuple | None = None):
+                    bv=None, heads: tuple | None = None, attn=None):
     """qkv projections (+optional bias), rope, KV-cache append (in place,
     start clamped like `dynamic_update_slice`), masked attention, output
     projection. k_cache/v_cache are one layer's (B, nkv, S, D) buffers;
@@ -133,24 +133,27 @@ def attention_block(x, wq, wk, wv, wo, k_cache, v_cache, positions, bias,
     `KVWrite`. `heads` = (lo, hi): the weights are one tensor-parallel
     rank's column / row shards, which own KV heads [lo, hi) of the cache
     (and their G query heads each); the result is then that rank's partial
-    of the output projection (`parallel/tp.py`)."""
+    of the output projection (`parallel/tp.py`). `attn` replaces
+    `attention` (training passes `ops/tree_attention.py
+    tree_attention_plain`, which autograd can see through)."""
     b, t, _ = x.shape
     q = qmatmul(x, wq)
     k = qmatmul(x, wk)
     v = qmatmul(x, wv)
     if bq is not None:
         q, k, v = q + bq, k + bk, v + bv
-    attn = attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
-                  cfg, heads)
-    return qmatmul(attn, wo)
+    out = attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
+                 cfg, heads, attn)
+    return qmatmul(out, wo)
 
 
 def attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
-           cfg: ModelConfig, heads: tuple | None = None) -> torch.Tensor:
+           cfg: ModelConfig, heads: tuple | None = None,
+           attn=None) -> torch.Tensor:
     """The middle of `attention_block`: projected q (B, T, nq*D) and k / v
     (B, T, nkv*D) of the heads `heads` owns (all by default) -> rope, the
     KV append into those heads of the cache, tree attention -> (B, T,
-    nq*D)."""
+    nq*D); `attn` as in `attention_block`."""
     b, t, _ = q.shape
     if not isinstance(write_start, KVWrite):
         write_start = kv_write(write_start, t, k_cache)
@@ -174,19 +177,20 @@ def attend(q, k, v, k_cache, v_cache, positions, bias, write_start,
     v_cache.view(-1, d).index_copy_(0, flat,
                                     v.to(v_cache.dtype).reshape(-1, d))
 
-    attn = attention(q.contiguous(), k_own, v_own, bias,
-                     n_valid=write_start.n_valid)
-    return attn.transpose(1, 2).reshape(b, t, nq * d)
+    out = (attn or attention)(q.contiguous(), k_own, v_own, bias,
+                              n_valid=write_start.n_valid)
+    return out.transpose(1, 2).reshape(b, t, nq * d)
 
 
 def decoder_layer(x, lp: LlamaLayerParams, k_cache, v_cache, positions, bias,
-                  write_start, cfg: ModelConfig):
-    """One decoder layer over one layer's (B, nkv, S, D) cache buffers."""
+                  write_start, cfg: ModelConfig, attn=None):
+    """One decoder layer over one layer's (B, nkv, S, D) cache buffers
+    (`attn` as in `attention_block`)."""
     res = x
     x = rms_norm(x, lp.input_ln, cfg.rms_norm_eps)
     x = res + attention_block(
         x, lp.wq, lp.wk, lp.wv, lp.wo, k_cache, v_cache, positions, bias,
-        write_start, cfg, bq=lp.bq, bk=lp.bk, bv=lp.bv)
+        write_start, cfg, bq=lp.bq, bk=lp.bk, bv=lp.bv, attn=attn)
     res = x
     x = rms_norm(x, lp.post_ln, cfg.rms_norm_eps)
     return res + qmatmul(F.silu(qmatmul(x, lp.w_gate)) * qmatmul(x, lp.w_up),
@@ -323,3 +327,37 @@ def random_int8_llama_params(cfg: ModelConfig, generator: torch.Generator,
                              device) -> LlamaParams:
     """`random_llama_params` of kind "int8"."""
     return random_llama_params(cfg, generator, device, "int8")
+
+
+def init_llama_params(generator: torch.Generator, cfg: ModelConfig,
+                      dtype=None, device=None) -> LlamaParams:
+    """Random unquantized base (`flowspec_tpu/models/llama.py:317
+    init_llama_params`), drawn from `generator` on `device` (`cuda` unless
+    named) in `dtype` (cfg.dtype by default): weights N(0, 1) x In^-1/2,
+    the embedding N(0, 0.02), unit norms and, as there, zero qkv biases
+    whatever `cfg.attention_bias` says (a trained base updates them). The
+    law of the JAX package's draw, not its bits."""
+    from flowspec_tpu_torch.runtime.engine import resolve_device
+    device = resolve_device(device)
+    dt = dtype or getattr(torch, cfg.dtype)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, d = cfg.num_hidden_layers, cfg.head_dim_
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def init(shape, std=None):
+        return torch.empty(shape, dtype=dt, device=device).normal_(
+            0.0, shape[-2] ** -0.5 if std is None else std,
+            generator=generator)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    layers = LlamaLayerParams(
+        wq=init((n, h, nq * d)), wk=init((n, h, nkv * d)),
+        wv=init((n, h, nkv * d)), wo=init((n, nq * d, h)),
+        w_gate=init((n, h, i)), w_up=init((n, h, i)), w_down=init((n, i, h)),
+        input_ln=const((n, h), 1.0), post_ln=const((n, h), 1.0),
+        bq=const((n, nq * d), 0.0), bk=const((n, nkv * d), 0.0),
+        bv=const((n, nkv * d), 0.0))
+    return LlamaParams(embed=init((v, h), 0.02), layers=layers,
+                       final_norm=const((h,), 1.0), lm_head=init((h, v)))

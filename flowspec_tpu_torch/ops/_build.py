@@ -117,6 +117,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def refuse_grad(name: str, *operands) -> None:
+    """Raise if autograd would need a gradient through kernel `name`: grad
+    mode is on and an operand requires one. A kernel writes a tensor the
+    wrapper allocated, which autograd cannot see into, so its result would
+    silently carry no gradient; training takes the plain differentiable
+    forward (`train/forward.py`) instead. Serving never hands a kernel an
+    operand that requires a gradient."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in operands):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an "
+                           "operand requires a gradient (run it under "
+                           "torch.no_grad(), or train through the "
+                           "differentiable forward)")
+
+
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream

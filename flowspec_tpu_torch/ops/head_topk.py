@@ -127,6 +127,7 @@ def _launch(x2, q, scale, k, strip=False):
     if not (x2.is_cuda and q.device == x2.device
             and scale.device == x2.device):
         raise ValueError(f"{name}: x, q and scale must share one device")
+    _build.refuse_grad(name, x2, q, scale)
     if x2.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bf16 x, got {x2.dtype}")
     if h % 64 or v % COLS_PER_BLOCK:

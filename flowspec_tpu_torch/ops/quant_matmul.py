@@ -134,6 +134,7 @@ def _check_launch(name, x, q, scale):
     anything else raises (there is no fallback)."""
     if not (x.is_cuda and q.device == x.device and scale.device == x.device):
         raise ValueError(f"{name}: x, q and scale must share one device")
+    _build.refuse_grad(name, x, q, scale)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
     if x.shape[2] % 64 or q.shape[1] % 32:

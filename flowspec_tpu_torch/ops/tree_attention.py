@@ -234,6 +234,7 @@ def _launch(wrapper, q, k_cache, v_cache, bias, n_keys, plan_ints, lib=None,
     if not all(x.is_cuda and x.device == q.device
                for x in (k_cache, v_cache, bias)):
         raise ValueError(f"{name}: inputs must share one CUDA device")
+    _build.refuse_grad(name, q, k_cache, v_cache, bias)
     if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
             or v_cache.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bf16 q/k/v")

@@ -49,6 +49,10 @@ against plain TP, and `entry.dryrun_multichip(4)`. The evaluation path:
 ConversationStore that keeps or evicts) on the struct tiny8 pair in bf16
 (head dim 64) through the port's struct loaders, each answer against AR
 under the lossless rule; the profiler's readings of the CUDA allocator.
+Training: every kernel wrapper refuses, naming itself, an operand that
+requires a gradient under grad mode (and launches as before under
+`torch.no_grad()`); one step of a tiny base and of its draft on the card
+gives every field a gradient and launches no kernel.
 """
 
 import pytest
@@ -1362,3 +1366,99 @@ def test_profiler_cuda_memory_stats(cuda):
         x.mul_(2)
     assert p.summary()["sync"]["count"] == 1
     del x
+
+
+# ---- no gradient through a kernel --------------------------------------------
+
+def _grad_operands(name):
+    """(wrapper, operands) of one kernel at a small shape it takes, in
+    bf16 (x / q the operand that will require a gradient)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 16, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if name == "tree_attention":
+        q = torch.randn((1, 4, 16, 64), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kv = torch.randn((1, 4, 256, 64), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return tree_attention, (q, kv, kv, torch.zeros((16, 256),
+                                                      device="cuda"), 16)
+    if name == "head_topk":
+        return head_topk, (x[0], Int8Tensor(
+            q=torch.ones((128, 256), dtype=torch.int8, device="cuda"),
+            scale=torch.ones((256,), device="cuda")), 4)
+    if name == "int8_matmul":
+        return int8_matmul, (x, torch.ones((128, 64), dtype=torch.int8,
+                                           device="cuda"),
+                             torch.ones((64,), device="cuda"))
+    q4 = torch.full((64, 64), 0x99, dtype=torch.uint8, device="cuda")
+    s4 = torch.ones((2, 64), device="cuda")
+    if name == "int4_matmul_wide":
+        return int4_matmul, (torch.cat([x] * 3, dim=1), q4, s4)   # M 48
+    return {"nf4_matmul": nf4_matmul, "int4_matmul": int4_matmul}[name], \
+        (x, q4, s4)
+
+
+@pytest.mark.parametrize("name", ["tree_attention", "int8_matmul",
+                                  "nf4_matmul", "int4_matmul",
+                                  "int4_matmul_wide", "head_topk"])
+def test_wrapper_refuses_an_operand_that_requires_grad(cuda, name):
+    """A kernel's output is a tensor the wrapper allocated, outside
+    autograd: under grad mode an operand that requires a gradient raises,
+    naming the kernel, and launches nothing; without grad mode, or under
+    `torch.no_grad()`, the same call launches as on every serving path."""
+    fn, args = _grad_operands(name)
+    wanted = args[0].detach().clone().requires_grad_()
+    counters = (int8_matmul, nf4_matmul, int4_matmul, int4_matmul_smallm,
+                tree_attention, head_topk)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match=name.replace("_wide", "")
+                       + ".*no backward"):
+        fn(wanted, *args[1:])
+    assert [c.launches for c in counters] == before
+    with torch.no_grad():
+        got = fn(wanted, *args[1:])
+    want = fn(*args)
+    torch.cuda.synchronize()
+    got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    assert torch.equal(got, want)
+    assert sum(c.launches for c in counters) == sum(before) + 2
+
+
+def test_training_on_the_card_reaches_every_field(cuda):
+    """One step of a tiny base (bf16 compute, f32 masters) and of its
+    thin draft on the card: every trainable field gets a finite nonzero
+    gradient and no kernel launches (the differentiable forward takes the
+    attention's plain version and plain products)."""
+    from flowspec_tpu_torch.config import ModelConfig
+    from flowspec_tpu_torch.draft.eagle import draft_view, init_eagle_params
+    from flowspec_tpu_torch.models.llama import init_llama_params
+    from flowspec_tpu_torch.train.distill import DraftTrainer, trainable_of
+    from flowspec_tpu_torch.train.struct_base import f32_masters, leaves_of
+    from flowspec_tpu_torch.train.losses import lm_loss
+    from flowspec_tpu_torch.train.teacher import teacher_hiddens
+    mc = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = init_llama_params(gen, mc, device="cuda")
+    tokens = torch.randint(0, 512, (4, 40), generator=gen, device="cuda")
+    counters = (int8_matmul, tree_attention, head_topk)
+    before = [c.launches for c in counters]
+    masters = f32_masters(base)
+    ce, _ = lm_loss(masters, tokens, mc)
+    ce.backward()
+    draft0 = init_eagle_params(gen, mc, embed=base.embed,
+                               dtype=torch.float32, width=128)
+    tr = DraftTrainer(trainable_of(draft0), base.embed, base.lm_head.float(),
+                      draft_view(draft0, mc), lr=1e-3, decay_steps=1,
+                      alpha=0.02, hidden_w=0.5, ce_w=1.0)
+    assert [c.launches for c in counters] == before
+    hiddens = teacher_hiddens(base, tokens, mc, lanes=4)   # the kernel
+    assert tree_attention.launches == before[1] + 2
+    tr.step(tokens, hiddens)
+    assert [c.launches for c in counters][::2] == before[::2]
+    assert tree_attention.launches == before[1] + 2
+    norms = [float(t.grad.norm()) for t in leaves_of(masters)]
+    norms += list(tr.first_grad_norms.values())
+    assert all(torch.isfinite(torch.tensor(n)) and n > 0 for n in norms)
