@@ -1424,12 +1424,12 @@ GEMM_KEYS = ("gemm", "sm90_xmma", "nvjet", "cutlass")
 
 
 def device_events(prof):
-    """(name, seconds) of each device event of a finished torch.profiler
-    session, read from its raw kineto records: the events, names and
-    durations `prof.events()` gives (the same filter, the same demangled
-    names), without building its Python event objects, which took many
-    times as long on the card's host (a profile's `trace_read_s`; PERF.md,
-    section 6)."""
+    """(name, seconds, start ns, end ns) of each device event of a finished
+    torch.profiler session, read from its raw kineto records: the events,
+    names and durations `prof.events()` gives (the same filter, the same
+    demangled names), without building its Python event objects, which
+    took many times as long on the card's host (a profile's `trace_read_s`;
+    PERF.md, section 6)."""
     import torch
     from torch.autograd.profiler_util import _filter_name
     cuda = torch.autograd.DeviceType.CUDA
@@ -1443,7 +1443,8 @@ def device_events(prof):
             continue
         if raw not in names:
             names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
-        yield names[raw], ev.duration_ns() / 1e9
+        t0, dt = ev.start_ns(), ev.duration_ns()
+        yield names[raw], dt / 1e9, t0, t0 + dt
 
 
 def family(name: str, moe=frozenset()) -> str:
@@ -1504,7 +1505,7 @@ def moe_gemm_names(eng) -> tuple:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {name for name, _ in device_events(prof)
+        names = {name for name, *_ in device_events(prof)
                  if any(k in name.lower() for k in GEMM_KEYS)}
         if not names:
             raise AssertionError("moe_gemm_names: no GEMM kernel in the "
@@ -1527,12 +1528,16 @@ def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
     """One request through `fn` under torch.profiler, device activity only
     (every number below is read from the kernels; recording the CPU ops as
     well, as before the pipeline phase came in, tripled the events to parse
-    and the host's overhead in the wall): wall time, device kernel time and
-    the device's idle share of the wall time, and per round (per step for a
-    request without rounds) the kernels and the device ms of each family
-    (`moe`: the MoE GEMMs' names), and of the ten costliest "other" ones."""
+    and the host's overhead in the wall): wall time, device busy time (the
+    union of the kernels' intervals: the split-K reduce and the head's
+    select overlap their main kernels, so a sum of durations overstates it)
+    and the device's idle share of the wall time, and per round (per step
+    for a request without rounds) the kernels and the device ms of each
+    family (`moe`: the MoE GEMMs' names), and of the ten costliest "other"
+    ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from benchmark.lib.trace import union_s
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1542,8 +1547,9 @@ def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
         wall = time.perf_counter() - t0
     t_read = time.perf_counter()
     rounds = stats.get("rounds", stats["new_tokens"])
-    ms, n, other, busy, kernels, fams = {}, {}, {}, 0.0, 0, {}
-    for name, dt in device_events(prof):
+    ms, n, other, kernels, fams, spans = {}, {}, {}, 0, {}, []
+    for name, dt, start, end in device_events(prof):
+        spans.append((start, end))
         if name not in fams:
             fams[name] = family(name, moe)
         fam = fams[name]
@@ -1553,8 +1559,8 @@ def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
             o = other.setdefault(name[:80], [0.0, 0])
             o[0] += dt * 1e3 / rounds
             o[1] += 1
-        busy += dt
         kernels += 1
+    busy = union_s(spans, 0, 2 ** 63)
     return {"wall_s": wall, "rounds": rounds,
             # host seconds to start the session (a process's first start
             # loads the device tracer) and to read the trace
@@ -2478,7 +2484,7 @@ def profile_turns(fn, prompt, new_tokens) -> dict:
     t_read = time.perf_counter()
     turns = stats["turns"]
     ms, n, busy, kernels, fams = {}, {}, 0.0, 0, {}
-    for name, dt in device_events(prof):
+    for name, dt, *_ in device_events(prof):
         if name not in fams:
             fams[name] = family(name)
         fam = fams[name]

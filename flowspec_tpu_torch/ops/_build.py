@@ -58,11 +58,13 @@ def build(names=KERNELS) -> dict[str, float]:
     """Compile every missing library in `names`, one `nvcc` per source, all
     started together. Returns {name: seconds} for the ones built; raises with
     the compiler's output if any fails. The ptxas report (registers, shared
-    memory, spills) is kept beside each library as `<lib>.log`."""
+    memory, spills) is kept beside each library as `<lib>.log`. A build that
+    compiles something is a `kernel_build` span of the recorder
+    (`utils/profiler.py prof`), when it is on."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    t0 = time.perf_counter()
+    t0, t0_ns = time.perf_counter(), time.time_ns()
     for name in names:
         out = lib_path(name)
         if out.exists():
@@ -81,6 +83,10 @@ def build(names=KERNELS) -> dict[str, float]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+    if procs:
+        from flowspec_tpu_torch.utils.profiler import prof
+        if prof.enabled:
+            prof.close(prof.open("kernel_build", t0_ns))
     if errors:
         raise RuntimeError("nvcc failed for " + "\n".join(errors))
     return seconds

@@ -61,6 +61,7 @@ from flowspec_tpu_torch.tree.sampling import Draws, lane_rng, sample_token
 from flowspec_tpu_torch.tree.types import (
     TokenTree, lane_gather, lane_take, tree_attention_bias,
 )
+from flowspec_tpu_torch.utils.profiler import prof, timing_events
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,6 +171,7 @@ class SpecEngine:
         # captured decode loops, keyed by kind and shapes (runtime/graphs.py)
         self._graphs: dict = {}
         self._graph_pool = None     # the memory pool its graphs share
+        self._events: dict = {}     # the recorder's timing events, by span
 
     # ---- state setup -----------------------------------------------------
     def _kv_rows(self, max_seq: int):
@@ -240,22 +242,48 @@ class SpecEngine:
         padded[:p] = prompt
         nxt = np.roll(padded, -1)
         dev = self.device
+        rec = prof.enabled
         for i in range(n_chunks):
+            sp = prof.open("prefill.chunk") if rec else -1
             state, last_logits = _prefill_chunk(
                 state, self.params, self.draft,
                 torch.from_numpy(padded[i * c:(i + 1) * c]).to(dev),
                 torch.from_numpy(nxt[i * c:(i + 1) * c]).to(dev),
                 min(c, p - i * c), cfg=self.cfg.model, fwd=self.forward_fn)
+            if sp >= 0:
+                prof.close(sp)
         return state, last_logits
 
     def prefill(self, state: EngineState, prompt) -> EngineState:
         """Chunked prefill; the draft context advances in lockstep with the
-        pairs (token_{i+1}, base_hidden_i)."""
+        pairs (token_{i+1}, base_hidden_i). Recorded, the `prefill.finish`
+        span's device ms run from the first chunk's start."""
+        ev = self._timing("prefill") if prof.enabled else None
+        if ev:
+            ev[0].record()
         state, last_logits = self._prefill_chunks(state, prompt)
-        return _finish_prefill(state, self.draft, last_logits,
-                               cfg=self.cfg.model,
-                               ctx_small=self.cfg.tree.depth_cap + 1,
-                               sampling=self.cfg.sampling)
+        sp = prof.open("prefill.finish") if prof.enabled else -1
+        state = _finish_prefill(state, self.draft, last_logits,
+                                cfg=self.cfg.model,
+                                ctx_small=self.cfg.tree.depth_cap + 1,
+                                sampling=self.cfg.sampling)
+        if sp >= 0:
+            prof.close(sp, events=ev)
+        return state
+
+    def _timing(self, span: str):
+        """The engine's (start, end) timing events for `span`, made at its
+        first recording on the card and reused; None off the card, and
+        while the pair's last reading is still pending (prefills admitted
+        one after another with no sync between them), so that span goes
+        without device figures."""
+        ev = self._events.get(span)
+        if ev is None:
+            if self.device.type != "cuda":
+                return None
+            ev = self._events[span] = timing_events(2)
+        prof.resolve()
+        return None if prof.pending(ev) else ev
 
     def _check_budget(self, prompt, max_new: int):
         """Tree chunks are written at [commit, commit + node_cap), so commit
@@ -385,7 +413,20 @@ class SpecEngine:
         KV caches start in the smallest bucket that fits the prompt, and
         when commit_len passes the bucket's budget the loop exits, the
         caches are zero-padded to the next bucket and the next segment (the
-        next bucket's graph) continues."""
+        next bucket's graph) continues.
+
+        With the recorder on (`utils/profiler.py prof.enabled`) the call is
+        one `request` span around `prefill.chunk`, `prefill.finish`,
+        `grow_kv` and each segment's spans (`runtime/graphs.py`)."""
+        req = prof.open_request() if prof.enabled else -1
+        try:
+            return self._generate_fused(prompt, max_new_tokens,
+                                        eos_token_id, seed)
+        finally:
+            if req >= 0:
+                prof.close_request(req)
+
+    def _generate_fused(self, prompt, max_new_tokens, eos_token_id, seed):
         max_new = max_new_tokens or self.cfg.max_new_tokens
         self._check_budget(prompt, max_new)
         p_len = len(np.asarray(prompt).reshape(-1))
@@ -397,7 +438,13 @@ class SpecEngine:
         rounds = 0
         for i, seq in enumerate(buckets):
             if i:
+                sp = prof.open("grow_kv") if prof.enabled else -1
+                ev = self._timing("grow_kv") if sp >= 0 else None
+                if ev:
+                    ev[0].record()
                 state = _grow_kv(state, *self._kv_rows(seq))
+                if sp >= 0:
+                    prof.close(sp, events=ev)
             toks, seg_rounds, done, state = graphs.spec_decode_loop(
                 self, state, eos_token_id, max_new - new_tokens, seq)
             rounds += seg_rounds

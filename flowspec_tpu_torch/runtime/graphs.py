@@ -50,6 +50,16 @@ thread may break it. Nor does the cyclic garbage collector run inside a
 capture: a CUDA graph it frees there aborts the process.
 
 A capture that fails raises: there is no fallback to the eager loop.
+
+With the recorder on (`utils/profiler.py prof.enabled`), a segment of
+`spec_decode_loop` records `segment.load` (its carry made, the first read,
+the graph found or captured and loaded), a `round` span a replay (launch,
+sync, read; on the card with the graph's device ms and the device's idle
+since the previous round's graph ended, from a pair of timing events a
+round of the segment, kept by the graph and reused) and `segment.read`
+(the end reads); a capture records `capture`. The rounds' events are read
+and their spans written after the segment's last replay (`_replays`), so
+none of that host work lies between two rounds.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ import torch
 
 from flowspec_tpu_torch.models.kv_cache import KVCache
 from flowspec_tpu_torch.ops import counted_wrappers
+from flowspec_tpu_torch.utils.profiler import prof, timing_events
 
 
 @dataclasses.dataclass
@@ -359,7 +370,7 @@ class DecodeGraph:
     the buffers given, which other graphs read too; the draw streams are
     state tensors like any other), `host` (pinned, what `readback` gives),
     `launches` {kernel: launches a replay}, `capture_s` (warm-up and
-    capture, seconds).
+    capture, seconds: the `capture` span's interval).
 
     The warm-up body runs on the static buffers before the capture. A body
     writes KV rows only at or past each lane's length (a stopped lane: its
@@ -369,8 +380,11 @@ class DecodeGraph:
 
     def __init__(self, eng, body, state, loop, readback=_readback,
                  shared: bool = False):
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
+        sp = prof.open("capture", t0) if prof.enabled else -1
         self.device = dev = state.commit_len.device
+        self._events = []       # the recorder's (start, end) a round
+        self._stream = None     # and the stream it records them on
         if shared:
             self.state, self.loop = state, loop
             saved = [t.clone() for t in self._carry()]
@@ -404,7 +418,10 @@ class DecodeGraph:
             fn.launches = before[n]
         eng._graph_pool = self.graph.pool()
         torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
+        t1 = time.time_ns()
+        if sp >= 0:
+            prof.close(sp, t1)
+        self.capture_s = (t1 - t0) / 1e9
 
     def _carry(self):
         """Every buffer but the KV rows."""
@@ -419,11 +436,39 @@ class DecodeGraph:
         """Run the body once; returns what `readback` reads (for the
         single-request loops [n_out, done, commit_len])."""
         self.graph.replay()
+        return self._read()
+
+    def _read(self) -> list:
         torch.cuda.current_stream(self.device).synchronize()
         wrappers = counted_wrappers()
         for n, k in self.launches.items():
             wrappers[n].launches += k
         return self.host.tolist()
+
+    def replay_timed(self, k: int) -> list:
+        """`replay` between the timing events of round `k` of a segment
+        (made at the first segment that reaches `k` rounds, then reused);
+        `record_rounds` reads them."""
+        if k == 0:
+            self._stream = torch.cuda.current_stream(self.device)
+        if k == len(self._events):
+            self._events.append(timing_events(2))
+        start, end = self._events[k]
+        start.record(self._stream)
+        self.graph.replay()
+        end.record(self._stream)
+        return self._read()
+
+    def record_rounds(self, times: list) -> None:
+        """Record a segment's rounds, replayed by `replay_timed` at host
+        times `times` [(t0_ns, t1_ns)], as `round` spans: `device_ms` from
+        the event before the graph to the one after it, `gap_ms` from the
+        previous round's end event to this start (none for the first)."""
+        prev = None
+        for (t0, t1), (start, end) in zip(times, self._events):
+            prof.add("round", t0, t1, start.elapsed_time(end),
+                     None if prev is None else prev.elapsed_time(start))
+            prev = end
 
 
 class EagerBody:
@@ -440,6 +485,13 @@ class EagerBody:
     def replay(self) -> list:
         self.state = self.body(self.eng, self.state, self.loop)
         return self.readback(self.state, self.loop).tolist()
+
+    def replay_timed(self, k: int) -> list:
+        return self.replay()
+
+    def record_rounds(self, times: list) -> None:
+        for t0, t1 in times:
+            prof.add("round", t0, t1)
 
 
 class ServeLanes:
@@ -503,15 +555,29 @@ def runner(eng, key, body, state, loop, readback=_readback):
     return g
 
 
+def _replays(r, vals: list, cond):
+    """Replay runner `r` while `cond(*vals)` holds, `vals` its last read;
+    returns (state, loop) after the last replay. With the recorder on, each
+    replay is a `round` span, written once the last has been read."""
+    if not prof.enabled:
+        while cond(*vals):
+            vals = r.replay()
+        return r.state, r.loop
+    times = []
+    while cond(*vals):
+        t0 = time.time_ns()
+        vals = r.replay_timed(len(times))
+        times.append((t0, time.time_ns()))
+    r.record_rounds(times)
+    return r.state, r.loop
+
+
 def _run(eng, key, body, state, loop: LoopBuffers, cond):
     """Run `body` while `cond(n_out, done, commit_len)` holds: replays of
     the engine's graph for `key` on the card, the body itself on the CPU.
     Returns (state, loop) after the last body."""
     vals = _readback(state, loop).tolist()
-    r = runner(eng, key, body, state, loop)
-    while cond(*vals):
-        vals = r.replay()
-    return r.state, r.loop
+    return _replays(runner(eng, key, body, state, loop), vals, cond)
 
 
 def spec_decode_loop(eng, state, eos_id: int, budget: int,
@@ -523,16 +589,25 @@ def spec_decode_loop(eng, state, eos_id: int, budget: int,
     max_seq_len (`SpecEngine._check_budget`), and a round writes at most
     depth_cap + 1 tokens, so an output buffer of max_seq_len slots takes
     any request."""
+    rec = prof.enabled
+    sp = prof.open("segment.load") if rec else -1
     loop = _loop_buffers(eng.cfg.max_seq_len, eos_id,
                          state.commit_len.device)
     key = ("spec", state.base_cache.max_len, state.draft_cache.max_len)
-    state, loop = _run(
-        eng, key, _spec_body, state, loop,
-        lambda n, done, commit: not done and n < budget
+    vals = _readback(state, loop).tolist()
+    r = runner(eng, key, _spec_body, state, loop)
+    if sp >= 0:
+        prof.close(sp)
+    state, loop = _replays(
+        r, vals, lambda n, done, commit: not done and n < budget
         and commit <= commit_cap)
+    sp = prof.open("segment.read") if rec else -1
     n_out, done, rounds = torch.stack(
         [loop.n_out, loop.done.to(torch.int32), loop.rounds]).tolist()
-    return loop.out_buf[:n_out].tolist(), rounds, bool(done), state
+    toks = loop.out_buf[:n_out].tolist()
+    if sp >= 0:
+        prof.close(sp)
+    return toks, rounds, bool(done), state
 
 
 def ar_decode_loop(eng, state, eos_id: int, *, max_out: int) -> list:

@@ -14,19 +14,66 @@ The profiler's device is `cuda` unless the caller names another; it is
 resolved when first needed (a fence or a memory reading), so that a
 profiler that only times host spans, as the module singleton `prof` does,
 needs no device, and a CUDA one raises without a card.
+
+The recorder. The module singleton `prof` is also the one recorder the
+serving path writes into: set `prof.enabled = True` and
+`SpecEngine.generate_fused` records a `Span` at each layer boundary it
+crosses (the request, each prefill chunk and its finish, a segment's load
+and end reads, each round's replay, each KV growth, each graph capture and
+kernel build), with per-name `counters`. A span's times are
+`time.time_ns()`, the clock torch.profiler (kineto) stamps its host events
+with, so spans line up with a device trace. On the card some spans carry
+device figures from CUDA timing events that are made once per engine or
+graph and read once they have completed (after the stream's sync that the
+path makes anyway): the recorder never fences. A segment's rounds are
+written as spans only after its last replay, so between one round's graph
+and the next the recorder adds two clock reads and an event record. Off
+(the default), each call site costs one attribute test.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
-from flowspec_tpu_torch.runtime.engine import resolve_device
+# the spans whose number the recorder counts, and the counter's name
+COUNTED = {"round": "rounds", "prefill.chunk": "prefill_chunks",
+           "grow_kv": "kv_grows", "capture": "graph_captures",
+           "kernel_build": "kernel_builds"}
+
+
+def resolve_device(device=None) -> torch.device:
+    # imported here: the engine imports this module
+    from flowspec_tpu_torch.runtime.engine import resolve_device as resolve
+    return resolve(device)
+
+
+def timing_events(n: int) -> list:
+    """`n` CUDA events that record timing, for one engine's or one graph's
+    spans to reuse."""
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: `t0_ns`, `t1_ns` on `time.time_ns()`; `parent`
+    the index of the span open around it (-1: none); `request` the index
+    of the `request` span it lies in (-1: outside a request); `device_ms`
+    and `gap_ms` the device figures some spans carry on the card."""
+    name: str
+    t0_ns: int
+    t1_ns: int = 0
+    parent: int = -1
+    request: int = -1
+    device_ms: Optional[float] = None
+    gap_ms: Optional[float] = None
 
 
 class Profiler:
@@ -39,6 +86,13 @@ class Profiler:
         self.memory: dict[str, dict] = {}           # memory_context results
         self._t0 = time.perf_counter()
         self._open: dict[str, float] = {}
+        # the recorder (module docstring)
+        self.enabled = False
+        self.spans: list[Span] = []
+        self.counters = defaultdict(int)
+        self._stack: list[int] = []       # the open spans, innermost last
+        self._request = -1
+        self._pending: list = []          # (span, (start, end) events)
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
@@ -158,6 +212,77 @@ class Profiler:
         with self.memory_context(name, device=device, sync_on=sync_on):
             yield
 
+    # ---- the recorder ----------------------------------------------------
+    def open(self, name: str, t0_ns: Optional[int] = None) -> int:
+        """Open a span inside the innermost open one; returns its index."""
+        i = len(self.spans)
+        self.spans.append(Span(
+            name, time.time_ns() if t0_ns is None else t0_ns,
+            parent=self._stack[-1] if self._stack else -1,
+            request=self._request))
+        self._stack.append(i)
+        return i
+
+    def close(self, i: int, t1_ns: Optional[int] = None,
+              events=None) -> None:
+        """Close span `i` (and any left open inside it). `events`: a
+        (start, end) pair of timing events whose start the caller recorded;
+        the end is recorded now, and the span's `device_ms` is read between
+        them once both have completed (`resolve`)."""
+        if events is not None:
+            events[1].record()
+            self._pending.append((i, events))
+        sp = self.spans[i]
+        sp.t1_ns = time.time_ns() if t1_ns is None else t1_ns
+        if i in self._stack:
+            del self._stack[self._stack.index(i):]
+        self._count(sp.name)
+
+    def _count(self, name: str) -> None:
+        counter = COUNTED.get(name)
+        if counter:
+            self.counters[counter] += 1
+
+    def add(self, name: str, t0_ns: int, t1_ns: int,
+            device_ms: Optional[float] = None,
+            gap_ms: Optional[float] = None) -> int:
+        """Record a span already over, inside the innermost open one;
+        returns its index."""
+        i = len(self.spans)
+        self.spans.append(Span(
+            name, t0_ns, t1_ns, self._stack[-1] if self._stack else -1,
+            self._request, device_ms, gap_ms))
+        self._count(name)
+        return i
+
+    def open_request(self) -> int:
+        """Open a `request` span: every span until it closes carries its
+        index as `request`."""
+        self._stack.clear()
+        self._request = i = len(self.spans)
+        return self.open("request")
+
+    def close_request(self, i: int) -> None:
+        self.close(i)
+        self._request = -1
+        self.resolve()
+
+    def resolve(self) -> None:
+        """Read the device ms of every pending span whose end event has
+        completed (`query` does not wait)."""
+        left = []
+        for i, events in self._pending:
+            if events[1].query():
+                self.spans[i].device_ms = events[0].elapsed_time(events[1])
+            else:
+                left.append((i, events))
+        self._pending = left
+
+    def pending(self, events) -> bool:
+        """Whether a span still waits to read `events` (`resolve`): the
+        pair may not be recorded again until it has been read."""
+        return any(ev is events for _, ev in self._pending)
+
     def summary(self) -> dict:
         out = {name: {"total_s": round(self.totals[name], 6),
                       "count": self.counts[name],
@@ -174,8 +299,12 @@ class Profiler:
 
     def save(self, path: str):
         """Ref: save_as -> records/*.rec (profiler/profiler.py:14-16)."""
+        out = {"summary": self.summary(), "stream": self.stream}
+        if self.spans:
+            out["spans"] = [dataclasses.asdict(sp) for sp in self.spans]
+            out["counters"] = dict(self.counters)
         with open(path, "w") as f:
-            json.dump({"summary": self.summary(), "stream": self.stream}, f)
+            json.dump(out, f)
 
     def reset(self):
         self.totals.clear()
@@ -184,8 +313,13 @@ class Profiler:
         self.memory.clear()
         self._open.clear()
         self._t0 = time.perf_counter()
+        self.spans.clear()
+        self.counters.clear()
+        self._stack.clear()
+        self._request = -1
+        self._pending.clear()
 
 
-# Module singleton mirroring the reference's `prof` (profiler/profiler.py:275)
-# but opt-in: callers pass it explicitly; this instance is a convenience.
+# Module singleton mirroring the reference's `prof` (profiler/profiler.py:275),
+# and the recorder the serving path writes into once `enabled` is set.
 prof = Profiler(sync=False)

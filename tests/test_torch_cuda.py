@@ -48,7 +48,9 @@ against plain TP, and `entry.dryrun_multichip(4)`. The evaluation path:
 `run_eval` (fused, and with the resume) and `run_eval_serve` (two turns, a
 ConversationStore that keeps or evicts) on the struct tiny8 pair in bf16
 (head dim 64) through the port's struct loaders, each answer against AR
-under the lossless rule; the profiler's readings of the CUDA allocator.
+under the lossless rule; the profiler's readings of the CUDA allocator;
+the recorder's round, prefill and growth spans with device figures from
+timing events made once per engine and graph, never per replay.
 Training: every kernel wrapper refuses, naming itself, an operand that
 requires a gradient under grad mode (and launches as before under
 `torch.no_grad()`); one step of a tiny base and of its draft on the card
@@ -534,6 +536,66 @@ def test_graph_replay_equals_eager_round_bits(cuda):
     ar_fused, _ = eng.generate_ar_fused(prompt, max_new_tokens=20,
                                         eos_token_id=-1)
     assert ar_fused == ar
+
+
+def test_recorder_device_figures_on_a_captured_graph(cuda, monkeypatch):
+    """With the recorder on, generate_fused over two KV buckets gives each
+    round span the graph's device ms (> 0) and, past a segment's first
+    round, the device's idle since the previous round (>= 0); the prefill
+    finish and the growth carry device ms; the first request captures (a
+    `capture` span each graph) and makes the timing events (a pair for the
+    prefill, one for the growth, one a round of each graph's segment), and
+    a second request makes no event and captures nothing."""
+    import dataclasses
+    from flowspec_tpu_torch.runtime import SpecEngine
+    from flowspec_tpu_torch.utils.profiler import prof
+    made, event = [], torch.cuda.Event
+
+    def counted(*a, **kw):
+        made.append(1)
+        return event(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    tiny = _tiny_cuda_engine()
+    eng = SpecEngine(tiny.params, tiny.draft, dataclasses.replace(
+        tiny.cfg, max_seq_len=600, kv_buckets=(64, 512)))
+    prompt = list(range(3, 40))
+    prof.reset()
+    prof.enabled = True
+    try:
+        first, stats = eng.generate_fused(prompt, max_new_tokens=40,
+                                          eos_token_id=-1)
+        n_made, n_spans = len(made), len(prof.spans)
+        captures = [sp for sp in prof.spans if sp.name == "capture"]
+        first_rounds = sum(sp.name == "round" for sp in prof.spans)
+        second, _ = eng.generate_fused(prompt, max_new_tokens=40,
+                                       eos_token_id=-1)
+        spans = prof.spans[n_spans:]
+    finally:
+        prof.enabled = False
+    prof.reset()
+    off, _ = eng.generate_fused(prompt, max_new_tokens=40, eos_token_id=-1)
+    assert first == second == off and stats["kv_buckets_used"] == 2
+    assert first_rounds == stats["rounds"]
+    assert n_made == 2 + 2 + 2 * first_rounds
+    assert len(made) == n_made
+    assert sorted((sp.t1_ns - sp.t0_ns) / 1e9 for sp in captures) == sorted(
+        g.capture_s for g in eng._graphs.values())
+    names = [sp.name for sp in spans]
+    assert "capture" not in names and names.count("grow_kv") == 1
+    rounds = [sp for sp in spans if sp.name == "round"]
+    assert len(rounds) == stats["rounds"]
+    assert all(sp.device_ms > 0 for sp in rounds)
+    firsts = [i for i, sp in enumerate(spans) if sp.name == "segment.load"]
+    for i, sp in enumerate(spans):
+        if sp.name == "round":
+            assert (sp.gap_ms is None) == (spans[i - 1].name
+                                           == "segment.load"), i
+            assert sp.gap_ms is None or sp.gap_ms >= 0
+    assert len(firsts) == 2
+    for name in ("prefill.finish", "grow_kv"):
+        (sp,) = [sp for sp in spans if sp.name == name]
+        assert sp.device_ms > 0, name
 
 
 def test_lm_head_logits_no_f32_copy_of_the_head(cuda):

@@ -5,7 +5,10 @@ cumulative timestamp stream (profiler/profiler.py:33-43) to find pipeline
 bubbles. Same purpose here, as a CLI over `Profiler.save()` JSON: one line
 per event with its absolute offset, the delta to the previous event, and a
 proportional bar so bubbles (large deltas between turn events) stand out in
-a terminal instead of a notebook.
+a terminal instead of a notebook. A record of the port's recorder (`prof`
+with `enabled` set) also holds its spans: they render as a second timeline
+of `name:start` / `name:stop` events, with each span name's count, mean
+host ms and mean device ms.
 
 Usage:
     python tools/show_timestamps.py record.json [--top 20]
@@ -38,6 +41,30 @@ def render(stream, top=0, width=50):
     return lines
 
 
+def span_stream(spans):
+    """A saved record's spans as a timestamp stream: `name:start` and
+    `name:stop` events in time order, in seconds from the first."""
+    evs = sorted([(sp["t0_ns"], f"{sp['name']}:start") for sp in spans]
+                 + [(sp["t1_ns"], f"{sp['name']}:stop") for sp in spans])
+    return [(name, (t - evs[0][0]) / 1e9) for t, name in evs]
+
+
+def span_summary(spans):
+    """{name: (count, mean host ms, mean device ms or None)}."""
+    by = {}
+    for sp in spans:
+        by.setdefault(sp["name"], []).append(sp)
+    out = {}
+    for name, group in by.items():
+        dev = [sp["device_ms"] for sp in group
+               if sp.get("device_ms") is not None]
+        out[name] = (len(group),
+                     sum(sp["t1_ns"] - sp["t0_ns"] for sp in group)
+                     / len(group) / 1e6,
+                     sum(dev) / len(dev) if dev else None)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("record", help="JSON written by Profiler.save()")
@@ -53,6 +80,15 @@ def main(argv=None):
         print("\nspan summary:")
         for name, row in rec["summary"].items():
             print(f"  {name:28s} {row['mean_ms']:9.3f}ms x{row['count']}")
+    if rec.get("spans"):
+        print("\nspans:")
+        for line in render(span_stream(rec["spans"]), top=args.top):
+            print(line)
+        print("\nby span (count, mean host ms, mean device ms):")
+        for name, (n, host, dev) in span_summary(rec["spans"]).items():
+            dev = "-" if dev is None else f"{dev:.3f}ms"
+            print(f"  {name:28s} x{n:<6d} {host:9.3f}ms {dev:>10s}")
+        print(f"counters: {rec.get('counters', {})}")
 
 
 if __name__ == "__main__":

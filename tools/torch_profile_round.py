@@ -19,7 +19,15 @@ sort/top-k; everything else).
 `--fused` profiles `generate_fused` instead: the round as a replayed CUDA
 graph (one warm-up request captures it first). The line adds the graph's
 launches a replay as the wrappers counted them at capture, the profiler's
-kernels a replay by family, and the capture's seconds.
+kernels a replay by family, and the capture's seconds; then, from one more
+request served untraced with the port's recorder on
+(`flowspec_tpu_torch/utils/profiler.py prof`), the mean device ms of a
+round's graph and the mean device idle between two rounds, in
+microseconds, as its `round` spans read them (the benchmark's
+`round_device_ms` and `round_gap_us`).
+
+The idle share is one less the device's busy time over the wall, the busy
+time being the union of the kernels' intervals.
 
 `--old-turns` instead serves chip_smoke.py's three requests four times
 without the profiler (through `generate_fused` with `--fused`, each side
@@ -116,6 +124,25 @@ def old_turns(eng, prompts, new_tokens, fused=False) -> dict:
                for side, rows in sides.items()}}
 
 
+def recorded_rounds(eng, prompt, new_tokens) -> dict:
+    """One request through generate_fused with the recorder on: its rounds'
+    mean graph device ms and mean device idle between rounds (us)."""
+    from flowspec_tpu_torch.utils.profiler import prof
+    prof.reset()
+    prof.enabled = True
+    try:
+        eng.generate_fused(prompt, max_new_tokens=new_tokens,
+                           eos_token_id=-1)
+    finally:
+        prof.enabled = False
+    rounds = [sp for sp in prof.spans if sp.name == "round"]
+    gaps = [sp.gap_ms for sp in rounds if sp.gap_ms is not None]
+    prof.reset()
+    return {"round_device_ms": statistics.mean(sp.device_ms
+                                               for sp in rounds),
+            "round_gap_us": 1e3 * statistics.mean(gaps) if gaps else None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="7b", choices=("7b", "13b"))
@@ -153,7 +180,8 @@ def main() -> int:
     if args.fused:
         (g,) = cs.graphs_of(eng, "spec")
         row.update(graph_launches_per_replay=g.launches,
-                   graph_capture_s=g.capture_s)
+                   graph_capture_s=g.capture_s, **recorded_rounds(
+                       eng, prompts[1], cs.NEW_TOKENS))
     print(json.dumps(row))
     return 0
 
