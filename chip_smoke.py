@@ -321,11 +321,13 @@ INT8_SHAPES = (
        for w, i, o in (("fc", 10240, 1024), ("w_out", 1024, 5120))]
     # Qwen2-7B's int8 base at the AR step, the prefill chunk and the verify
     # (wo has wq's shape, wv wk's, w_up w_gate's; w_down: 296 K tiles), and
-    # the full-width int8 drafts of Qwen2-7B and Mixtral-8x7B at M 10
+    # the full-width int8 drafts of Qwen2-7B and Mixtral-8x7B at M 10 and 1
+    # (the benchmark cells' shapes)
     + [(f"qwen2_{w}_M{m}", m, i, o) for m in (1, 64, 81)
        for w, i, o in (("wq", 3584, 3584), ("wk", 3584, 512),
                        ("w_gate", 3584, 18944), ("w_down", 18944, 3584))]
-    + [(f"{fam}_draft_{w}_M10", 10, i, o) for fam, h, kv, inter in (
+    + [(f"{fam}_draft_{w}_M{m}", m, i, o) for m in (10, 1)
+       for fam, h, kv, inter in (
         ("qwen2", 3584, 512, 18944), ("mixtral", 4096, 1024, 14336))
        for w, i, o in (("fc", 2 * h, h), ("wq", h, h), ("wk", h, kv),
                        ("w_gate", h, inter), ("w_down", inter, h))])
@@ -791,7 +793,7 @@ def _matmul_row(kernel, fn, old, plain, x, q, s, shape, flush, library,
     import torch
     name, m, n_in, n_out = shape
     counter = counter or fn
-    before = counter.launches
+    before, fixed = counter.launches, counter.fixup_tiles
     got = fn(x, q, s)
     if counter.launches != before + 1:
         raise AssertionError(f"{kernel} did not launch at {name}")
@@ -808,7 +810,8 @@ def _matmul_row(kernel, fn, old, plain, x, q, s, shape, flush, library,
                          n_in, n_out)
     row = {"kernel": kernel, "shape": name, "M": m, "In": n_in, "Out": n_out,
            "max_abs_err": float(err.max()), "tolerance": TOLERANCE, "ok": ok,
-           "bound_ms": b, "bound_by": by}
+           "bound_ms": b, "bound_by": by,
+           "fixup_tiles": counter.fixup_tiles - fixed}
     if old is not None:
         ok_old, err_old = close(got, old(x, q, s))
         row["vs_old_max_abs_err"] = float(err_old.max())
@@ -1449,8 +1452,7 @@ def device_events(prof):
 
 def family(name: str, moe=frozenset()) -> str:
     """The kernel family of a device kernel's name in a profiler trace: this
-    port's six CUDA kernels, the split-K reduce pass of int8 / nf4 / int4
-    as `matmul_reduce`, the head's merge pass as `head_select`, the GEMMs
+    port's six CUDA kernels, the head's merge pass as `head_select`, the GEMMs
     named in `moe` (Mixtral's expert products, `moe_gemm_names`) as
     `moe_experts`, the other cuBLAS GEMMs (the lm_head, a bf16 base's
     projections), sort/top-k, everything else. The wgmma int4 kernel runs
@@ -1462,7 +1464,6 @@ def family(name: str, moe=frozenset()) -> str:
     for key, fam in (("qmm_kernel<0", "int8_matmul"),
                      ("qmm_kernel<1", "nf4_matmul"),
                      ("qmm_kernel<2", "int4_matmul"),
-                     ("qmm_reduce", "matmul_reduce"),
                      ("int8_matmul_kernel", "int8_matmul_strip"),
                      ("p4_matmul_kernel<true", "nf4_matmul_strip"),
                      ("p4_matmul_kernel<false", "int4_matmul_strip"),
@@ -1529,8 +1530,8 @@ def profile_request(fn, prompt, new_tokens, moe=frozenset()) -> dict:
     (every number below is read from the kernels; recording the CPU ops as
     well, as before the pipeline phase came in, tripled the events to parse
     and the host's overhead in the wall): wall time, device busy time (the
-    union of the kernels' intervals: the split-K reduce and the head's
-    select overlap their main kernels, so a sum of durations overstates it)
+    union of the kernels' intervals: the head's select overlaps its main
+    kernel, so a sum of durations overstates it)
     and the device's idle share of the wall time, and per round (per step
     for a request without rounds) the kernels and the device ms of each
     family (`moe`: the MoE GEMMs' names), and of the ten costliest "other"

@@ -14,10 +14,11 @@
 // in flight, decide how near the bound it comes).
 //
 // Design (`int4_matmul`, the skeleton in qmm_wgmma.cuh, as nf4_matmul.cu):
-// grid over (128-column strip, K split), about two blocks per SM at any
-// shape, f32 partials added in ascending order by a second pass that casts
-// once (no atomics, equal bits on every launch); a cp.async ring of 4-6
-// stages of the packed tile, its scale row and the x tile; `wgmma` on the
+// the int8 kernel's cut (stream-K over at least 132 tiles, else each
+// tile's segments in one cluster), the f32 segments added in ascending order
+// and cast once in the same kernel (no atomics on the data, equal bits on
+// every launch); a cp.async ring of 4-6 stages of the packed tile, its scale
+// row and the x tile; `wgmma` on the
 // transposed product with the decoded weight as the register operand. The
 // decode needs no table: `i4_pair_bf16` builds the two bf16 values 128 + n
 // of a byte with one prmt and one lop3, subtracts 136 exactly and
@@ -36,16 +37,19 @@
 #include "qmm_wgmma.cuh"
 
 // x (M, In) bf16, q (In/2, Out) uint8, scale (In/64, Out) f32 -> y (M, Out)
-// bf16 by the plan (bn, n, ksplit, chunk, stages) of `ops/quant_matmul.py
-// matmul_plan`; partial is (ksplit, M, Out) f32 scratch, unused when ksplit
-// == 1. Needs In % 64 == 0, Out % bn == 0 and 16-byte aligned x, q, scale,
-// partial and y (the Python wrapper checks). Returns the first CUDA error.
+// bf16 by the plan (bn, n, grid, split, stages) of `ops/quant_matmul.py
+// matmul_plan`;
+// partial is (grid, min(M, n), bn) f32 scratch of the stream-K cut (null
+// when no tile is split, and in the split cut), flags the device's zeroed
+// flags (qmm_wgmma.cuh `qmm_matmul`). Needs In % 64 == 0, Out % bn == 0 and
+// 16-byte aligned x, q, scale, partial and y (the Python wrapper checks).
+// Returns the first CUDA error.
 extern "C" int int4_matmul(const void* x, const void* q, const void* scale,
-                           void* partial, void* y, int M, int In, int Out,
-                           int bn, int n, int ksplit, int chunk, int stages,
-                           void* stream) {
-  return fs::qmm_matmul<fs::QMM_INT4>(x, q, scale, nullptr, partial, y, M,
-                                      In, Out, bn, n, ksplit, chunk, stages,
+                           void* partial, void* flags, void* y, int M, int In,
+                           int Out, int bn, int n, int grid, int split,
+                           int stages, void* stream) {
+  return fs::qmm_matmul<fs::QMM_INT4>(x, q, scale, nullptr, partial, flags, y,
+                                      M, In, Out, bn, n, grid, split, stages,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -18,11 +18,12 @@
 // Design (`int4_matmul_smallm`): the `QMM_INT4` instantiation of the
 // dequant-matmul skeleton (qmm_wgmma.cuh), the kernel int4_matmul.cu runs
 // above 32 rows, cut by `ops/quant_matmul.py matmul_plan`: width 16 up to 16
-// rows and 64 for 17-32, 128-column strips x K splits to two blocks an SM,
-// a 6-stage cp.async ring of the packed tile, its scale row and the x tile,
-// the table-free decode `i4_pair_bf16` in registers straight into `wgmma`,
-// and f32 partials added in ascending order by a reduce pass launched as a
-// programmatic dependent (no atomics: equal bits on every launch).
+// rows and 64 for 17-32, the int8 kernel's cut (stream-K over at least 132
+// tiles, else each tile's segments in one cluster), a 6-stage cp.async ring
+// of the packed tile, its scale row and the x tile, the table-free decode
+// `i4_pair_bf16` in registers straight into `wgmma`, and the f32 segments
+// added in ascending order inside the same kernel (no atomics on the data:
+// equal bits on every launch).
 //
 // The earlier design stays as `int4_matmul_splitk`, for timing one against
 // the other in one run: the same split-K grid (~4 blocks an SM, `split_k`) on
@@ -113,18 +114,20 @@ void launch_nt(const void* x, const void* q, const void* scale, void* partial,
 }  // namespace
 
 // x (M, In) bf16 with M <= 32, q (In/2, Out) uint8, scale (In/64, Out) f32
-// -> y (M, Out) bf16 by the plan (bn, n, ksplit, chunk, stages) of
-// `ops/quant_matmul.py matmul_plan`; partial is (ksplit, M, Out) f32 scratch,
-// unused when ksplit == 1. Needs In % 64 == 0, Out % bn == 0 and 16-byte
-// aligned x, q, scale, partial and y (the Python wrapper checks). Returns the
-// first CUDA error.
+// -> y (M, Out) bf16 by the plan (bn, n, grid, split, stages) of
+// `ops/quant_matmul.py matmul_plan`;
+// partial is (grid, min(M, n), bn) f32 scratch of the stream-K cut (null
+// when no tile is split, and in the split cut), flags the device's zeroed
+// flags (qmm_wgmma.cuh `qmm_matmul`). Needs In % 64 == 0, Out % bn == 0 and
+// 16-byte aligned x, q, scale, partial and y (the Python wrapper checks).
+// Returns the first CUDA error.
 extern "C" int int4_matmul_smallm(const void* x, const void* q,
-                                  const void* scale, void* partial, void* y,
-                                  int M, int In, int Out, int bn, int n,
-                                  int ksplit, int chunk, int stages,
-                                  void* stream) {
-  return fs::qmm_matmul<fs::QMM_INT4>(x, q, scale, nullptr, partial, y, M,
-                                      In, Out, bn, n, ksplit, chunk, stages,
+                                  const void* scale, void* partial,
+                                  void* flags, void* y, int M, int In,
+                                  int Out, int bn, int n, int grid,
+                                  int split, int stages, void* stream) {
+  return fs::qmm_matmul<fs::QMM_INT4>(x, q, scale, nullptr, partial, flags, y,
+                                      M, In, Out, bn, n, grid, split, stages,
                                       static_cast<cudaStream_t>(stream));
 }
 

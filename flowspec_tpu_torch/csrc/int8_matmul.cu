@@ -15,12 +15,18 @@
 // leaves.
 //
 // Design (`int8_matmul`, the skeleton in qmm_wgmma.cuh):
-//  - Grid over (128-column strip, K split): about two blocks on every SM at
-//    any shape the path has, where a grid over strips alone left half the
-//    card idle at Out = 4096. f32 partials per split, added in ascending
-//    order by a second pass that applies the per-column scale and casts
-//    once: no atomics, equal bits on every launch. One split writes bf16
-//    directly.
+//  - At most two blocks an SM, each streaming one range of the product's
+//    (row tile, 128-column strip, 64-row block) iterations, the ranges
+//    within one 64-row block of each other. At least 132 tiles: stream-K,
+//    contiguous ranges over the whole product, so every SM reads an equal
+//    share of the weight bytes (a grid of whole strips, 148 at Qwen2-7B's
+//    w_gate, left 16 SMs with twice the mean); a tile split across blocks
+//    is finished by the block holding its last 64-row block from the
+//    others' f32 partials. Fewer tiles: each tile in up to eight segments,
+//    the tile's blocks one cluster that adds them in shared memory. Either
+//    way the segments are added in ascending order, scaled per column and
+//    cast once in the same kernel: no atomics on the data, equal bits on
+//    every launch, no second pass.
 //  - A cp.async ring of 4-6 stages in dynamic shared memory (an 8 KB weight
 //    tile and the matching x tile per stage, ~100 KB a block at M 81), so
 //    each SM keeps 48-64 KB of weight reads in flight.
@@ -99,16 +105,18 @@ void launch_nt(const void* x, const void* q, const void* scale, void* y,
 }  // namespace
 
 // x (M, In) bf16, q (In, Out) int8, scale (Out,) f32 -> y (M, Out) bf16 by
-// the plan (bn, n, ksplit, chunk, stages) of `ops/quant_matmul.py
-// matmul_plan`; partial is (ksplit, M, Out) f32 scratch, unused when ksplit
-// == 1. Needs In % 64 == 0, Out % bn == 0 and 16-byte aligned x, q, scale,
-// partial and y (the Python wrapper checks). Returns the first CUDA error.
+// the plan (bn, n, grid, split, stages) of `ops/quant_matmul.py matmul_plan`;
+// partial is (grid, min(M, n), bn) f32 scratch of the stream-K cut (null
+// when no tile is split, and in the split cut), flags the device's zeroed
+// flags (qmm_wgmma.cuh `qmm_matmul`). Needs In % 64 == 0, Out % bn == 0 and
+// 16-byte aligned x, q, scale, partial and y (the Python wrapper checks).
+// Returns the first CUDA error.
 extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
-                           void* partial, void* y, int M, int In, int Out,
-                           int bn, int n, int ksplit, int chunk, int stages,
-                           void* stream) {
-  return fs::qmm_matmul<fs::QMM_INT8>(x, q, scale, nullptr, partial, y, M, In,
-                                      Out, bn, n, ksplit, chunk, stages,
+                           void* partial, void* flags, void* y, int M, int In,
+                           int Out, int bn, int n, int grid, int split,
+                           int stages, void* stream) {
+  return fs::qmm_matmul<fs::QMM_INT8>(x, q, scale, nullptr, partial, flags, y,
+                                      M, In, Out, bn, n, grid, split, stages,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -15,10 +15,11 @@
 // flight, decides how near the bound it comes.
 //
 // Design (`nf4_matmul`, the skeleton in qmm_wgmma.cuh):
-//  - Grid over (128-column strip, K split), about two blocks per SM at any
-//    shape, f32 partials added in ascending order by a
-//    second pass that casts once: no atomics, equal bits on every launch.
-//    M 1, 9 and 10 are the same kernel at width 16 with more splits.
+//  - The int8 kernel's cut (qmm_wgmma.cuh): stream-K over at least 132
+//    tiles, else each tile's segments in one cluster; the f32 segments
+//    added in ascending order and cast once in the same kernel: no atomics
+//    on the data, equal bits on every launch. M 1, 9 and 10 are the same
+//    kernel at width 16.
 //  - A cp.async ring of 4-6 stages in dynamic shared memory: a 4 KB packed
 //    tile (64 contraction rows = one scale row), its 512-byte scale row and
 //    the x tile per stage.
@@ -43,17 +44,19 @@
 #include "qmm_wgmma.cuh"
 
 // x (M, In) bf16, q (In/2, Out) uint8, scale (In/64, Out) f32, code (16,)
-// bf16 -> y (M, Out) bf16 by the plan (bn, n, ksplit, chunk, stages) of
-// `ops/quant_matmul.py matmul_plan`; partial is (ksplit, M, Out) f32
-// scratch, unused when ksplit == 1. Needs In % 64 == 0, Out % bn == 0 and
+// bf16 -> y (M, Out) bf16 by the plan (bn, n, grid, split, stages) of
+// `ops/quant_matmul.py matmul_plan`;
+// partial is (grid, min(M, n), bn) f32 scratch of the stream-K cut (null
+// when no tile is split, and in the split cut), flags the device's zeroed
+// flags (qmm_wgmma.cuh `qmm_matmul`). Needs In % 64 == 0, Out % bn == 0 and
 // 16-byte aligned x, q, scale, partial and y (the Python wrapper checks).
 // Returns the first CUDA error.
 extern "C" int nf4_matmul(const void* x, const void* q, const void* scale,
-                          const void* code, void* partial, void* y, int M,
-                          int In, int Out, int bn, int n, int ksplit,
-                          int chunk, int stages, void* stream) {
-  return fs::qmm_matmul<fs::QMM_NF4>(x, q, scale, code, partial, y, M, In,
-                                     Out, bn, n, ksplit, chunk, stages,
+                          const void* code, void* partial, void* flags,
+                          void* y, int M, int In, int Out, int bn, int n,
+                          int grid, int split, int stages, void* stream) {
+  return fs::qmm_matmul<fs::QMM_NF4>(x, q, scale, code, partial, flags, y, M,
+                                     In, Out, bn, n, grid, split, stages,
                                      static_cast<cudaStream_t>(stream));
 }
 

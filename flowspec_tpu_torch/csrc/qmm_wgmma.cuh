@@ -1,15 +1,25 @@
 // Skeleton of the weight-only dequant-matmuls redesigned for Hopper
 // (int8_matmul.cu, nf4_matmul.cu, int4_matmul.cu, int4_matmul_smallm.cu) and
-// of the fused head top-k (head_topk.cu): split-K over the whole card, a deep
-// cp.async ring in dynamic shared memory, and warpgroup tensor-core products
-// (`wgmma`) on the transposed problem with the weight as the register operand.
+// of the fused head top-k (head_topk.cu): the whole card on every product,
+// a deep cp.async ring in dynamic shared memory, and warpgroup tensor-core
+// products (`wgmma`) on the transposed problem with the weight as the
+// register operand.
 //
-//   partial[split][m][n] = sum over the split's 64-row blocks of x[m][k] * w[k][n]
+//   y[m][n] = sum over the 64-row blocks k of x[m][k] * w[k][n]
 //
-// Grid = (column strips of `bn` <= 128 columns) x (K splits) x (row tiles of
-// N rows). A block is one warpgroup (128 threads). The split plan (bn, N,
-// splits, chunk, stages) comes from the Python side (`ops/quant_matmul.py
-// matmul_plan`); nothing of it is re-derived here.
+// The cut. The product's iterations, (row tile of N rows, strip of bn <= 128
+// columns, 64-row block of In) with the 64-row block fastest, are shared by
+// at most two blocks an SM in ranges that differ by at most one 64-row
+// block. With at least as many tiles as SMs the cut is stream-K: contiguous
+// ranges over the whole product, so every SM streams an equal share of the
+// weight bytes whatever the number of tiles, and a tile split across blocks
+// is finished inside the same kernel by the block holding its last 64-row
+// block. With fewer tiles every tile is split into the same number of
+// segments, one a block, and the tile's blocks are one thread-block cluster
+// that adds the segments in shared memory (see `qmm_kernel`). A block is one
+// warpgroup (128 threads). The plan (bn, N, grid, split, stages) comes from
+// the Python side (`ops/quant_matmul.py matmul_plan`); nothing of it is
+// re-derived here.
 //
 // The transposed product. `wgmma` multiplies a 64-row A by a B of N columns,
 // N any multiple of 8. Taking A = w^T (64 output columns x 16 k) and
@@ -47,18 +57,22 @@
 // block kc+1, refill the slot of block kc-1 and decode block kc+1. One
 // barrier a block.
 //
-// Sums. Each split's f32 partial goes to scratch and `qmm_reduce_kernel`
-// adds the splits in ascending order, applies the int8 per-column scale and
-// casts once: no atomics, equal bits on every launch. The reduce grid is a
-// programmatic dependent launch: it is set up while the main grid runs and
-// waits for all of it (`griddepcontrol.wait`) before it reads. With one
-// split the main kernel writes bf16 itself.
+// Sums. f32 throughout; a tile's k segments are added in ascending order
+// (the earlier segments' f32 sums, then the last one's), the int8
+// per-column scale is applied and the result cast once: no atomics on the
+// data, equal bits on every launch. The stream-K hand-over is one flag a
+// block in a buffer the caller keeps per device, set with release, taken
+// with acquire and cleared by the finishing block, so every launch, eager or
+// replayed in a graph, finds the flags zero and no memset runs; the split
+// cut needs no flags (cluster barriers).
 //
 // The main loop (`qmm_mainloop`) is a device function of its own, so that a
 // kernel with another epilogue runs the same loop: `qmm_kernel` writes the
 // product, head_topk.cu's kernel the per-strip softmax partials and top-k.
 #pragma once
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +92,11 @@ struct QmmTile {
   static constexpr int S_BYTES = FMT == QMM_INT8 ? 0 : 512;  // one scale row
   // nf4: 256 decoded byte pairs x 8 copies (see the kernel's `lut`)
   static constexpr int LUT_BYTES = FMT == QMM_NF4 ? 256 * 8 * 4 : 0;
-  static constexpr int stage_bytes(int n) { return n * 128 + W_BYTES + S_BYTES; }
+  __host__ __device__ static constexpr int stage_bytes(int n) {
+    return n * 128 + W_BYTES + S_BYTES;
+  }
   // + 1024 to align the first x tile
-  static constexpr int smem_bytes(int n, int stages) {
+  __host__ __device__ static constexpr int smem_bytes(int n, int stages) {
     return stages * stage_bytes(n) + LUT_BYTES + 1024;
   }
 };
@@ -306,7 +322,7 @@ __device__ __forceinline__ void qmm_mainloop(
     if (s < nk) load(s, kb0 + s);
     cp_async_commit();
   }
-  // the dependent pass (reduce, head merge) may be set up while this grid
+  // a dependent pass (head_topk.cu's merge) may be set up while this grid
   // runs; it waits for the whole grid before it reads a partial
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
@@ -436,112 +452,307 @@ __device__ __forceinline__ void qmm_mainloop(
     for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
 }
 
-// The dequant-matmul: y = x @ w (x (M, In) bf16) by the plan's split. Needs
-// what `qmm_mainloop` needs, Out % bn == 0, 16-byte aligned partial and y,
-// and QmmTile<FMT>::smem_bytes(N, STAGES) of dynamic shared memory.
-// gridDim.y > 1 writes f32 partials (gridDim.y, M, Out); gridDim.y == 1
-// writes y (M, Out) bf16 (int8: times the per-column scale).
-template <int FMT, int N, int STAGES>
-__global__ void __launch_bounds__(128)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-           const float* __restrict__ scale,
-           const __nv_bfloat16* __restrict__ code, float* __restrict__ partial,
-           __nv_bfloat16* __restrict__ y, int M, int In, int Out, int bn,
-           int chunk) {
-  extern __shared__ __align__(16) uint8_t qmm_smem_raw[];
-  const int nkb = In / BK;
-  const int kb0 = min(static_cast<int>(blockIdx.y) * chunk, nkb);
-  const int n0 = blockIdx.x * bn, m0 = blockIdx.z * N;
-  float acc[2][N / 2];
-  qmm_mainloop<FMT, N, STAGES>(x, q, scale, code, smem_align1024(qmm_smem_raw),
-                               M, In, Out, bn, n0, m0, kb0,
-                               min(kb0 + chunk, nkb) - kb0, acc);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  // Epilogue. Accumulator register 4c+i of tile t: x row 8c + 2*t4 + (i&1),
-  // column 32w + 4g + 2t + (i>>1); for one x row the lane holds four
-  // adjacent columns.
-  const int col = warp * 32 + g * 4;
-  if (col >= bn) return;
-  const int n = n0 + col;
-  if (gridDim.y > 1) {
-    float* out = partial + (size_t)blockIdx.y * M * Out;
-#pragma unroll
-    for (int c = 0; c < N / 8; ++c)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + 8 * c + 2 * t4 + i;
-        if (m < M)
-          *reinterpret_cast<float4*>(out + (size_t)m * Out + n) =
-              make_float4(acc[0][4 * c + i], acc[0][4 * c + 2 + i],
-                          acc[1][4 * c + i], acc[1][4 * c + 2 + i]);
-      }
-  } else {
-    float4 sc = make_float4(1.f, 1.f, 1.f, 1.f);
-    if (FMT == QMM_INT8) sc = *reinterpret_cast<const float4*>(scale + n);
-#pragma unroll
-    for (int c = 0; c < N / 8; ++c)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + 8 * c + 2 * t4 + i;
-        if (m < M) {
-          __nv_bfloat162 lo = __floats2bfloat162_rn(
-              acc[0][4 * c + i] * sc.x, acc[0][4 * c + 2 + i] * sc.y);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(
-              acc[1][4 * c + i] * sc.z, acc[1][4 * c + 2 + i] * sc.w);
-          uint2 v;
-          v.x = *reinterpret_cast<uint32_t*>(&lo);
-          v.y = *reinterpret_cast<uint32_t*>(&hi);
-          *reinterpret_cast<uint2*>(y + (size_t)m * Out + n) = v;
-        }
-      }
+// Stream-K hand-over of a partial tile. `flag_publish`: every thread's
+// stores, a barrier, then one thread's release (the acq_rel fence orders the
+// block's earlier stores before the flag, CUTLASS's `GenericBarrier`
+// pattern). `flag_take`: acquire the flag once it is set, then clear it, so
+// that every launch finds the flags zero.
+__device__ __forceinline__ void flag_publish(int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("fence.acq_rel.gpu;\nst.relaxed.gpu.global.b32 [%0], %1;\n"
+                 ::"l"(flag), "r"(1) : "memory");
+}
+__device__ __forceinline__ void flag_take(int* flag) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(flag) : "memory");
+  while (v == 0) {
+    __nanosleep(32);
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v) : "l"(flag) : "memory");
   }
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(flag), "r"(0)
+               : "memory");
 }
 
-// y[m][n] = bf16( (partial[0][m][n] + partial[1][m][n] + ...) * scale[n] ),
-// four columns a thread, splits added in ascending order; scale may be null.
-__global__ void __launch_bounds__(256)
-qmm_reduce_kernel(const float* __restrict__ partial,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ y, int n_quads, int ksplit,
-                  int Out) {
-  // launched while the main grid still runs: wait for all of it
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_quads) return;
-  const float4* p = reinterpret_cast<const float4*>(partial) + i;
-  float4 s = p[0];
-  // eight loads in flight at a time, added in ascending order
-  for (int k0 = 1; k0 < ksplit; k0 += 8) {
-    float4 v[8];
+// This lane's rows of the accumulator (four columns from `col`) into `sums`
+// (rows of `ld` f32, the tile's row r at r * ld): rows past M are left out.
+template <int N>
+__device__ __forceinline__ void qmm_stage(float* sums, int ld, int M, int m0,
+                                          int col,
+                                          const float (&acc)[2][N / 2]) {
+  const int t4 = threadIdx.x & 3;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (k0 + j < ksplit) v[j] = p[(size_t)(k0 + j) * n_quads];
+  for (int c = 0; c < N / 8; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (k0 + j < ksplit) {
-        s.x += v[j].x;
-        s.y += v[j].y;
-        s.z += v[j].z;
-        s.w += v[j].w;
-      }
-  }
-  if (scale != nullptr) {
-    const float4 c =
-        *reinterpret_cast<const float4*>(scale + (i % (Out / 4)) * 4);
-    s.x *= c.x;
-    s.y *= c.y;
-    s.z *= c.z;
-    s.w *= c.w;
+    for (int i = 0; i < 2; ++i) {
+      const int r = 8 * c + 2 * t4 + i;
+      if (m0 + r < M)
+        *reinterpret_cast<float4*>(sums + r * ld + col) =
+            make_float4(acc[0][4 * c + i], acc[0][4 * c + 2 + i],
+                        acc[1][4 * c + i], acc[1][4 * c + 2 + i]);
+    }
+}
+
+// y[m][n .. n + 4) = bf16(s * the int8 per-column scale), one cast.
+template <int FMT>
+__device__ __forceinline__ void qmm_put(const float* __restrict__ scale,
+                                        __nv_bfloat16* __restrict__ y,
+                                        int Out, int m, int n, float4 s) {
+  if (FMT == QMM_INT8) {
+    const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+    s.x *= sc.x;
+    s.y *= sc.y;
+    s.z *= sc.z;
+    s.w *= sc.w;
   }
   __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
   __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
   uint2 v;
   v.x = *reinterpret_cast<uint32_t*>(&lo);
   v.y = *reinterpret_cast<uint32_t*>(&hi);
-  reinterpret_cast<uint2*>(y)[i] = v;
+  *reinterpret_cast<uint2*>(y + (size_t)m * Out + n) = v;
+}
+
+// y rows [m0, m0 + N) of this lane's four columns [n, n + 4) from the
+// accumulator layout: times the int8 per-column scale, cast once.
+template <int FMT, int N>
+__device__ __forceinline__ void qmm_store(const float* __restrict__ scale,
+                                          __nv_bfloat16* __restrict__ y,
+                                          int M, int Out, int m0, int n,
+                                          const float (&acc)[2][N / 2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 8 * c + 2 * t4 + i;
+      if (m < M)
+        qmm_put<FMT>(scale, y, Out, m, n,
+                     make_float4(acc[0][4 * c + i], acc[0][4 * c + 2 + i],
+                                 acc[1][4 * c + i], acc[1][4 * c + 2 + i]));
+    }
+}
+
+// The two fix-ups below are calls, not inlined: their code in the kernel's
+// body cost the main loop ~10 % on the card, even on launches that never
+// ran it. The block's own sums come in through shared memory (`sums`, the
+// tile's valid rows x bn f32, row r at r * ld), written by every thread
+// before the call.
+
+// The stream-K fix-up, run by the block holding a split tile's last 64-row
+// block (block b, the highest index of the tile's blocks): y = bf16((p[first]
+// + p[first + 1] + ... + p[b - 1] + sums) * scale), the partials of the
+// tile's earlier segments added in ascending k order before this block's
+// own. It waits only for blocks of lower index, which the hardware
+// dispatched before it. Partial slot p is `slot_rows` x bn f32 at p *
+// slot_rows * bn; a warp reads 512 contiguous bytes of it, and a thread
+// keeps eight 16-byte loads in flight.
+template <int FMT>
+__device__ __noinline__ void qmm_fixup(const float* __restrict__ partial,
+                                       int* __restrict__ flags,
+                                       const float* sums, int ld,
+                                       const float* __restrict__ scale,
+                                       __nv_bfloat16* __restrict__ y,
+                                       int first, int b, int slot_rows,
+                                       int rows, int Out, int m0, int n0,
+                                       int bn) {
+  const int tid = threadIdx.x;
+  for (int j = first + tid; j < b; j += 128) flag_take(flags + j);
+  __syncthreads();   // the acquires, and every thread's staged sums
+  const int lq = __ffs(bn) - 3, nq = rows << lq;   // a row's quads: 1 << lq
+  const size_t slot = (size_t)slot_rows * bn;
+  for (int k0 = tid; k0 < nq; k0 += 8 * 128) {
+    float4 run[8];
+    for (int p = first; p < b; ++p) {
+      const float4* src = reinterpret_cast<const float4*>(partial + p * slot);
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = k0 + 128 * u;
+        v[u] = k < nq ? __ldcg(src + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (p == first) {
+          run[u] = v[u];
+        } else {
+          run[u].x += v[u].x;
+          run[u].y += v[u].y;
+          run[u].z += v[u].z;
+          run[u].w += v[u].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int k = k0 + 128 * u;
+      if (k < nq) {
+        const int r = k >> lq, c4 = (k & ((1 << lq) - 1)) * 4;
+        const float4 own =
+            *reinterpret_cast<const float4*>(sums + r * ld + c4);
+        qmm_put<FMT>(scale, y, Out, m0 + r, n0 + c4,
+                     make_float4(run[u].x + own.x, run[u].y + own.y,
+                                 run[u].z + own.z, run[u].w + own.w));
+      }
+    }
+  }
+}
+
+// The split cut's fix-up: the `split` blocks of one cluster hold the k
+// segments of one tile, in ascending order of rank, each its sums in its own
+// shared memory. After a cluster barrier rank j adds rows [j rows / split,
+// (j + 1) rows / split) of the tile over the ranks' shared memory in
+// ascending rank order (the stream-K fix-up's order: earlier segments
+// first), scales (int8), casts once and writes them; a second barrier keeps
+// every block's sums alive until its peers have read them. No global
+// scratch and no flags.
+template <int FMT>
+__device__ __noinline__ void qmm_cluster_fixup(
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+    float* sums, int ld, int rows, int Out, int m0, int n0, int bn) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = cluster.num_blocks(), rank = cluster.block_rank();
+  cluster.sync();                // every rank's sums are there
+  const int lo = rank * rows / split, hi = (rank + 1) * rows / split;
+  const int lq = __ffs(bn) - 3;  // a row's quads: 1 << lq
+  for (int k = threadIdx.x; k < (hi - lo) << lq; k += 128) {
+    const int r = lo + (k >> lq), c4 = (k & ((1 << lq) - 1)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < split) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(sums, j) + r * ld + c4);
+        if (j == 0) {
+          s = v;
+        } else {
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+      }
+    qmm_put<FMT>(scale, y, Out, m0 + r, n0 + c4, s);
+  }
+  cluster.sync();                // the peers have read this block's sums
+}
+
+// The dequant-matmul y = x @ w (x (M, In) bf16). The product's iterations
+// are (row tile of N rows, strip of bn columns, 64-row block of In), the
+// 64-row block fastest; `ops/quant_matmul.py matmul_plan` picks one of two
+// cuts, both with at most two blocks an SM and block ranges within one
+// 64-row block of each other.
+//
+// SK (stream-K, products of at least as many tiles as SMs): the iterations
+// are cut into gridDim.x contiguous ranges (block b: [b I / G, (b + 1) I /
+// G)), so every SM streams an equal share whatever the number of tiles. A
+// block runs the tiles of its range, each over the range's part of it, the
+// range's last tile first. A tile whose k range lies in one block is scaled
+// (int8), cast once and written. A tile split across blocks: each block but
+// the one holding its last 64-row block writes its f32 sum to slot b of
+// `partial` and sets flags[b]; that one block adds the partials in ascending
+// order before its own (`qmm_fixup`), scales, casts and writes. Only a
+// range's last tile can be an unfinished head, and only its first a tail
+// that others began, so a block has at most one partial and at most one
+// fix-up; running the range backwards publishes the head before the block's
+// other work and leaves the fix-up, which waits, for the end. Needs 1 <=
+// gridDim.x <= the iterations, 16-byte aligned partial (gridDim.x, min(M,
+// N), bn) and flags zero on entry (they are zero again on exit).
+//
+// Split (fewer tiles than SMs, where one block adding a tile's many large
+// partials would take longer than the product): every tile is cut into
+// `split` segments, one a block, and the tile's blocks are one cluster of
+// `split` (block b: tile b / split, segment b % split); with split > 1 the
+// cluster adds the segments in its shared memory (`qmm_cluster_fixup`).
+//
+// No atomics on the data: equal bits on every launch. Needs what
+// `qmm_mainloop` needs, Out % bn == 0, 16-byte aligned y, and
+// QmmTile<FMT>::smem_bytes(N, STAGES) of dynamic shared memory.
+template <int FMT, int N, int STAGES, bool SK>
+__global__ void __launch_bounds__(128)
+qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+           const float* __restrict__ scale,
+           const __nv_bfloat16* __restrict__ code, float* __restrict__ partial,
+           int* __restrict__ flags, __nv_bfloat16* __restrict__ y, int M,
+           int In, int Out, int bn, int split) {
+  extern __shared__ __align__(16) uint8_t qmm_smem_raw[];
+  uint8_t* sx = smem_align1024(qmm_smem_raw);
+  float* sums = reinterpret_cast<float*>(sx);   // the ring, once it is free
+  const int nkb = In / BK, strips = Out / bn, ld = bn + 4;
+  // this lane's four columns (accumulator register 4c+i of tile t: x row
+  // 8c + 2*t4 + (i&1), column 32w + 4g + 2t + (i>>1))
+  const int col = (threadIdx.x >> 5) * 32 + ((threadIdx.x & 31) >> 2) * 4;
+  float acc[2][N / 2];
+  if constexpr (!SK) {
+    const int t = blockIdx.x / split, j = blockIdx.x % split;
+    const int k0 = j * nkb / split, k1 = (j + 1) * nkb / split;
+    const int n0 = (t % strips) * bn, m0 = (t / strips) * N;
+    qmm_mainloop<FMT, N, STAGES>(x, q, scale, code, sx, M, In, Out, bn, n0,
+                                 m0, k0, k1 - k0, acc);
+    if (split == 1) {
+      if (col < bn) qmm_store<FMT, N>(scale, y, M, Out, m0, n0 + col, acc);
+      return;
+    }
+    __syncthreads();             // the ring is free
+    if (col < bn) qmm_stage<N>(sums, ld, M, m0, col, acc);
+    qmm_cluster_fixup<FMT>(scale, y, sums, ld, min(N, M - m0), Out, m0, n0,
+                           bn);
+  } else {
+    const int rows = min(M, N), t4 = threadIdx.x & 3;
+    // iterations and block ranges fit in 32 bits (`qmm_matmul` checks)
+    const unsigned iters =
+        static_cast<unsigned>((M + N - 1) / N) * strips * nkb;
+    const unsigned grid = gridDim.x, b = blockIdx.x;
+    const unsigned s = static_cast<unsigned>(
+        (unsigned long long)b * iters / grid);
+    const unsigned e = static_cast<unsigned>(
+        (unsigned long long)(b + 1) * iters / grid);
+    const int t_first = s / nkb, t_last = (e - 1) / nkb;
+    int n0 = 0, m0 = 0, k0 = 0;
+    for (int t = t_last; t >= t_first; --t) {
+      const int t0 = t * nkb;
+      k0 = max(static_cast<int>(s) - t0, 0);
+      const int k1 = min(static_cast<int>(e) - t0, nkb);
+      n0 = (t % strips) * bn;
+      m0 = (t / strips) * N;
+      if (t < t_last) __syncthreads();   // the ring is free for this tile
+      qmm_mainloop<FMT, N, STAGES>(x, q, scale, code, sx, M, In, Out, bn,
+                                   n0, m0, k0, k1 - k0, acc);
+      if (k1 < nkb) {            // the tile goes on in the next block
+        if (col < bn) {
+          float* out = partial + (size_t)b * rows * bn + col;
+#pragma unroll
+          for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int m = 8 * c + 2 * t4 + i;
+              if (m0 + m < M)
+                __stcg(reinterpret_cast<float4*>(out + (size_t)m * bn),
+                       make_float4(acc[0][4 * c + i], acc[0][4 * c + 2 + i],
+                                   acc[1][4 * c + i],
+                                   acc[1][4 * c + 2 + i]));
+            }
+        }
+        flag_publish(flags + b);
+      } else if (k0 == 0 && col < bn) {  // the whole tile
+        qmm_store<FMT, N>(scale, y, M, Out, m0, n0 + col, acc);
+      }
+    }
+    // k0 > 0 here: the range's first tile, run last, began in earlier
+    // blocks (its first 64-row block lies in block `first`) and ends here
+    if (k0 > 0 && static_cast<int>(e) - t_first * nkb >= nkb) {
+      const int first = static_cast<int>(
+          ((unsigned long long)t_first * nkb * grid + grid - 1) / iters);
+      __syncthreads();           // the ring is free
+      if (col < bn) qmm_stage<N>(sums, ld, M, m0, col, acc);
+      qmm_fixup<FMT>(partial, flags, sums, ld, scale, y, first,
+                     static_cast<int>(b), rows, min(N, M - m0), Out, m0, n0,
+                     bn);
+    }
+  }
 }
 
 // The host side has internal linkage (an unnamed namespace): each library
@@ -588,59 +799,100 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
-template <int FMT, int N, int STAGES>
+template <int FMT, int N, int STAGES, bool SK>
 cudaError_t qmm_launch(const void* x, const void* q, const void* scale,
-                       const void* code, void* partial, void* y, int M, int In,
-                       int Out, int bn, int ksplit, int chunk,
+                       const void* code, void* partial, void* flags, void* y,
+                       int M, int In, int Out, int bn, int grid, int split,
                        cudaStream_t stream) {
   static bool allowed[64] = {};
   constexpr int smem = QmmTile<FMT>::smem_bytes(N, STAGES);
-  cudaError_t e = allow_smem(qmm_kernel<FMT, N, STAGES>, smem, allowed);
+  cudaError_t e = allow_smem(qmm_kernel<FMT, N, STAGES, SK>, smem, allowed);
   if (e != cudaSuccess) return e;
-  dim3 grid(Out / bn, ksplit, (M + N - 1) / N);
-  qmm_kernel<FMT, N, STAGES><<<grid, 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale),
-      static_cast<const __nv_bfloat16*>(code), static_cast<float*>(partial),
-      static_cast<__nv_bfloat16*>(y), M, In, Out, bn, chunk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;   // the tile's segments, one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = SK || split < 2 ? 0 : 1;
+  e = cudaLaunchKernelEx(&cfg, qmm_kernel<FMT, N, STAGES, SK>,
+                         static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const uint8_t*>(q),
+                         static_cast<const float*>(scale),
+                         static_cast<const __nv_bfloat16*>(code),
+                         static_cast<float*>(partial),
+                         static_cast<int*>(flags),
+                         static_cast<__nv_bfloat16*>(y), M, In, Out, bn,
+                         split);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// One product by the plan (bn, n, ksplit, chunk, stages); `partial` is
-// (ksplit, M, Out) f32 scratch, unused when ksplit == 1. (n, stages) must be
-// one of the four instantiated pairs below, one ring per width
-// (`ops/quant_matmul.py WGMMA_STAGES` lists the same). Returns the first CUDA
-// error of its calls, or cudaErrorInvalidValue for a plan the kernel does not
-// take.
+// Tiles of a stream-K grid whose k range spans more than one block: one for
+// each distinct tile a range boundary falls strictly inside
+// (`ops/quant_matmul.py matmul_plan` counts the same `fixups`).
+inline int qmm_fixups(long long iters, int nkb, int grid) {
+  int n = 0;
+  long long last = -1;
+  for (long long b = 1; b < grid; ++b) {
+    const long long s = b * iters / grid;
+    if (s % nkb != 0 && s / nkb != last) {
+      ++n;
+      last = s / nkb;
+    }
+  }
+  return n;
+}
+
+constexpr int QMM_MAX_GRID = 1024;   // flags the caller keeps (one a block)
+constexpr int QMM_MAX_SPLIT = 8;     // blocks a cluster (the portable limit)
+
+// One product by the plan (bn, n, grid, split, stages): split 0 is stream-K
+// over `grid` blocks, `partial` (grid, min(M, n), bn) f32 scratch (null when
+// no tile is split) and `flags` QMM_MAX_GRID ints, zero on entry and on
+// exit, that the caller keeps for the device (launches on one device do not
+// overlap); split >= 1 cuts every tile into `split` segments, grid = tiles
+// x split, in clusters of `split` (partial unused). (n, stages) must be one
+// of the four instantiated pairs below, one ring per width
+// (`ops/quant_matmul.py WGMMA_STAGES` lists the same). Returns the first
+// CUDA error of its calls, or cudaErrorInvalidValue for a plan the kernel
+// does not take.
 template <int FMT>
 int qmm_matmul(const void* x, const void* q, const void* scale,
-               const void* code, void* partial, void* y, int M, int In,
-               int Out, int bn, int n, int ksplit, int chunk, int stages,
-               cudaStream_t st) {
+               const void* code, void* partial, void* flags, void* y, int M,
+               int In, int Out, int bn, int n, int grid, int split,
+               int stages, cudaStream_t st) {
   if (M < 1 || In % BK || (bn != 32 && bn != 64 && bn != 128) || Out % bn ||
-      ksplit < 1 || chunk < 1 || (long long)ksplit * chunk < In / BK ||
-      (long long)(ksplit - 1) * chunk >= In / BK || (M > n && n != 128))
+      (M > n && n != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (long long)((M + n - 1) / n) * (Out / bn);
+  const long long iters = tiles * (In / BK);
+  const bool sk = split == 0;
+  if (sk ? (grid < 1 || grid > iters || grid > QMM_MAX_GRID ||
+            iters > INT_MAX || flags == nullptr ||
+            (partial == nullptr && qmm_fixups(iters, In / BK, grid) > 0))
+         : (split < 1 || split > QMM_MAX_SPLIT || split > In / BK ||
+            grid != tiles * split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaErrorInvalidValue;
 #define FS_QMM_CASE(NN, SS)                                                  \
   if (n == NN && stages == SS)                                               \
-    e = qmm_launch<FMT, NN, SS>(x, q, scale, code, partial, y, M, In, Out,   \
-                                bn, ksplit, chunk, st);
+    e = sk ? qmm_launch<FMT, NN, SS, true>(x, q, scale, code, partial,       \
+                                           flags, y, M, In, Out, bn, grid,   \
+                                           split, st)                        \
+           : qmm_launch<FMT, NN, SS, false>(x, q, scale, code, partial,      \
+                                            flags, y, M, In, Out, bn, grid,  \
+                                            split, st);
   FS_QMM_CASE(16, 6)
   FS_QMM_CASE(64, 6)
   FS_QMM_CASE(96, 5)
   FS_QMM_CASE(128, 4)
 #undef FS_QMM_CASE
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (ksplit > 1) {
-    const int n_quads = M * (Out / 4);
-    // the reduce grid's launch overlaps the main grid's tail
-    e = launch_dependent(
-        qmm_reduce_kernel, dim3((n_quads + 255) / 256), dim3(256), 0, st,
-        static_cast<const float*>(partial),
-        FMT == QMM_INT8 ? static_cast<const float*>(scale) : nullptr,
-        static_cast<__nv_bfloat16*>(y), n_quads, ksplit, Out);
-  }
   return static_cast<int>(e);
 }
 

@@ -16,16 +16,19 @@ the f32 `ops/quant.dequantize` by one bf16 rounding per weight. The
 kernels compute this one function and differ only in the order of the f32
 sum.
 
-`int8_matmul`, `nf4_matmul` and `int4_matmul` run the split-K `wgmma`
-kernels (`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan` gives for the shape
-and format: column strips x K splits over the whole card, f32 partials added
-in ascending order, so the bits are the same on every launch. `int4_matmul`
-sends calls of at most 32 rows (`SMALL_M`, the JAX package's cut) to
-`int4_matmul_smallm`, the same `wgmma` kernel built in the small-M library
-and counted apart. `int8_matmul_strip`, `nf4_matmul_strip` and
-`int4_matmul_strip` (the earlier one-strip-per-block kernels) and
-`int4_matmul_splitk` (the earlier small-M `mma.sync` kernel) are kept for
-comparison only: nothing on the serving path calls them.
+`int8_matmul`, `nf4_matmul` and `int4_matmul` run the `wgmma` kernels
+(`csrc/qmm_wgmma.cuh`) by the plan `matmul_plan` gives for the shape and
+format: the product's (row tile, column strip, 64-row block) iterations
+shared by at most two blocks an SM, stream-K over the whole product where it
+has at least as many tiles as SMs, else each tile split into segments that
+one thread-block cluster adds; either way a split tile's f32 segments are
+added in ascending order inside the same kernel, so the bits are the same on
+every launch. `int4_matmul` sends calls of at most 32 rows (`SMALL_M`, the
+JAX package's cut) to `int4_matmul_smallm`, the same `wgmma` kernel built in
+the small-M library and counted apart. `int8_matmul_strip`,
+`nf4_matmul_strip` and `int4_matmul_strip` (the earlier one-strip-per-block
+kernels) and `int4_matmul_splitk` (the earlier small-M `mma.sync` kernel) are
+kept for comparison only: nothing on the serving path calls them.
 
 On a CUDA tensor every wrapper launches its kernel (bf16 activations) or
 raises; on a CPU tensor it runs the plain version.
@@ -44,35 +47,79 @@ from flowspec_tpu_torch.ops.quant import NF4_BLOCK, NF4_CODE, unpack_nf4
 SMALL_M = 32            # int4 calls of at most this many rows: small-M entry
 SPLITK_BLOCKS = 4 * 132  # blocks the earlier small-M grid aims for (4 per SM)
 
-# ---- the split plan of the wgmma kernels (csrc/qmm_wgmma.cuh) --------------
+# ---- the plan of the wgmma kernels (csrc/qmm_wgmma.cuh) -------------------
 N_SMS = 132                   # H100 SXM
 SMEM_PER_SM = 227 * 1024      # shared memory the blocks of one SM may hold
-BLOCKS_PER_SM = 2             # blocks the grid of a product aims for per SM
+BLOCKS_PER_SM = 2             # blocks of a grid an SM holds at most
 WGMMA_WIDTHS = (16, 64, 96, 128)   # rows of x a block covers (instantiated)
 # ring slots per width, the deepest of which two blocks fit an SM for both
 # formats (a ring of 4 measured like one of 6); stages - 2 tiles are in flight
 WGMMA_STAGES = {16: 6, 64: 6, 96: 5, 128: 4}
 NF4_LUT_BYTES = 8192          # the nf4 kernel's table of decoded byte pairs
 FORMATS = ("int8", "nf4", "int4")
+FLAG_SLOTS = 1024             # the per-device flags (`QMM_MAX_GRID` in C)
+MAX_SPLIT = 8                 # blocks a cluster (`QMM_MAX_SPLIT` in C)
+# clusters of s blocks (s = 1..8) the H100 holds at once at two blocks an SM
+# (cudaOccupancyMaxActiveClusters at widths 64-128; width 16 holds more):
+# a split cut keeps all its clusters resident, since a second wave of
+# clusters ran up to 35 % slower (32 clusters of 8 against 32 of 7)
+RESIDENT_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
 
 
 class MatmulPlan(NamedTuple):
-    """How the wgmma kernels (int8, nf4, int4) cut one product (M, In) x (In, Out):
-    `bn` columns a block, `n` rows of x a block (the wgmma width; M > 128
-    runs ceil(M/128) row tiles), `ksplit` K splits of `chunk` 64-row blocks
-    each (the last may be shorter, none is empty), a ring of `stages` tiles
-    in `smem` bytes of dynamic shared memory."""
+    """How the wgmma kernels (int8, nf4, int4) cut one product (M, In) x
+    (In, Out): `bn` columns a tile, `n` rows of x a tile (the wgmma width;
+    M > 128 runs ceil(M/128) row tiles), `tiles` (row tile, strip) tiles of
+    `nkb` 64-row blocks each, shared by `grid` blocks as ranges of the tiles
+    x nkb iterations (the 64-row block fastest; `ranges`) that differ by at
+    most one 64-row block. `split` 0 is the stream-K cut: contiguous ranges
+    over the whole product, a split tile finished by the block holding its
+    last 64-row block from the others' partials in global scratch. `split`
+    s >= 1 is the split cut: every tile in s segments, one a block, the
+    tile's blocks one cluster that adds them in shared memory (s = 1: whole
+    tiles). `fixups` tiles span more than one block; a ring of `stages`
+    tiles in `smem` bytes of dynamic shared memory."""
     bn: int
     n: int
-    ksplit: int
-    chunk: int
+    grid: int
+    split: int
+    tiles: int
+    nkb: int
+    fixups: int
     stages: int
     smem: int
 
-    def scratch_shape(self, m: int, n_out: int) -> tuple | None:
-        """Shape of the f32 partials the wrapper allocates; None when one
-        split writes the result itself."""
-        return (self.ksplit, m, n_out) if self.ksplit > 1 else None
+    @property
+    def iters(self) -> int:
+        return self.tiles * self.nkb
+
+    def ranges(self) -> list:
+        """[start, end) of each block's iterations, in block order."""
+        i, g, s, k = self.iters, self.grid, self.split, self.nkb
+        if s:
+            return [((b // s) * k + (b % s) * k // s,
+                     (b // s) * k + (b % s + 1) * k // s) for b in range(g)]
+        return [(b * i // g, (b + 1) * i // g) for b in range(g)]
+
+    def segments(self, tile: int) -> list:
+        """(block, k0, k1) of each block's part of `tile`, in ascending k
+        (and block) order; the last one finishes the tile."""
+        t0, k = tile * self.nkb, self.nkb
+        if self.split:
+            blocks = range(tile * self.split, (tile + 1) * self.split)
+        else:       # the blocks holding the tile's first and last iteration
+            owner = lambda it: ((it + 1) * self.grid - 1) // self.iters
+            blocks = range(owner(t0), owner(t0 + k - 1) + 1)
+        r = self.ranges()
+        return [(b, max(r[b][0], t0) - t0, min(r[b][1], t0 + k) - t0)
+                for b in blocks]
+
+    def scratch_shape(self, m: int) -> tuple | None:
+        """Shape of the f32 partials the wrapper allocates for the stream-K
+        cut (one slot a block of min(M, n) rows x bn); None when no tile is
+        split, and for the split cut."""
+        return ((self.grid, min(m, self.n), self.bn)
+                if self.fixups and not self.split else None)
 
 
 def smem_bytes(n: int, stages: int, fmt: str) -> int:
@@ -87,13 +134,28 @@ def smem_bytes(n: int, stages: int, fmt: str) -> int:
     return stages * per_stage + (NF4_LUT_BYTES if fmt == "nf4" else 0) + 1024
 
 
+def stream_fixups(iters: int, nkb: int, grid: int) -> int:
+    """Tiles of a stream-K cut whose k range spans more than one block: the
+    distinct tiles a range boundary falls strictly inside (`qmm_fixups` in
+    C)."""
+    inside = {s // nkb for s in (b * iters // grid for b in range(1, grid))
+              if s % nkb}
+    return len(inside)
+
+
 @lru_cache(maxsize=None)
 def matmul_plan(m: int, n_in: int, n_out: int, fmt: str) -> MatmulPlan:
     """The plan for M = m rows of format `fmt`. Strips of 128 columns (64 / 32 where Out is
     ragged); the narrowest instantiated width >= M with its ring of
-    `WGMMA_STAGES`; as many K splits as bring strips x splits x row tiles to
-    BLOCKS_PER_SM = 2 blocks on each SM (one wave, whatever the shape;
-    measured best or within 5 % of it from M 1 to 81 against 1, 3, 4 and 6)."""
+    `WGMMA_STAGES`. A product of at least N_SMS tiles takes the stream-K cut
+    over min(BLOCKS_PER_SM x N_SMS, iterations) blocks: every SM streams an
+    equal share, and a split tile's partials come from two or three blocks.
+    A product of fewer tiles takes the split cut, the most segments a tile,
+    at most MAX_SPLIT and one a 64-row block, whose clusters all fit on the
+    card at once (RESIDENT_CLUSTERS) within BLOCKS_PER_SM x N_SMS blocks:
+    there a stream-K tile would spread over many blocks, and one block
+    adding their partials took longer on the card than the product itself.
+    A function of the shape alone."""
     if m < 1 or n_in % NF4_BLOCK or n_out % 32:
         raise ValueError(f"matmul_plan needs M >= 1, In % {NF4_BLOCK} == 0 "
                          f"and Out % 32 == 0, got M={m} In={n_in} "
@@ -103,10 +165,18 @@ def matmul_plan(m: int, n_in: int, n_out: int, fmt: str) -> MatmulPlan:
     stages = WGMMA_STAGES[n]
     nkb = n_in // NF4_BLOCK
     tiles = (n_out // bn) * -(-m // n)
-    want = max(1, (N_SMS * BLOCKS_PER_SM) // tiles)
-    chunk = -(-nkb // min(want, nkb))
-    return MatmulPlan(bn=bn, n=n, ksplit=-(-nkb // chunk), chunk=chunk,
-                      stages=stages, smem=smem_bytes(n, stages, fmt))
+    blocks = BLOCKS_PER_SM * N_SMS
+    if tiles >= N_SMS:
+        grid, split = min(blocks, tiles * nkb), 0
+        fixups = stream_fixups(tiles * nkb, nkb, grid)
+    else:
+        split = max(k for k in range(1, min(MAX_SPLIT, nkb) + 1)
+                    if tiles <= RESIDENT_CLUSTERS[k - 1]
+                    and tiles * k <= blocks)
+        grid, fixups = tiles * split, tiles if split > 1 else 0
+    return MatmulPlan(bn=bn, n=n, grid=grid, split=split, tiles=tiles,
+                      nkb=nkb, fixups=fixups, stages=stages,
+                      smem=smem_bytes(n, stages, fmt))
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -147,30 +217,49 @@ def _check_launch(name, x, q, scale):
                          "q and scale")
 
 
+_flags: dict = {}
+
+
+def _flags_on(device) -> torch.Tensor:
+    """The stream-K flags of `device`: FLAG_SLOTS int32, zeroed once. Every
+    launch leaves them zero (the block finishing a tile clears what it
+    took), so they are never zeroed again; launches on one device do not
+    overlap in this package (one stream at a time)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _flags:
+        _flags[device] = torch.zeros((FLAG_SLOTS,), dtype=torch.int32,
+                                     device=device)
+    return _flags[device]
+
+
 def _launch_planned(wrapper, x, q, scale, fmt: str, ptrs=()):
     """Launch the wgmma kernel named like `wrapper` by `matmul_plan` for
-    format `fmt` and count it. The C entry point takes (x, q, scale, *ptrs, partial, y, M,
-    In, Out, bn, n, ksplit, chunk, stages, stream)."""
+    format `fmt` and count it, and the split tiles it finishes in
+    `wrapper.fixup_tiles`. The C entry point takes (x, q, scale, *ptrs,
+    partial, flags, y, M, In, Out, bn, n, grid, split, stages, stream)."""
     name = wrapper.__name__
     _check_launch(name, x, q, scale)
     x = _build.aligned16(x)
     b, t, n_in = x.shape
     n_out = q.shape[1]
     plan = matmul_plan(b * t, n_in, n_out, fmt)
-    shape = plan.scratch_shape(b * t, n_out)
+    shape = plan.scratch_shape(b * t)
     partial = (torch.empty(shape, dtype=torch.float32, device=x.device)
                if shape else None)
     y = torch.empty((b, t, n_out), dtype=x.dtype, device=x.device)
-    fn = _build.bind(name, 5 + len(ptrs), 8)
+    fn = _build.bind(name, 6 + len(ptrs), 8)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                  *(p.data_ptr() for p in ptrs),
                  partial.data_ptr() if partial is not None else None,
-                 y.data_ptr(), b * t, n_in, n_out, plan.bn, plan.n,
-                 plan.ksplit, plan.chunk, plan.stages,
+                 _flags_on(x.device).data_ptr(), y.data_ptr(), b * t, n_in,
+                 n_out, plan.bn, plan.n, plan.grid, plan.split, plan.stages,
                  _build.stream_ptr(x.device))
     _build.check(err, name)
     wrapper.launches += 1
+    wrapper.fixup_tiles += plan.fixups
     return y
 
 
@@ -184,6 +273,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 int8_matmul.launches = 0
+int8_matmul.fixup_tiles = 0
 
 
 def int8_matmul_strip(x: torch.Tensor, q: torch.Tensor,
@@ -310,6 +400,7 @@ def nf4_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 nf4_matmul.launches = 0
+nf4_matmul.fixup_tiles = 0
 
 
 def nf4_matmul_strip(x: torch.Tensor, q: torch.Tensor,
@@ -341,6 +432,7 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 int4_matmul.launches = 0
+int4_matmul.fixup_tiles = 0
 
 
 def int4_matmul_wide(x: torch.Tensor, q: torch.Tensor,
@@ -386,6 +478,7 @@ def int4_matmul_smallm(x: torch.Tensor, q: torch.Tensor,
 
 
 int4_matmul_smallm.launches = 0
+int4_matmul_smallm.fixup_tiles = 0
 
 
 def split_k(n_in: int, n_out: int) -> int:

@@ -20,10 +20,11 @@ are then loaded again from the request's state: the kernels build at their
 first launch (`ops/_build.py`), and so do their plans and their opt-ins to
 large shared memory. A kernel wrapper counts a launch when its Python code
 issues it, which under capture is once for all replays; so the capture's
-counts are kept as the graph's launches per replay and taken back from the
-wrappers, and each replay adds them again. The graphs of one engine share
-one memory pool: they run one at a time, and what a body leaves for the
-next one lives in the static buffers, outside the pool.
+counts (and the dequant-matmuls' `fixup_tiles`) are kept as the graph's
+own, per replay, and taken back from the wrappers, and each replay adds
+them again. The graphs of one engine share one memory pool: they run one
+at a time, and what a body leaves for the next one lives in the static
+buffers, outside the pool.
 
 Lanes (`runtime/batched.py`). Two more bodies run the round over B lanes:
 `_lane_body`, the counterpart of `_spec_decode_loop(gate_lanes=True)`
@@ -369,8 +370,9 @@ class DecodeGraph:
     `loop` (cloned from the first request that needed it, or with `shared`
     the buffers given, which other graphs read too; the draw streams are
     state tensors like any other), `host` (pinned, what `readback` gives),
-    `launches` {kernel: launches a replay}, `capture_s` (warm-up and
-    capture, seconds: the `capture` span's interval).
+    `launches` {kernel: launches a replay}, `fixup_tiles` {dequant-matmul:
+    split tiles a replay finishes}, `capture_s` (warm-up and capture,
+    seconds: the `capture` span's interval).
 
     The warm-up body runs on the static buffers before the capture. A body
     writes KV rows only at or past each lane's length (a stopped lane: its
@@ -405,6 +407,8 @@ class DecodeGraph:
             else:
                 self.load(state, loop)
             before = {n: fn.launches for n, fn in wrappers.items()}
+            fixed = {n: fn.fixup_tiles for n, fn in wrappers.items()
+                     if hasattr(fn, "fixup_tiles")}
             self.graph = torch.cuda.CUDAGraph()
             with torch.no_grad(), torch.cuda.graph(self.graph,
                                                    pool=eng._graph_pool):
@@ -414,8 +418,13 @@ class DecodeGraph:
         self.launches = {n: fn.launches - before[n]
                          for n, fn in wrappers.items()
                          if fn.launches != before[n]}
+        self.fixup_tiles = {n: wrappers[n].fixup_tiles - k
+                            for n, k in fixed.items()
+                            if wrappers[n].fixup_tiles != k}
         for n, fn in wrappers.items():
             fn.launches = before[n]
+        for n, k in fixed.items():
+            wrappers[n].fixup_tiles = k
         eng._graph_pool = self.graph.pool()
         torch.cuda.synchronize(dev)
         t1 = time.time_ns()
@@ -443,6 +452,8 @@ class DecodeGraph:
         wrappers = counted_wrappers()
         for n, k in self.launches.items():
             wrappers[n].launches += k
+        for n, k in self.fixup_tiles.items():
+            wrappers[n].fixup_tiles += k
         return self.host.tolist()
 
     def replay_timed(self, k: int) -> list:

@@ -10,7 +10,7 @@ tests). On a machine with a card and the CUDA toolkit:
 (`--noconftest`: tests/conftest.py sets up JAX, which these tests do not
 use.) Tolerances: int8, nf4, int4 and attention outputs are bf16, compared
 at one bf16 rounding (1e-2 relative + 1e-2, and 2e-2 absolute); head
-log-probs are f32 sums of H terms, compared at 1e-3. The split-K kernels
+log-probs are f32 sums of H terms, compared at 1e-3. The stream-K kernels
 (int8, nf4, int4, small-M int4), the head top-k and the cluster-joined tree
 attention must give equal bits on every launch (no atomics); all six are
 also held against their earlier versions (`*_strip`, `int4_matmul_splitk`,
@@ -51,6 +51,12 @@ ConversationStore that keeps or evicts) on the struct tiny8 pair in bf16
 under the lossless rule; the profiler's readings of the CUDA allocator;
 the recorder's round, prefill and growth spans with device figures from
 timing events made once per engine and graph, never per replay.
+Stream-K and the split cut: every product shape of the benchmark cells
+(Qwen2-7B's base and draft, Mixtral-8x7B's draft, a ragged M 19 prefill
+chunk) against plain with equal bits on two launches and the split tiles
+counted; a captured product of each cut replayed three times with the eager
+bits and the flags left zero; one profiled launch of each cut, every kernel
+of the benchmark's `int8_matmul` family.
 Training: every kernel wrapper refuses, naming itself, an operand that
 requires a gradient under grad mode (and launches as before under
 `torch.no_grad()`); one step of a tiny base and of its draft on the card
@@ -135,9 +141,9 @@ def test_nf4_matmul_matches_plain(cuda, m, n_in, n_out):
     assert ok, err
 
 
-# the split-K wgmma kernels at ragged shapes: Out a multiple of 32 but not of
-# 64 and of 64 but not of 128, In = 64 (one block, one split), In / 64 prime
-# (a split count that does not divide), M around every instantiated width
+# the stream-K wgmma kernels at ragged shapes: Out a multiple of 32 but not
+# of 64 and of 64 but not of 128, In = 64 (one block, never split), In / 64
+# prime (ranges that do not divide the tiles), M around every width
 RAGGED = [(m, n_in, n_out)
           for n_in, n_out in ((832, 1056), (2368, 1088), (64, 1056),
                               (2368, 4096))
@@ -1261,6 +1267,95 @@ def test_tp_graph_replay_equals_eager_round_bits(cuda):
             assert torch.equal(a, b)
         for a, b in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
             assert torch.equal(a, b)
+
+
+# the benchmark cells' products: Qwen2-7B's base (wo has wq's shape) at the
+# verify, prefill, draft and AR widths and its draft's fc; Mixtral-8x7B's
+# draft; Qwen2's ragged last prefill chunk of the 211-token prompt (M 19)
+STREAM_K_SHAPES = (
+    [(m, i, o) for m in (81, 64, 10, 1)
+     for i, o in ((3584, 3584), (3584, 512), (3584, 3584), (3584, 18944),
+                  (18944, 3584))]
+    + [(m, 7168, 3584) for m in (10, 1)]
+    + [(m, i, o) for m in (10, 1)
+       for i, o in ((4096, 1024), (4096, 14336), (14336, 4096))]
+    + [(19, i, o) for i, o in ((3584, 3584), (3584, 512), (3584, 18944),
+                               (18944, 3584))])
+
+
+@pytest.mark.parametrize("m,n_in,n_out", STREAM_K_SHAPES)
+def test_stream_k_cell_shapes_match_plain_with_equal_bits(cuda, m, n_in,
+                                                          n_out):
+    """Every product shape of the benchmark cells through the stream-K
+    kernel against plain, equal bits on two launches; the wrapper counts
+    the plan's split tiles at each launch and the flags end zero."""
+    from flowspec_tpu_torch.ops import quant_matmul as qm
+    x, q, s = _int8(cuda, m, n_in, n_out)
+    plan = matmul_plan(m, n_in, n_out, "int8")
+    before = int8_matmul.launches, int8_matmul.fixup_tiles
+    got, again = int8_matmul(x, q, s), int8_matmul(x, q, s)
+    want = int8_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.fixup_tiles) == (
+        before[0] + 2, before[1] + 2 * plan.fixups)
+    ok, err = _close(got, want)
+    assert ok, (float(err), plan)
+    assert torch.equal(got, again)
+    assert int(qm._flags_on(x.device).abs().sum()) == 0
+
+
+# one product of each cut with split tiles: Qwen2-7B's w_gate at M 81
+# (stream-K: partials and flags in global memory) and its wq (split cut:
+# each tile's eight segments added in one cluster's shared memory)
+CUTS = [(81, 3584, 18944), (81, 3584, 3584)]
+
+
+@pytest.mark.parametrize("m,n_in,n_out", CUTS)
+def test_stream_k_graph_replays_leave_the_flags_as_found(cuda, m, n_in,
+                                                         n_out):
+    """A product with split tiles captured in a CUDA graph: three replays
+    give the eager launch's bits, and each leaves the flags zero (no memset
+    in the graph: the finishing blocks clear what they took)."""
+    from flowspec_tpu_torch.ops import quant_matmul as qm
+    x, q, s = _int8(cuda, m, n_in, n_out)
+    assert matmul_plan(m, n_in, n_out, "int8").fixups > 0
+    eager = int8_matmul(x, q, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_matmul(x, q, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul(x, q, s)
+    flags = qm._flags_on(x.device)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert int(flags.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("m,n_in,n_out", CUTS)
+def test_stream_k_launches_one_kernel_of_the_int8_family(cuda, m, n_in,
+                                                         n_out):
+    """One profiled launch with split tiles: every device kernel it runs is
+    of the benchmark's `int8_matmul` family (`benchmark.lib.trace.family`,
+    read, not edited), none a `matmul_reduce` pass or `other`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.lib.trace import family
+    x, q, s = _int8(cuda, m, n_in, n_out)
+    assert matmul_plan(m, n_in, n_out, "int8").fixups > 0
+    int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and {family(n) for n in names} == {"int8_matmul"}, names
 
 
 @pytest.mark.parametrize("m,n_in,n_out", [

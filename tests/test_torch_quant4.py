@@ -18,16 +18,22 @@
     atol 1e-1; these cases have up to 40 rows and longer tails);
 (c) `qmatmul` dispatch, the wrappers' refusals and the bridge's refusal to
     guess the kind of a uint8 container;
-(d) the split plan of the split-K wgmma kernels (`matmul_plan`, shared by
-    int8, nf4 and int4) over every (M, In, Out) the wrappers accept, with
-    hypothesis: the splits tile [0, In/64) exactly and none is empty, the
-    strip width divides Out, the width covers M (or M runs in 128-row
-    tiles), the ring fits an SM, the scratch has the shape the wrapper
-    allocates; and `_split_sum`, a torch emulation of "one f32 partial per
-    split, added in ascending order, scale, one cast" driven by that plan,
-    against `int8_matmul_plain` / `nf4_matmul_plain` / `int4_matmul_plain`
-    at the card's tolerance (|err| <= 1e-2*|plain| + 1e-2: one bf16 ulp of
-    an f32 sum taken in another order); and the int4 kernel's table-free
+(d) the plan of the wgmma kernels (`matmul_plan`, shared by int8, nf4 and
+    int4: stream-K at >= 132 tiles, else each tile's segments in one
+    cluster, all resident) over every (M, In, Out) the wrappers accept, with
+    hypothesis: every (row tile, strip, 64-row block) in exactly one block's
+    range, the ranges within one block of each other, at most two blocks an
+    SM, each tile's segments in ascending k with the last one in the highest
+    block, `fixups` the tiles spanning more than one block, the strip width
+    divides Out, the width covers M (or M runs in 128-row tiles), the ring
+    fits an SM, the scratch has the shape the wrapper allocates; at Qwen2-7B's
+    w_gate / w_up the busiest SM streams within 5 % of the mean; and
+    `_split_sum`, a torch emulation of "one f32 sum a tile segment, the
+    earlier segments' added in ascending order before the last one's, scale,
+    one cast" driven by that plan, against `int8_matmul_plain` /
+    `nf4_matmul_plain` / `int4_matmul_plain` at the card's tolerance (|err|
+    <= 1e-2*|plain| + 1e-2: one bf16 ulp of an f32 sum taken in another
+    order); and the int4 kernel's table-free
     decode (`i4_pair_bf16`: the bf16 value 128 + n, minus 136, times the
     scale) against `decode_pair`'s operand, bit for bit.
 Inputs come from numpy with a seed.
@@ -253,6 +259,52 @@ def test_split_k_covers_every_block_with_no_empty_split():
             tqm.split_k(n_in, n_out)
 
 
+def _check_stream_k(p, m, nkb):
+    """The invariants of plan `p` for M = m and In = 64 nkb: the stream-K
+    cut for at least N_SMS tiles, else the split cut (grid = tiles x split,
+    at most MAX_SPLIT segments a tile and one a 64-row block); the block
+    ranges tile the iterations in order and differ by at most one 64-row
+    block; each tile's segments cover [0, nkb) in ascending k, each inside
+    its block's range, the last in the highest block; `fixups` counts the
+    tiles spanning more than one block; a block has at most one unfinished
+    head (its one partial slot)."""
+    assert p.nkb == nkb and p.iters == p.tiles * nkb
+    assert 1 <= p.grid <= min(tqm.BLOCKS_PER_SM * tqm.N_SMS, p.iters)
+    if p.tiles >= tqm.N_SMS:
+        assert p.split == 0
+        assert p.fixups == tqm.stream_fixups(p.iters, nkb, p.grid)
+    else:
+        assert 1 <= p.split <= min(tqm.MAX_SPLIT, nkb)
+        assert p.grid == p.tiles * p.split
+        # every cluster resident at once, and no more segments would fit
+        assert p.tiles <= tqm.RESIDENT_CLUSTERS[p.split - 1]
+        assert p.split == min(tqm.MAX_SPLIT, nkb) or (
+            p.tiles > tqm.RESIDENT_CLUSTERS[p.split]
+            or p.tiles * (p.split + 1) > tqm.BLOCKS_PER_SM * tqm.N_SMS)
+    r = p.ranges()
+    assert len(r) == p.grid and r[0][0] == 0 and r[-1][1] == p.iters
+    assert all(r[b][1] == r[b + 1][0] for b in range(p.grid - 1))
+    lens = [e - s for s, e in r]
+    assert min(lens) >= 1 and max(lens) - min(lens) <= 1
+    split, heads, covered = 0, [], 0
+    for t in range(p.tiles):
+        seg = p.segments(t)
+        assert seg[0][1] == 0 and seg[-1][2] == nkb
+        assert all(k0 < k1 for _, k0, k1 in seg)
+        assert all(seg[i][2] == seg[i + 1][1] for i in range(len(seg) - 1))
+        blocks = [b for b, _, _ in seg]
+        assert blocks == sorted(set(blocks)) and seg[-1][0] == max(blocks)
+        for b, k0, k1 in seg:
+            assert r[b][0] <= t * nkb + k0 and t * nkb + k1 <= r[b][1]
+        covered += sum(k1 - k0 for _, k0, k1 in seg)
+        split += len(seg) > 1
+        heads += blocks[:-1]
+    assert covered == p.iters and split == p.fixups
+    assert len(heads) == len(set(heads))
+    assert p.scratch_shape(m) == (
+        (p.grid, min(m, p.n), p.bn) if p.fixups and not p.split else None)
+
+
 @settings(max_examples=300, deadline=None)
 @given(m=st.integers(1, 700), nkb=st.integers(1, 256),
        out32=st.integers(1, 448), fmt=st.sampled_from(tqm.FORMATS))
@@ -266,41 +318,52 @@ def test_matmul_plan_tiles_k_exactly_for_every_accepted_shape(m, nkb, out32,
     # width: the narrowest instantiated one >= M; beyond 128, row tiles
     assert p.n in tqm.WGMMA_WIDTHS and (p.n >= m or p.n == 128)
     assert all(w < m for w in tqm.WGMMA_WIDTHS if w < p.n)
-    # splits tile [0, In/64) exactly, in order, none empty
-    edges = [(s * p.chunk, min((s + 1) * p.chunk, nkb))
-             for s in range(p.ksplit)]
-    assert edges[0][0] == 0 and edges[-1][1] == nkb
-    assert all(a < b for a, b in edges)
-    assert all(edges[i][1] == edges[i + 1][0] for i in range(p.ksplit - 1))
-    # one wave: never more blocks than the plan's two per SM, unless the
-    # strips x row tiles alone exceed it (then one split)
-    tiles = (n_out // p.bn) * -(-m // p.n)
-    assert (tiles * p.ksplit <= tqm.N_SMS * tqm.BLOCKS_PER_SM
-            or p.ksplit == 1)
+    assert p.tiles == (n_out // p.bn) * -(-m // p.n)
+    # every (row tile, strip, 64-row block) in exactly one block, one wave
+    _check_stream_k(p, m, nkb)
     # the ring is the one the width is built with and two blocks fit an SM
     assert p.stages == tqm.WGMMA_STAGES[p.n]
     assert p.smem == tqm.smem_bytes(p.n, p.stages, fmt)
     assert tqm.BLOCKS_PER_SM * (p.smem + 1024) <= tqm.SMEM_PER_SM
-    # scratch as the wrapper allocates it
-    assert p.scratch_shape(m, n_out) == (
-        (p.ksplit, m, n_out) if p.ksplit > 1 else None)
+
+
+def _busiest_share(p) -> float:
+    """What the busiest SM streams over the mean of the N_SMS SMs, at most
+    BLOCKS_PER_SM blocks an SM, the longest ranges together."""
+    longest = -(-p.iters // p.grid)
+    return -(-p.grid // tqm.N_SMS) * longest / (p.iters / tqm.N_SMS)
 
 
 def test_matmul_plan_main_path_shapes_and_refusals():
-    # 7B verify width: two blocks per SM at every projection
-    for n_in, n_out in [(4096, 4096), (4096, 11008), (11008, 4096)]:
-        p = tqm.matmul_plan(81, n_in, n_out, "int8")
-        assert (p.bn, p.n) == (128, 96)
-        assert 132 < (n_out // 128) * p.ksplit <= 264
-    # M 1 (every AR step) and the draft's M 10 are the narrow width with
-    # more splits: the thin draft's fc gets 32 x 8 blocks where a grid over
-    # strips alone had 32
-    p = tqm.matmul_plan(10, 8192, 1024, "nf4")
-    assert (p.n, p.ksplit, p.chunk) == (16, 32, 4)
-    assert tqm.matmul_plan(1, 4096, 4096, "nf4").ksplit == 8
-    # one 64-row block cannot split; M > 128 runs in row tiles of 128
-    assert tqm.matmul_plan(8, 64, 1056, "int8").ksplit == 1
+    # Qwen2-7B's w_gate / w_up at the verify, prefill, draft and AR widths:
+    # 148 strips of 56 blocks, which a grid of whole strips left at 1.78x
+    # the mean on 16 SMs, within 5 % of the mean on every SM
+    for m, n in ((81, 96), (64, 64), (10, 16), (1, 16)):
+        p = tqm.matmul_plan(m, 3584, 18944, "int8")
+        assert (p.bn, p.n, p.tiles, p.nkb) == (128, n, 148, 56)
+        assert _busiest_share(p) <= 1.05, (m, p)
+        assert p.grid > tqm.N_SMS and p.fixups > 0
+    # whole tiles that divide evenly: the data-parallel grid, no fix-up
+    p = tqm.matmul_plan(81, 1024, 264 * 128, "int8")
+    assert (p.grid, p.split, p.tiles, p.fixups) == (264, 0, 264, 0)
+    assert p.scratch_shape(81) is None
+    # fewer tiles than SMs: the split cut, eight segments a tile in one
+    # cluster (Qwen2-7B's wq / wo / w_down and its draft's fc: 28 tiles;
+    # wk / wv: 4), no global scratch; 32 tiles take seven (30 clusters of
+    # eight fit the card at once, 32 of seven)
+    for n_in, n_out, tiles in ((3584, 3584, 28), (18944, 3584, 28),
+                               (7168, 3584, 28), (3584, 512, 4)):
+        for m in (81, 10, 1):
+            p = tqm.matmul_plan(m, n_in, n_out, "int8")
+            assert (p.split, p.tiles, p.grid) == (8, tiles, 8 * tiles)
+            assert p.fixups == tiles and p.scratch_shape(m) is None
+    for m in (10, 1):                       # Mixtral-8x7B's draft fc / wq
+        assert tqm.matmul_plan(m, 8192, 4096, "int8")[2:5] == (224, 7, 32)
+    # one 64-row block a tile is never split; M > 128 runs in row tiles
+    p = tqm.matmul_plan(8, 64, 1056, "int8")
+    assert (p.bn, p.nkb, p.tiles, p.fixups) == (32, 1, 33, 0)
     assert tqm.matmul_plan(130, 4096, 4096, "nf4").n == 128
+    assert tqm.matmul_plan(130, 4096, 4096, "nf4").tiles == 64
     # one ring per width, for every format
     assert [tqm.matmul_plan(m, 4096, 4096, f).stages
             for m in (1, 64, 81, 128) for f in tqm.FORMATS] == [
@@ -313,21 +376,30 @@ def test_matmul_plan_main_path_shapes_and_refusals():
 
 
 def _split_sum(x: torch.Tensor, w: torch.Tensor, plan,
-              scale: torch.Tensor | None = None) -> torch.Tensor:
-    """What the wgmma kernels compute, in plain torch: one f32 partial per K
-    split of `plan` (x (..., In) times the bf16 operand w (In, Out)), the
-    partials added in ascending order, the int8 per-column scale if any, one
-    cast to x's dtype."""
-    step = plan.chunk * tq.NF4_BLOCK
-    total = None
-    for s in range(plan.ksplit):
-        k0, k1 = s * step, min((s + 1) * step, x.shape[-1])
-        part = torch.matmul(x[..., k0:k1].to(torch.float32),
-                            w[k0:k1].to(torch.float32))
-        total = part if total is None else total + part
+               scale: torch.Tensor | None = None) -> torch.Tensor:
+    """What the wgmma kernels compute, in plain torch: for each tile of
+    `plan` (row tile, strip) one f32 sum a block's segment (x (..., In)
+    times the bf16 operand w (In, Out)), the earlier segments' sums added in
+    ascending order before the last one's, the int8 per-column scale if any,
+    one cast to x's dtype."""
+    rows = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    wf = w.to(torch.float32)
+    out = torch.empty((rows.shape[0], w.shape[1]), dtype=torch.float32)
+    strips = w.shape[1] // plan.bn
+    for t in range(plan.tiles):
+        m0, n0 = (t // strips) * plan.n, (t % strips) * plan.bn
+        xs = rows[m0:m0 + plan.n]
+        parts = [xs[:, k0 * 64:k1 * 64] @ wf[k0 * 64:k1 * 64, n0:n0 + plan.bn]
+                 for _, k0, k1 in plan.segments(t)]
+        total = parts[0]
+        for part in parts[1:-1]:
+            total = total + part
+        if len(parts) > 1:
+            total = total + parts[-1]
+        out[m0:m0 + plan.n, n0:n0 + plan.bn] = total
     if scale is not None:
-        total = total * scale.to(torch.float32)
-    return total.to(x.dtype)
+        out = out * scale.to(torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[1]).to(x.dtype)
 
 
 # (M, In, Out): every width, ragged strips, one block, a prime block count
@@ -356,7 +428,7 @@ def test_split_sum_by_the_plan_matches_plain(kind, m, n_in, n_out):
     assert got.dtype == want.dtype == torch.bfloat16
     err = (got.float() - want.float()).abs()
     assert bool((err <= 1e-2 * want.float().abs() + 1e-2).all()), err.max()
-    if plan.ksplit == 1:                  # one split: the plain sum itself
+    if plan.grid <= plan.tiles and not plan.fixups:   # whole tiles: plain
         assert torch.equal(got, want)
     # the order is fixed: the same bits again
     again = _split_sum(x, (t.q.to(torch.bfloat16) if kind == "int8" else
@@ -434,13 +506,7 @@ def test_matmul_plan_int4_tiles_k_like_nf4_without_the_table():
         p4, pn = (tqm.matmul_plan(m, n_in, n_out, f) for f in ("int4", "nf4"))
         assert p4._replace(smem=0) == pn._replace(smem=0)
         assert p4.smem == pn.smem - tqm.NF4_LUT_BYTES == pn.smem - 8192
-        nkb = n_in // 64
-        edges = [(i * p4.chunk, min((i + 1) * p4.chunk, nkb))
-                 for i in range(p4.ksplit)]
-        assert edges[0][0] == 0 and edges[-1][1] == nkb
-        assert all(a < b for a, b in edges)
-        assert all(edges[i][1] == edges[i + 1][0]
-                   for i in range(p4.ksplit - 1))
+        _check_stream_k(p4, m, n_in // 64)
     with pytest.raises(ValueError, match="format"):
         tqm.smem_bytes(96, 5, "fp4")
 
@@ -448,18 +514,11 @@ def test_matmul_plan_int4_tiles_k_like_nf4_without_the_table():
 @pytest.mark.parametrize("n_in,n_out", [(5120, 5120), (11008, 4096)])
 def test_matmul_plan_small_m_int4_widths_cover_every_block(n_in, n_out):
     # the small-M route: every M the JAX package sends to its kfull kernel
-    nkb = n_in // 64
     for m in range(1, tqm.SMALL_M + 1):
         p = tqm.matmul_plan(m, n_in, n_out, "int4")
         assert p.n == (16 if m <= 16 else 64) and p.bn == 128
         assert p.stages == tqm.WGMMA_STAGES[p.n] == 6
-        edges = [(i * p.chunk, min((i + 1) * p.chunk, nkb))
-                 for i in range(p.ksplit)]
-        assert edges[0][0] == 0 and edges[-1][1] == nkb
-        assert all(a < b for a, b in edges)
-        assert all(edges[i][1] == edges[i + 1][0]
-                   for i in range(p.ksplit - 1))
-        assert (n_out // p.bn) * p.ksplit <= tqm.N_SMS * tqm.BLOCKS_PER_SM
+        _check_stream_k(p, m, n_in // 64)
 
 
 @pytest.mark.parametrize("m", [1, 9, 16, 17, 32])

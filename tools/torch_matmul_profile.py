@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""The split-K wgmma dequant-matmuls and the head top-k under
+"""The wgmma dequant-matmuls and the head top-k under
 torch.profiler, on one card.
 
     python3 tools/torch_matmul_profile.py [--sass]
                                           [--kernels int8,nf4,int4,head]
 
 What chip_smoke.py's event timing cannot separate: at each base and draft
-shape of the 7B paths (int4: the 13B attention projections at M 64 / 81;
-head: chip_smoke.py's HEAD_SHAPES, V 32000, k 10), the device times of the
-main kernel and of the second pass (the split-K reduce; the head's merge)
-and the gap between them (the second pass is a dependent launch that starts
-early and waits), and the timing floor, i.e. what one tiny elementwise
+shape of the 7B paths and of the benchmark cells (Qwen2-7B, Mixtral-8x7B's
+draft; int4: the 13B attention projections at M 64 / 81; head:
+chip_smoke.py's HEAD_SHAPES, V 32000, k 10), the device times of the main
+kernel and, for the head, of its merge pass and the gap between them (the
+merge is a dependent launch that starts early and waits; a dequant-matmul
+is one kernel), and the timing floor, i.e. what one tiny elementwise
 launch reads when it is timed like a kernel. The L2 is flushed before every
 launch. `--sass` also dumps `cuobjdump -sass` of the libraries. One JSON
 line per row on stdout and in chiprun_out/matmul_profile.jsonl; the ptxas
@@ -103,12 +104,13 @@ def main() -> int:
            "head": (None, [(n, t, h, 32000) for n, t, h in cs.HEAD_SHAPES])}
     # (main kernel, second pass) by the name the profiler gives them
     parts = {"head": ("head_wgmma_kernel", "head_select_kernel")}
+    prefixes = ("base_", "draft_", "qwen2_", "mixtral_")
     for kind in kinds:
         fn, shapes = fns[kind]
-        main_name, second = parts.get(kind, ("qmm_kernel", "qmm_reduce"))
+        main_name, second = parts.get(kind, ("qmm_kernel", None))
         for name, m, n_in, n_out in shapes:
             if kind in ("int8", "nf4") and (
-                    not name.startswith(("base_", "draft_")) or m in (9, 96)):
+                    not name.startswith(prefixes) or m in (9, 96)):
                 continue
             if kind == "head":
                 x, q, s = operands("int8", m, n_in, n_out, dev, gen)
@@ -130,7 +132,7 @@ def main() -> int:
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
             main_ev = [e for e in ev if main_name in e.name]
-            red = [e for e in ev if second in e.name]
+            red = [e for e in ev if second and second in e.name]
             row = {"profile": kind, "shape": name, "plan": plan,
                    "main_us": [e.time_range.elapsed_us() for e in main_ev]}
             if red:

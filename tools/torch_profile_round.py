@@ -12,8 +12,7 @@ profiles one request of 64 prompt + 128 new tokens with torch.profiler
 (CPU + CUDA activities). Prints one JSON line: wall time, summed
 device-kernel time, the device's idle share of the wall time, rounds, and
 device time by kernel family (`chip_smoke.family`: this port's six CUDA
-kernels, the split-K reduce pass of int8 / nf4 / int4 as `matmul_reduce`,
-the head's merge pass as `head_select`; cuBLAS GEMMs (the lm_head);
+kernels, the head's merge pass as `head_select`; cuBLAS GEMMs (the lm_head);
 sort/top-k; everything else).
 
 `--fused` profiles `generate_fused` instead: the round as a replayed CUDA
