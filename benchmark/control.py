@@ -6,8 +6,8 @@ benchmark's runs).
 For each seed, in one process: the cell's weights and engine from the
 seed, one block of the seed's requests (every size of the mix, the longest
 among them) served through `SpecEngine.generate_fused`, the run's sample
-of them (`lib/check.py`), and the plain reference over the sample. Each
-line gives the check's numbers (`check.numbers`) for
+of them (`lib/check.py`), and the family's plain reference over the
+sample. Each line gives the check's numbers (`check.numbers`) for
 - `program`: the served tokens, as the benchmark's runs judge them;
 - `control_<precision>`: at each served position the token that the
   reference computed in a lower precision (`CONTROLS`, the first one the
@@ -43,7 +43,7 @@ def readings(name_: str, seed: int, device="cuda", root=spec.ROOT,
     bench = bench or spec.load_benchmark()
     c = spec.cell(bench, name_)
     cfg, mix = spec.config(c["config"], root), spec.mix(c["traffic"], root)
-    w, eng = bench_run.build(cfg, mix, seed, device)
+    w, eng = bench_run.build(cfg, mix, seed, device, root)
     source = traffic.requests(mix, seed, cfg["vocab_size"])
     reqs = [bench_run.serve(eng, next(source)) for _ in range(mix["block"])]
     del eng
@@ -55,14 +55,16 @@ def readings(name_: str, seed: int, device="cuda", root=spec.ROOT,
     picked = [reqs[i] for i in check.sample(
         reqs, seed, mix["check"]["served_tokens"])]
     margins = []
-    exact = bench_run.reference_logits(w, cfg, picked, device, margins=margins)
+    exact = bench_run.reference_logits(w, cfg, picked, device,
+                                       margins=margins, root=root)
     chosen = {"program": [r.tokens for r in picked]}
     for name in CONTROLS[cfg["weights"]["precision"]]:
         lower = bench_run.reference_logits(w, cfg, picked, device,
-                                         weight=getattr(precision, name))
+                                           weight=getattr(precision, name),
+                                           root=root)
         chosen[f"control_{name}"] = [lo.argmax(-1) for lo in lower]
     witness = bench_run.reference_logits(w, cfg, picked, device,
-                                       dtype=torch.bfloat16)
+                                         dtype=torch.bfloat16, root=root)
     chosen["witness_bf16"] = [x.argmax(-1) for x in witness]
     margin = spec.limits(name_, root).get("router_margin")
     out = {"cell": name_, "seed": seed}

@@ -1,6 +1,7 @@
 """Mixtral (a LLaMA decoder whose MLP is a sparse mixture of SwiGLU
 experts) served in bf16: the weights drawn from the seed, the port's
-`MixtralParams` over the same tensors, and the port's ModelConfig."""
+`MixtralParams` over the same tensors, the port's ModelConfig, and the
+probe that names its expert GEMMs in a trace."""
 
 from __future__ import annotations
 
@@ -51,3 +52,13 @@ def port_params(w: dict):
 
 def draft(cfg: dict, draw: Draw, w: dict):
     return eagle_draft(draw, cfg, w["embed"])
+
+
+def expert_gemm_names(eng, cfg: dict, mix: dict, device) -> frozenset:
+    """The GEMMs of `moe_block` on the served engine's first layer at the
+    row counts of the cell's base forwards: a prefill chunk and a verify
+    (`lib/trace.py moe_gemm_names`)."""
+    from benchmark.lib.trace import moe_gemm_names
+    return moe_gemm_names(
+        eng.params, eng.params.layers.layer(0), eng.cfg.model,
+        (mix["engine"]["prefill_chunk"], eng.cfg.tree.node_cap), device)

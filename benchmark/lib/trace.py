@@ -50,17 +50,19 @@ _FAMILY_KEYS = (("qmm_kernel<0", "int8_matmul"),
                 ("radix", "sort_topk"))
 
 
-def family(name: str, moe=frozenset()) -> str:
+def family(name: str, moe=frozenset(), keys=()) -> str:
     """The kernel family of a device kernel's name in a profiler trace: the
     port's six CUDA kernels, the split-K reduce pass of int8 / nf4 / int4
     as `matmul_reduce`, the head's merge pass as `head_select`, the GEMMs
     named in `moe` (Mixtral's expert products, `moe_gemm_names`) as
     `moe_experts`, the other cuBLAS GEMMs (the lm_head, a bf16 base's
-    projections), sort/top-k, everything else as `other`."""
+    projections), sort/top-k, everything else as `other`. `keys`: a model
+    family's own (substring, family) pairs, tried before the frozen ones
+    (`families/__init__.py KERNEL_FAMILIES`)."""
     if name in moe:
         return "moe_experts"
     n = name.lower()
-    for key, fam in _FAMILY_KEYS:
+    for key, fam in (*keys, *_FAMILY_KEYS):
         if key in n:
             return fam
     return "other"
@@ -187,9 +189,10 @@ class Trace:
     (name, start, end) on the profiler's clock (`time.time_ns`), "request"
     around each `generate_fused` call and "prefill" around the engine's
     prefill; `lo`, `hi`: the window, from the first request's start to the
-    last one's end; `moe`: the expert GEMMs' names."""
+    last one's end; `moe`: the expert GEMMs' names; `keys`: the model
+    family's own kernel families (`family`)."""
 
-    def __init__(self, ops, spans, moe=frozenset()):
+    def __init__(self, ops, spans, moe=frozenset(), keys=()):
         req = [(s, e) for n, s, e in spans if n == REQUEST_SPAN]
         if not req:
             raise RuntimeError("trace: no request span in the traced window")
@@ -203,12 +206,13 @@ class Trace:
                                "activity)")
         self.spans = spans
         self.moe = moe
+        self.keys = tuple(keys)
         self._fam = {}
 
     @classmethod
-    def from_profile(cls, prof, spans, moe=frozenset()) -> "Trace":
+    def from_profile(cls, prof, spans, moe=frozenset(), keys=()) -> "Trace":
         return cls([(n, s, s + d) for n, s, d in device_events(prof)],
-                   spans, moe)
+                   spans, moe, keys)
     @property
     def window_s(self) -> float:
         return (self.hi - self.lo) / 1e9
@@ -219,7 +223,7 @@ class Trace:
 
     def family_of(self, name: str) -> str:
         if name not in self._fam:
-            self._fam[name] = family(name, self.moe)
+            self._fam[name] = family(name, self.moe, self.keys)
         return self._fam[name]
 
     @functools.cached_property

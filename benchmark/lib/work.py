@@ -1,6 +1,8 @@
-"""The work the served requests needed, reckoned from the configuration's
-shapes and what each request served (prompt tokens, rounds, new tokens),
-never from a kernel's grid, tiles or padding.
+"""The work the served requests needed in the LLaMA-style families (a
+LLaMA decoder with an optional Mixtral MLP; `Dims` is the default of a
+family's `work` hook), reckoned from the configuration's shapes and what
+each request served (prompt tokens, rounds, new tokens), never from a
+kernel's grid, tiles or padding.
 
 One request is an eager chunked prefill and then `rounds` speculative
 rounds (`SpecEngine.generate_fused`):
@@ -55,7 +57,8 @@ class Dims:
             hidden=cfg["hidden_size"], inter=cfg["intermediate_size"],
             layers=cfg["num_hidden_layers"],
             nq=cfg["num_attention_heads"], nkv=cfg["num_key_value_heads"],
-            head_dim=cfg["hidden_size"] // cfg["num_attention_heads"],
+            head_dim=cfg.get("head_dim", cfg["hidden_size"]
+                             // cfg["num_attention_heads"]),
             vocab=cfg["vocab_size"],
             experts=cfg.get("num_local_experts", 0),
             experts_per_token=cfg.get("num_experts_per_tok", 0),
@@ -63,6 +66,23 @@ class Dims:
             depth=tree["depth"], top_k=tree["top_k"],
             tree_rows=tree["total_tokens"] + 1,
             chunk=mix["engine"]["prefill_chunk"])
+
+    # what the readers ask of a family's work (`families/__init__.py`):
+    # seconds, or None for a kernel the family does not launch
+    def attention_bound_s(self, reqs) -> float:
+        return attention_bound_s(reqs, self)
+
+    def int8_bound_s(self, reqs) -> float:
+        return int8_bound_s(reqs, self)
+
+    def head_bound_s(self, reqs) -> float:
+        return head_bound_s(reqs, self)
+
+    def moe_bound_s(self, reqs) -> float | None:
+        return moe_bound_s(reqs, self) if self.experts else None
+
+    def model_flops(self, reqs) -> float:
+        return model_flops(reqs, self)
 
     def attn_products(self, width: int) -> list:
         """(In, Out) of q, k, v and o at model width `width`."""

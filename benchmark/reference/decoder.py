@@ -1,4 +1,6 @@
-"""Plain float32 reference of the decoder families the benchmark serves.
+"""Plain float32 reference of the LLaMA-style decoder families the
+benchmark serves: the reference of a family that names no other
+(`benchmark/families/__init__.py`).
 
 The forward pass of a LLaMA-style decoder as the published model cards
 describe it: token embedding; per layer RMSNorm, q / k / v projections
@@ -100,8 +102,8 @@ def layer(x, lw, cfg):
     dtype; each result is cast back to it (float32: no cast at all).
     Returns (x, the router's margin per row: +inf for a dense MLP)."""
     dt = x.dtype
-    d = cfg["head_dim"]
     nq, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    d = cfg.get("head_dim", cfg["hidden_size"] // nq)
     eps = cfg["rms_norm_eps"]
     t = x.shape[0]
     h = rms_norm(x.float(), lw["input_ln"].float(), eps).to(dt)
@@ -127,9 +129,10 @@ def next_token_logits(w, cfg, seqs, rows, weight=exact,
                       dtype=torch.float32, margins=None):
     """float32 logits of the next token at `rows[i]` (positions) of each
     token sequence `seqs[i]` (1-D int64), one (len(rows[i]), V) tensor a
-    sequence. `cfg`: the configuration's keys plus "head_dim"; `w`: the
-    drawn weights; `weight`: how a weight leaf becomes float32; `dtype`:
-    the reference's float32, or bfloat16 for a plain bf16 witness. A list
+    sequence. `cfg`: the configuration's keys (the head dim `head_dim`,
+    else hidden size / heads); `w`: the drawn weights; `weight`: how a
+    weight leaf becomes float32; `dtype`: the reference's float32, or
+    bfloat16 for a plain bf16 witness. A list
     given as `margins` receives, per sequence, each row's smallest router
     margin over the layers (+inf for a dense model)."""
     with torch.no_grad(), float32_exact():

@@ -12,9 +12,12 @@ through `SpecEngine.generate_fused`, whole blocks of the mix's sizes,
 until the first block boundary at or past `--seconds`. With `--trace 1`
 half of the first block's sizes run under torch.profiler (device
 activity only), and at least one whole block after them untraced.
-Once the window has closed, the peak memory is read, the engine is
-freed, and a sample of the served requests goes to the plain float32
-reference (`benchmark/lib/check.py`).
+With `--trace 1` the port's recorder (`flowspec_tpu_torch.utils.profiler
+prof`) is on from the start of set-up to the end of the first block, for
+the readers of its spans (`lib/program_spans.py`); `--trace 0` leaves it
+off. Once the window has closed, the peak memory is read, the engine is
+freed, and a sample of the served requests goes to the family's plain
+float32 reference (`benchmark/lib/check.py`).
 
 The result's metrics are the cell's end-to-end metrics (`--trace 0`) or
 its per-layer metrics (`--trace 1`), each read by `metrics/<name>.py`.
@@ -41,7 +44,6 @@ import numpy as np  # noqa: E402
 
 from benchmark.lib import check, spec, traffic  # noqa: E402
 from benchmark.lib import trace as tr  # noqa: E402
-from benchmark.lib.work import Dims  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "flowspec_tpu")
 
@@ -76,7 +78,7 @@ class Run:
     """What a metric's reader reads (`metrics/<name>.py read(run)`)."""
     cfg: dict
     mix: dict
-    dims: Dims
+    dims: object            # the family's work (`spec.Family.work`)
     requests: list          # every request of the window, in order
     window_s: float
     setup_s: float
@@ -90,17 +92,17 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN))
 
 
-def build(cfg: dict, mix: dict, seed: int, device):
+def build(cfg: dict, mix: dict, seed: int, device, root: Path = spec.ROOT):
     """(drawn weights, engine): the base and draft drawn on `device` from
-    `seed`, served by the port's SpecEngine as the configuration and the
-    mix's engine settings say."""
+    `seed` by the configuration's family, served by the port's SpecEngine
+    as the configuration and the mix's engine settings say."""
     import torch
     from flowspec_tpu_torch.runtime import SpecEngine
     from flowspec_tpu_torch.config import (
         EngineConfig, SamplingConfig, TreeConfig,
     )
     from benchmark.families.common import Draw
-    fam = spec.family(cfg["family"])
+    fam = spec.family(cfg["family"], root)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     draw = Draw(gen, device, getattr(torch, cfg["torch_dtype"]))
@@ -147,18 +149,17 @@ def prefill_spans(eng, spans: list) -> None:
 
 
 def reference_logits(w, cfg, reqs, device, weight=None, dtype=None,
-                   margins=None) -> list:
-    """Per request, the reference's logits at the positions of its served
-    tokens (`weight`, `dtype`: a control's or a witness's; `margins` as in
-    `decoder.next_token_logits`)."""
+                     margins=None, root: Path = spec.ROOT) -> list:
+    """Per request, the configuration's family's reference logits at the
+    positions of its served tokens (`weight`, `dtype`: a control's or a
+    witness's; `margins` receives each served position's smallest router
+    margin, as the reference's `next_token_logits` gives it)."""
     import torch
-    from benchmark.reference import decoder, precision
+    from benchmark.reference import precision
     seqs, rows = check.sequences(reqs, device)
-    ref_cfg = dict(cfg, head_dim=cfg["hidden_size"]
-                   // cfg["num_attention_heads"])
-    return decoder.next_token_logits(w, ref_cfg, seqs, rows,
-                                     weight or precision.exact,
-                                     dtype or torch.float32, margins)
+    return spec.family(cfg["family"], root).reference_logits(
+        w, cfg, seqs, rows, weight or precision.exact,
+        dtype or torch.float32, margins)
 
 
 def warm_profiler(device) -> None:
@@ -190,10 +191,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     """One run of cell `name`; returns the result line's object."""
     import torch
     from flowspec_tpu_torch.ops import counted_wrappers
+    from flowspec_tpu_torch.utils.profiler import prof as recorder
 
     bench = bench or spec.load_benchmark()
     c = spec.cell(bench, name)
     cfg, mix = spec.config(c["config"], root), spec.mix(c["traffic"], root)
+    fam = spec.family(cfg["family"], root)
     limits = spec.limits(name, root)
     wanted = spec.metrics_of(bench, name, trace)
     readers = {m["name"]: spec.reader(m["name"], root) for m in wanted}
@@ -203,8 +206,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                            "need a CUDA card, and this run has none")
 
     # ---- set-up ---------------------------------------------------------
+    if trace:
+        recorder.reset()
+        recorder.enabled = True
     t = note("imports", t_start)
-    w, eng = build(cfg, mix, seed, device)
+    w, eng = build(cfg, mix, seed, device, root)
     sync(device)
     t = note("weights drawn, engine built", t)
     warm_rng = np.random.default_rng(seed + 2)
@@ -218,17 +224,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     moe = frozenset()
     if trace:
         warm_profiler(device)
-        if cfg.get("num_local_experts"):
-            moe = tr.moe_gemm_names(
-                eng.params, eng.params.layers.layer(0), eng.cfg.model,
-                (mix["engine"]["prefill_chunk"], eng.cfg.tree.node_cap),
-                device)
+        moe = fam.expert_gemm_names(eng, cfg, mix, device)
     sync(device)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
     # ---- the window -----------------------------------------------------
     reqs, prof, launches, spans = [], None, None, []
+    counted = {"set-up": dict(recorder.counters)} if trace else {}
     source = traffic.requests(mix, seed, cfg["vocab_size"])
     t_window = time.perf_counter()
     setup_s = t_window - t_start
@@ -255,6 +258,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             block = [q for q in block if not traffic.traced(q.size)]
         for q in block:
             reqs.append(serve(eng, q))
+        if trace and reqs[-1].block == 0:
+            recorder.enabled = False
+            counted["block 0"] = {
+                k: n - counted["set-up"].get(k, 0)
+                for k, n in recorder.counters.items()}
         # a traced run serves a whole block untraced too (`metrics/mfu.py`)
         if reqs[-1].t1 >= deadline and (not trace or reqs[-1].block >= 1):
             break
@@ -263,7 +271,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     t = note(f"window of {len(reqs)} requests", t_window)
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
-    run = Run(cfg=cfg, mix=mix, dims=Dims.of(cfg, mix), requests=reqs,
+    run = Run(cfg=cfg, mix=mix, dims=fam.work(cfg, mix), requests=reqs,
               window_s=window_s, setup_s=setup_s)
     result_device = {"platform": "gpu" if on_card else "cpu",
                      "kind": (torch.cuda.get_device_name(device) if on_card
@@ -273,7 +281,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if trace:
         run.traced = [r for r in reqs if r.block == 0
                       and traffic.traced(r.size)]
-        run.trace = tr.Trace.from_profile(prof, spans, moe)
+        run.trace = tr.Trace.from_profile(prof, spans, moe,
+                                          fam.kernel_families)
         run.launches = launches
         prof = None
         result_device["busy_s"] = run.trace.busy_s
@@ -281,10 +290,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         breakdown = {"device_ops": run.trace.device_ops(),
                      "idle_gaps": run.trace.idle_gaps()}
         t = note("trace read", t)
-        counted = run.trace.family_count()
+        kernels = run.trace.family_count()
         print("traced kernels against counted launches: "
-              + json.dumps({k: [counted.get(k, 0), n]
+              + json.dumps({k: [kernels.get(k, 0), n]
                             for k, n in launches.items()}), file=sys.stderr)
+        print("recorder counters: " + json.dumps({
+            part: {k: n.get(k, 0) for k in ("graph_captures",
+                                            "kernel_builds")}
+            for part, n in counted.items()}), file=sys.stderr)
     metrics = {}
     for m in wanted:
         v = readers[m["name"]](run)
@@ -303,7 +316,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
     numbers = judge(w, cfg, mix, reqs, seed, device,
-                    limits.get("router_margin"))
+                    limits.get("router_margin"), root)
     t = note("reference", t)
     correct, numbers = check.compare(numbers, limits["limits"])
     return result_line(correct, reqs, metrics, result_device, breakdown,
@@ -311,7 +324,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
 
 def judge(w, cfg: dict, mix: dict, reqs: list, seed: int, device,
-          router_margin=None) -> dict:
+          router_margin=None, root: Path = spec.ROOT) -> dict:
     """The check's numbers (`lib/check.py`) over the seed's sample of the
     finished requests, the requests that raised, and those that served
     fewer tokens than they asked for."""
@@ -323,7 +336,8 @@ def judge(w, cfg: dict, mix: dict, reqs: list, seed: int, device,
         done, seed, mix["check"]["served_tokens"])] if done else []
     if picked:
         margins = []
-        logits = reference_logits(w, cfg, picked, device, margins=margins)
+        logits = reference_logits(w, cfg, picked, device, margins=margins,
+                                  root=root)
         out.update(check.numbers(logits, [r.tokens for r in picked],
                                  margins, router_margin))
     return out

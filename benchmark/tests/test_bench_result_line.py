@@ -17,9 +17,13 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
 def test_untraced_line_has_the_keys_and_the_cells_metrics(tmp_path):
+    from flowspec_tpu_torch.utils.profiler import prof
+    prof.reset()
     root, bench = tiny.make_root(tmp_path)
     res = run.run_cell("tinyqwen.tinymix", 5, 0.5, False, "cpu", root=root,
                        bench=bench)
+    # an untraced run leaves the port's recorder off
+    assert not prof.enabled and prof.spans == []
     assert list(res) == KEYS + ["check"]
     e2e = [m for m in bench["end_to_end"] if "workloads" not in m]
     assert set(res["metrics"]) == {m["name"] for m in e2e}
