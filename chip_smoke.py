@@ -7,7 +7,8 @@ Phases, one JSON line each on stdout (each with the wall clock at its
 emission, `clock_s`):
   1. device   the card, and `nvidia-smi` name + power limit on a line of its
               own; exits non-zero without a CUDA card or outside the repo;
-  2. build    the six CUDA kernels from csrc/ (one nvcc each, in parallel);
+  2. build    the seven CUDA kernels from csrc/ (one nvcc each, in
+              parallel);
   3. kernels  each kernel against its plain PyTorch version at the shapes
               the three serve paths give it, with its time (CUDA events, L2
               flushed before every timed launch, a few ms of device work
@@ -19,7 +20,14 @@ emission, `clock_s`):
               pre-decoded bf16 weight, which reads four times the bytes; the
               head has both: `topk∘log_softmax` on a bf16 copy made per call
               and `bf16_matmul_ms` on one made once) and the bound (max of
-              bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16). All six
+              bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16). The
+              latent attention `mla_attention` (DeepSeek-V3) has no TPU
+              kernel it replaces and no earlier version: it is held against
+              its plain version at the DeepSeek path's and the benchmark
+              cell's shapes (`MLA_SHAPES`: 128 heads, T 1 / 64 / 81, 512 /
+              768 / 1280 KV rows, n_valid read on the card, equal to the
+              host count's bits), its library yardstick SDPA over the
+              non-absorbed per-head K / V. The other six
               kernels are redesigns: the split-K wgmma `int8_matmul`,
               `nf4_matmul`, `int4_matmul` and `int4_matmul_smallm`, the
               cluster-joined `tree_attention` and the wgmma `head_topk`. Each
@@ -88,6 +96,19 @@ emission, `clock_s`):
      and checked as in 4, the fused request profiled (not the eager one);
      Mixtral's expert products are a profile family of their own
      (`moe_experts`, the GEMM kernels `moe_gemm_names` finds);
+     _deepseek_v3_bf16    DeepSeek-V3 (the benchmark's
+                          deepseek-v3-bf16-15l-ep32 configuration: latent
+                          attention over a 576-wide latent cache, 8 of 256
+                          routed experts held and the shared one) in bf16
+                          at full width, cut to 5 layers (3 dense + 2 MoE),
+                          drawn with its int8 draft by the benchmark's
+                          family, 2 requests x 64 new tokens, served and
+                          checked as the other families: its launches a
+                          round are one latent attention a base layer and
+                          the draft's kernels (its bf16 products launch
+                          none), every path must launch `mla_attention`,
+                          and its expert products are `moe_experts` (the
+                          family's `expert_gemm_names`);
   7. lm_head   the verify-width lm_head at 7B within f32 summation order of
      the f32 product, one call's peak memory below one f32 head;
   8. loader    Qwen2-7B at full width cut to 2 layers, bf16 with biases,
@@ -328,7 +349,8 @@ INT8_SHAPES = (
                        ("w_gate", 3584, 18944), ("w_down", 18944, 3584))]
     + [(f"{fam}_draft_{w}_M{m}", m, i, o) for m in (10, 1)
        for fam, h, kv, inter in (
-        ("qwen2", 3584, 512, 18944), ("mixtral", 4096, 1024, 14336))
+        ("qwen2", 3584, 512, 18944), ("mixtral", 4096, 1024, 14336),
+        ("deepseek", 7168, 7168, 18432))
        for w, i, o in (("fc", 2 * h, h), ("wq", h, h), ("wk", h, kv),
                        ("w_gate", h, inter), ("w_down", inter, h))])
 BASE_7B = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
@@ -378,7 +400,9 @@ ATTN_SHAPES = [("verify_T81", 32, 32, 81, 512, 64 + 64 + 81),
     for name, t, n_valid in (("verify_T81", 81, 64 + 64 + 81),
                              ("verify_T81_late", 81, 64 + 128 + 81),
                              ("prefill_T64", 64, 64), ("ar_T1", 1, 200),
-                             ("draft_T10", 10, 150 + 80))]
+                             ("draft_T10", 10, 150 + 80))] + [
+    # DeepSeek-V3's int8 EAGLE draft: 56 heads of 128 (MHA) at H 7168
+    ("deepseek_draft_T10", 56, 56, 10, 512, 150 + 80)]
 # head top-k: (name, T, H, V), k 10 (Qwen2-7B's V 152064: 1188 strips, 95 KB
 # of keys a row, merged from device memory); then untimed checks (name, T,
 # H, V, k): the width boundary, 17 strips, k 1, and k 32 (64 KB of keys a
@@ -387,13 +411,17 @@ HEAD_SHAPES = [("root_T1", 1, 4096, 32000), ("beam_T10", 10, 4096, 32000),
                ("13b_root_T1", 1, 5120, 32000),
                ("13b_beam_T10", 10, 5120, 32000),
                ("qwen2_root_T1", 1, 3584, 152064),
-               ("qwen2_beam_T10", 10, 3584, 152064)]
+               ("qwen2_beam_T10", 10, 3584, 152064),
+               # DeepSeek-V3's int8 beam head: V 129280 at H 7168
+               ("deepseek_root_T1", 1, 7168, 129280),
+               ("deepseek_beam_T10", 10, 7168, 129280)]
 HEAD_CHECKS = [("T16", 16, 4096, 32000, 10), ("T17", 17, 4096, 32000, 10),
                ("V2176", 10, 4096, 2176, 10), ("k1", 10, 4096, 32000, 1),
                ("k32", 4, 4096, 32000, 32)]
 MAIN = {"int8_matmul": "base_w_gate_M81", "tree_attention": "verify_T81",
         "head_topk": "beam_T10", "nf4_matmul": "base_w_gate_M81",
-        "int4_matmul": "13b_wq_M81", "int4_matmul_smallm": "13b_wq_M1"}
+        "int4_matmul": "13b_wq_M81", "int4_matmul_smallm": "13b_wq_M1",
+        "mla_attention": "cell_verify_T81"}
 REPLACES = {
     "int8_matmul": "flowspec_tpu/ops/quant_matmul.py:47",
     "tree_attention": "flowspec_tpu/ops/tree_attention.py:31",
@@ -401,6 +429,8 @@ REPLACES = {
     "nf4_matmul": "flowspec_tpu/ops/quant_matmul.py:118",
     "int4_matmul": "flowspec_tpu/ops/quant_matmul.py:144",
     "int4_matmul_smallm": "flowspec_tpu/ops/quant_matmul.py:203",
+    # the JAX package has no latent attention: a kernel of the port's own
+    "mla_attention": None,
 }
 # the earlier version each redesigned kernel is timed against: an entry
 # point of the same library, for comparison only
@@ -440,6 +470,8 @@ CONFIGS = {
     "qwen2_7b_int8": ("qwen2", "int8", FAMILY_REQUESTS, FAMILY_NEW_TOKENS),
     "mixtral_8x7b_bf16": ("mixtral", "bf16", FAMILY_REQUESTS,
                           FAMILY_NEW_TOKENS),
+    "deepseek_v3_bf16": ("deepseek", "bf16", FAMILY_REQUESTS,
+                         FAMILY_NEW_TOKENS),
 }
 ON_SPEC = {"7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
            "13b_mixed": ("int8_matmul", "int4_matmul", "tree_attention",
@@ -448,13 +480,17 @@ ON_SPEC = {"7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
            "qwen2_7b_int8": ("int8_matmul", "tree_attention", "head_topk"),
            # the bf16 base launches no matmul kernel; the int8 draft does
            "mixtral_8x7b_bf16": ("int8_matmul", "tree_attention",
-                                 "head_topk")}
+                                 "head_topk"),
+           # the base's attention is latent; the draft's is GQA
+           "deepseek_v3_bf16": ("mla_attention", "int8_matmul",
+                                "tree_attention", "head_topk")}
 ON_AR = {"7b_int8": ("int8_matmul", "tree_attention"),
          "13b_mixed": ("int8_matmul", "int4_matmul", "int4_matmul_smallm",
                        "tree_attention"),
          "7b_nf4": ("nf4_matmul", "tree_attention"),
          "qwen2_7b_int8": ("int8_matmul", "tree_attention"),
-         "mixtral_8x7b_bf16": ("tree_attention",)}
+         "mixtral_8x7b_bf16": ("tree_attention",),
+         "deepseek_v3_bf16": ("mla_attention",)}
 # the batched phase: 4 lanes of 7B int8 (adapt_tree: 32-node trees a lane),
 # max_seq 480 + 32 node rows = 512 base KV rows; serve budgets 32-192
 # (different per request); a 192-token shared prefix with suffixes of 16-48
@@ -668,6 +704,25 @@ TRAIN_LANE_ATTN_SHAPES = [
      "causal")]
 ATTN_SHAPES += TRAIN_ATTN_SHAPES
 LANE_ATTN_SHAPES += TRAIN_LANE_ATTN_SHAPES
+# DeepSeek-V3 (`deepseek_v3_bf16`): the benchmark's configuration at full
+# width, drawn by its family, cut to 5 layers: 3 dense + 2 MoE (~9.5 GB)
+DEEPSEEK_CONFIG = "benchmark/configs/deepseek-v3-bf16-15l-ep32.json"
+DEEPSEEK_LAYERS = 5
+# the latent attention (128 heads, 576-wide latent rows, 512 values, the
+# scale 192^-1/2 x mscale^2 of YaRN factor 40): (name, T, S, n_valid).
+# The DeepSeek path (max_seq 216: 512 base KV rows) at its prefill chunk,
+# verify (64-token prompts, early and late) and AR step; the benchmark
+# cell's (max_seq 1024, buckets 256 / 512: 512, 768 and 1280 rows, prompts
+# 196-593 + 128 tokens) prefill chunk and verify
+MLA_SHAPES = [("prefill_T64", 64, 512, 64),
+              ("verify_T81", 81, 512, 64 + 32 + 81),
+              ("verify_T81_late", 81, 512, 64 + 64 + 81),
+              ("ar_T1", 1, 512, 128),
+              ("cell_prefill_T64", 64, 768, 448),
+              ("cell_verify_T81_S512", 81, 512, 256 + 81),
+              ("cell_verify_T81", 81, 768, 512),
+              ("cell_verify_T81_S1280", 81, 1280, 593 + 128)]
+MLA_TOLERANCE = "|err| <= 1e-2*|plain| + 2e-2"
 # each configuration's measured kernel rows: attention at the verify, the
 # draft's context pass, a beam level and the AR step; the head at the root
 # and a beam level
@@ -685,7 +740,13 @@ ROWS = {"7b_int8": _LLAMA_ROWS, "7b_nf4": _LLAMA_ROWS,
         "mixtral_8x7b_bf16": {**_LLAMA_ROWS, "verify": "mixtral_verify_T81",
                               "ctx": "mixtral_draft_T10",
                               "beam": "mixtral_draft_T10",
-                              "ar": "mixtral_ar_T1"}}
+                              "ar": "mixtral_ar_T1"},
+        # verify and ar: rows of the latent kernel (MLA_SHAPES)
+        "deepseek_v3_bf16": {"verify": "verify_T81", "ctx":
+                             "deepseek_draft_T10", "beam":
+                             "deepseek_draft_T10", "ar": "ar_T1",
+                             "root": "deepseek_root_T1",
+                             "head": "deepseek_beam_T10"}}
 # what each configuration serves, for its lines
 DESCRIBE = {
     "qwen2_7b_int8": {
@@ -699,7 +760,16 @@ DESCRIBE = {
         "reduced": f"32 -> {MIXTRAL_LAYERS} layers: 32 layers of bf16 "
                    "experts are 92.8 GB, more than the card's 80 GB; 4, "
                    "not 16 or 8, for the run's time since the pipeline "
-                   "and train phases"}}
+                   "and train phases"},
+    "deepseek_v3_bf16": {
+        "model": f"{DEEPSEEK_CONFIG} (deepseek-ai/DeepSeek-V3 config.json; "
+                 "8 of 256 routed experts held, EP32 rank 0) bf16, random "
+                 "(benchmark/families/deepseek_v3.py draw), seeded",
+        "draft": "benchmark/families/deepseek_v3.py draft (int8, 56 heads "
+                 "of 128)",
+        "reduced": f"61 -> {DEEPSEEK_LAYERS} layers (3 dense + "
+                   f"{DEEPSEEK_LAYERS - 3} MoE; the benchmark cell serves "
+                   "15): the run's time"}}
 
 
 def emit(obj) -> None:
@@ -909,6 +979,15 @@ def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128,
         torch.bfloat16)
     v = torch.randn((1, nkv, s_max, d), generator=gen, device=dev).to(
         torch.bfloat16)
+    return q, k, v, tree_bias_rows(gen, dev, t, s_max, n_valid, causal)
+
+
+def tree_bias_rows(gen, dev, t, s_max, n_valid, causal=False):
+    """The (T, S) f32 bias of a tree verify: context [0, n_valid - t)
+    visible, a random tree mask (diagonal always live; `causal`: the
+    prefill's lower triangle) over the last t live rows, -1e9 past
+    n_valid."""
+    import torch
     ctx = n_valid - t
     tree = (torch.rand((t, t), generator=gen, device=dev) < 0.3).tril()
     tree |= torch.eye(t, dtype=torch.bool, device=dev)
@@ -917,7 +996,7 @@ def attention_inputs(gen, dev, nq, nkv, t, s_max, n_valid, d=128,
     bias = torch.full((t, s_max), -1e9, device=dev)
     bias[:, :ctx] = 0.0
     bias[:, ctx:n_valid] = torch.where(tree, 0.0, -1e9)
-    return q, k, v, bias
+    return bias
 
 
 def check_attention(dev, gen, flush, details):
@@ -992,6 +1071,85 @@ def check_attention(dev, gen, flush, details):
         rows[name] = row
         if not ok:
             raise AssertionError(f"tree_attention disagrees at {name}: {row}")
+    return rows
+
+
+def check_mla(dev, gen, flush, details):
+    """The latent attention at every MLA_SHAPES row: the kernel with a
+    device n_valid (the serving path's form) against its plain version
+    (MLA_TOLERANCE: one bf16 rounding of outputs up to ~4, where a step is
+    0.031, with the probabilities rounded at another point; a wrong scale,
+    mask or value column is off by tenths), equal bits on two launches and
+    with a host n_valid; timed with the device and the host n_valid, the
+    plain version, and the library yardstick (`library_ms`): SDPA over the
+    non-absorbed per-head q / K / V of the same heads (192-wide q and K,
+    128-wide V, K and V expanded from the latent rows by a random kv_b
+    beforehand, outside the timing), over the live rows. The bound: the
+    live latent rows, q and out once; 2 x T x heads x keys x (576 + 512)
+    operations."""
+    import torch
+    import torch.nn.functional as F
+    from flowspec_tpu_torch.ops.mla_attention import (
+        mla_attention, mla_attention_plain)
+    heads, c, r, nope, rope, dv = 128, 576, 512, 128, 64, 128
+    scale = (nope + rope) ** -0.5 * (0.1 * math.log(40) + 1) ** 2
+    wkv_b = (torch.randn((r, heads * (nope + dv)), generator=gen, device=dev)
+             * r ** -0.5).to(torch.bfloat16)
+    rows = {}
+    for name, t, s_max, n_valid in MLA_SHAPES:
+        q = torch.randn((1, heads, t, c), generator=gen, device=dev).to(
+            torch.bfloat16)
+        latent = torch.randn((1, s_max, c), generator=gen, device=dev).to(
+            torch.bfloat16)
+        bias = tree_bias_rows(gen, dev, t, s_max, n_valid,
+                              causal=name.endswith("prefill_T64"))
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        before = mla_attention.launches
+        got = mla_attention(q, latent, bias, nv, scale=scale)
+        again = mla_attention(q, latent, bias, nv, scale=scale)
+        host = mla_attention(q, latent, bias, n_valid, scale=scale)
+        if mla_attention.launches != before + 3:
+            raise AssertionError(f"mla_attention did not launch at {name}")
+        want = mla_attention_plain(q, latent, bias, n_valid, scale=scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        ok_err = bool((err <= 1e-2 * want.float().abs() + 2e-2).all())
+        equal = bool(torch.equal(got, again))
+        equal_host = bool(torch.equal(got, host))
+        ok = ok_err and equal and equal_host
+        kvb = (latent[0, :n_valid, :r] @ wkv_b).view(n_valid, heads,
+                                                     nope + dv)
+        k = torch.cat([kvb[..., :nope], latent[0, :n_valid, r:][:, None]
+                       .expand(n_valid, heads, rope)], -1).transpose(
+            0, 1)[None].contiguous()
+        v = kvb[..., nope:].transpose(0, 1)[None].contiguous()
+        qn = torch.randn((1, heads, t, nope + rope), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        mask = bias[:, :n_valid].to(torch.bfloat16).contiguous()
+        b, by = bound_ms(n_valid * c * 2 + t * heads * (c + r) * 2,
+                         2.0 * t * heads * n_valid * (c + r))
+        row = {"kernel": "mla_attention", "shape": name, "heads": heads,
+               "T": t, "S": s_max, "C": c, "v_dim": r, "n_valid": n_valid,
+               "max_abs_err": float(err.max()), "equal_bits": equal,
+               "equal_bits_host_n_valid": equal_host,
+               "tolerance": MLA_TOLERANCE, "ok": ok,
+               "ms": time_ms(lambda: mla_attention(q, latent, bias, nv,
+                                                   scale=scale), flush),
+               "host_n_valid_ms": time_ms(
+                   lambda: mla_attention(q, latent, bias, n_valid,
+                                         scale=scale), flush),
+               "plain_ms": time_ms(
+                   lambda: mla_attention_plain(q, latent, bias, n_valid,
+                                               scale=scale), flush, iters=5),
+               "library_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qn, k, v, attn_mask=mask, scale=scale), flush,
+                   iters=10),
+               "bound_ms": b, "bound_by": by}
+        details.append(row)
+        rows[name] = row
+        if not ok:
+            raise AssertionError(f"mla_attention disagrees at {name}: {row}")
     return rows
 
 
@@ -1208,10 +1366,13 @@ def make_engine(dev, model: str = "7b", quant: str = "int8",
     way ("mixed" keeps the draft int8); "qwen2" (Qwen2-7B, int8, its qkv
     biases N(0, 0.1) so that the bias add runs) and "mixtral"
     (Mixtral-8x7B in bf16, cut to MIXTRAL_LAYERS layers) with a random
-    full-width draft in int8, so the beam head is int8 too. `layers` cuts
-    a LLaMA or Qwen2 base to that depth (full by default)."""
+    full-width draft in int8, so the beam head is int8 too; "deepseek"
+    (`deepseek_engine`). `layers` cuts a LLaMA or Qwen2 base to that depth
+    (full by default)."""
     import dataclasses
     import torch
+    if model == "deepseek":
+        return deepseek_engine(dev, n_requests, new_tokens)
     from flowspec_tpu_torch.config import ModelConfig
     from flowspec_tpu_torch.draft.eagle import (
         init_eagle_params, load_thin_draft, quantize_eagle_params)
@@ -1254,6 +1415,52 @@ def make_engine(dev, model: str = "7b", quant: str = "int8",
     return eng, prompts, build_s
 
 
+def deepseek_engine(dev, n_requests: int, new_tokens: int):
+    """(engine, prompts, seconds to build it) for DeepSeek-V3: the
+    benchmark's configuration (DEEPSEEK_CONFIG) cut to DEEPSEEK_LAYERS
+    layers, its base and int8 draft drawn by the benchmark's family from
+    the generator seeded SEED, served with `engine_config`'s tree."""
+    import torch
+    from benchmark.families import deepseek_v3 as fam
+    from benchmark.families.common import Draw
+    from flowspec_tpu_torch.runtime import SpecEngine
+    cfg = {**json.loads((ROOT / DEEPSEEK_CONFIG).read_text()),
+           "num_hidden_layers": DEEPSEEK_LAYERS}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    draw = Draw(gen, dev, torch.bfloat16)
+    w = fam.draw(cfg, draw)
+    draft = fam.draft(cfg, draw, w)
+    mc = fam.model_config(cfg)
+    eng = SpecEngine(fam.port_params(w), draft, engine_config(mc, new_tokens))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = torch.Generator().manual_seed(SEED)
+    prompts = [torch.randint(3, mc.vocab_size, (PROMPT_LEN,),
+                             generator=rng).tolist()
+               for _ in range(n_requests)]
+    return eng, prompts, build_s
+
+
+def is_deepseek(eng) -> bool:
+    from flowspec_tpu_torch.models.deepseek import DeepseekParams
+    return isinstance(eng.params, DeepseekParams)
+
+
+def base_layers(eng) -> list:
+    """The base's projection weights of BASE_PROJ (each stacked over its
+    layers); none for DeepSeek, whose bf16 products launch no kernel of
+    the port."""
+    return ([] if is_deepseek(eng)
+            else [getattr(eng.params.layers, f) for f in BASE_PROJ])
+
+
+def base_attention(eng) -> str:
+    """The kernel of the base's attention: the latent one for DeepSeek."""
+    return "mla_attention" if is_deepseek(eng) else "tree_attention"
+
+
 def launch_counts():
     """The wrapper that carries each kernel's launch count, the
     comparison-only entry points included (they must count 0 on a serve
@@ -1274,15 +1481,16 @@ def _matmul_kernel(w, m):
 
 def expected_per_round(eng) -> dict:
     """Launches per speculative round that the code implies: a base verify
-    pass (7 projections and one attention per layer, node_cap rows), the
+    pass (7 projections and one attention per layer, node_cap rows; for
+    DeepSeek one latent attention per layer and no projection kernel), the
     draft context and one pass per tree level (9 projections and one
     attention each at top_k rows, one head top-k per level)."""
     tree = eng.cfg.tree
     n_layers = eng.cfg.model.num_hidden_layers
     passes = tree.depth + 1
-    out = {"tree_attention": n_layers + passes, "head_topk": passes}
-    for w, m, n in ([(getattr(eng.params.layers, f), tree.node_cap, n_layers)
-                     for f in BASE_PROJ]
+    out = {"tree_attention": passes, "head_topk": passes}
+    out[base_attention(eng)] = out.get(base_attention(eng), 0) + n_layers
+    for w, m, n in ([(w, tree.node_cap, n_layers) for w in base_layers(eng)]
                     + [(getattr(eng.draft, f), tree.top_k, passes) for f in
                        ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up",
                         "w_down", "w_out")]):     # w_out: None unless thin
@@ -1340,15 +1548,15 @@ def round_sums(tag, eng, kernel_rows, per_round) -> dict:
     n_layers, depth = mc.num_hidden_layers, tree.depth
     rows = ROWS[tag]
     items = []                                   # (kernel, row, launches)
-    for f in BASE_PROJ:
-        _matmul_items(kernel_rows, items, getattr(eng.params.layers, f),
-                      tree.node_cap, n_layers)
+    for w in base_layers(eng):
+        _matmul_items(kernel_rows, items, w, tree.node_cap, n_layers)
     for f in ("fc_w", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "w_out"):
         _matmul_items(kernel_rows, items, getattr(eng.draft, f), tree.top_k,
                       depth + 1)
     attn, head = kernel_rows["tree_attention"], kernel_rows["head_topk"]
-    items += [("tree_attention", attn[rows["verify"]], n_layers),
+    base = base_attention(eng)
+    items += [(base, kernel_rows[base][rows["verify"]], n_layers),
               ("tree_attention", attn[rows["ctx"]], 1),
               ("tree_attention", attn[rows["beam"]], depth),
               ("head_topk", head[rows["root"]], 1),
@@ -1360,9 +1568,9 @@ def expected_per_ar_step(eng) -> dict:
     """Launches per autoregressive step that the code implies: one base pass
     at M 1 (7 projections and one attention per layer)."""
     n_layers = eng.cfg.model.num_hidden_layers
-    out = {"tree_attention": n_layers}
-    for f in BASE_PROJ:
-        kernel = _matmul_kernel(getattr(eng.params.layers, f), 1)
+    out = {base_attention(eng): n_layers}
+    for w in base_layers(eng):
+        kernel = _matmul_kernel(w, 1)
         if kernel is not None:
             out[kernel] = out.get(kernel, 0) + n_layers
     return out
@@ -1372,11 +1580,11 @@ def ar_step_sums(tag, eng, kernel_rows, per_step) -> dict:
     """`round_sums` for one autoregressive step: the base pass at M 1."""
     mc = eng.cfg.model
     items = []
-    for f in BASE_PROJ:
-        _matmul_items(kernel_rows, items, getattr(eng.params.layers, f), 1,
-                      mc.num_hidden_layers)
-    items.append(("tree_attention", kernel_rows["tree_attention"][
-        ROWS[tag]["ar"]], mc.num_hidden_layers))
+    for w in base_layers(eng):
+        _matmul_items(kernel_rows, items, w, 1, mc.num_hidden_layers)
+    base = base_attention(eng)
+    items.append((base, kernel_rows[base][ROWS[tag]["ar"]],
+                  mc.num_hidden_layers))
     return _sums(items, per_step, "ar_step_sums")
 
 
@@ -1452,8 +1660,9 @@ def device_events(prof):
 
 def family(name: str, moe=frozenset()) -> str:
     """The kernel family of a device kernel's name in a profiler trace: this
-    port's six CUDA kernels, the head's merge pass as `head_select`, the GEMMs
-    named in `moe` (Mixtral's expert products, `moe_gemm_names`) as
+    port's seven CUDA kernels, the head's merge pass as `head_select`, the
+    GEMMs named in `moe` (Mixtral's and DeepSeek's expert products,
+    `moe_gemm_names`) as
     `moe_experts`, the other cuBLAS GEMMs (the lm_head, a bf16 base's
     projections), sort/top-k, everything else. The wgmma int4 kernel runs
     under both `int4_matmul` and `int4_matmul_smallm` and counts as
@@ -1461,7 +1670,8 @@ def family(name: str, moe=frozenset()) -> str:
     if name in moe:
         return "moe_experts"
     n = name.lower()
-    for key, fam in (("qmm_kernel<0", "int8_matmul"),
+    for key, fam in (("mla_attention", "mla_attention"),
+                     ("qmm_kernel<0", "int8_matmul"),
                      ("qmm_kernel<1", "nf4_matmul"),
                      ("qmm_kernel<2", "int4_matmul"),
                      ("int8_matmul_kernel", "int8_matmul_strip"),
@@ -1637,7 +1847,7 @@ def divergences(eng, prompts, spec_out, ar_out):
         if not all(same):
             i = same.index(False)
             fault = {"position": i, "top2_gap": top2_gap(eng, p + ar[:i])}
-            if isinstance(eng.params, MixtralParams):
+            if isinstance(eng.params, MixtralParams) or is_deepseek(eng):
                 w = verify_width_logits(eng, p, ar[:i])
                 top = float(w.max())
                 fault["verify_width"] = {
@@ -1713,10 +1923,18 @@ def serve_config(tag, dev, counters, kernel_rows, smi):
     if layers:
         about = {**about, "reduced": f"{CUT_FULL[tag]} -> {layers} layers: "
                  "the run's time limit, since the pipeline phase"}
-    # Mixtral's expert products are cuBLAS GEMMs, told apart by name
-    moe, moe_shared = (moe_gemm_names(eng)
-                       if isinstance(eng.params, MixtralParams)
-                       else (frozenset(), []))
+    # Mixtral's and DeepSeek's expert products are cuBLAS GEMMs, told
+    # apart by name (DeepSeek's by its benchmark family, which leaves a
+    # name shared with a dense product out)
+    if isinstance(eng.params, MixtralParams):
+        moe, moe_shared = moe_gemm_names(eng)
+    elif is_deepseek(eng):
+        from benchmark.families import deepseek_v3
+        moe, moe_shared = deepseek_v3.expert_gemm_names(
+            eng, None, {"engine": {"prefill_chunk": eng.cfg.prefill_chunk}},
+            dev), []
+    else:
+        moe, moe_shared = frozenset(), []
     torch.cuda.reset_peak_memory_stats()
     zero(counters)
     eng.prefill(eng.init_state(), prompts[0])    # every prompt has one length
@@ -4080,6 +4298,7 @@ def main() -> int:
         "int4_matmul_smallm": check_packed4(
             "int4_matmul_smallm", INT4_SMALLM_SHAPES, dev, gen, flush,
             details),
+        "mla_attention": check_mla(dev, gen, flush, details),
     }
     del flush
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as f:

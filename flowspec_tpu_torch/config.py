@@ -168,6 +168,48 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepseekConfig(ModelConfig):
+    """DeepSeek-V3 (`models/deepseek.py`): the LLaMA fields above (the dense
+    layers' SwiGLU width is intermediate_size) and these. A subclass, so
+    that a LLaMA-family config keeps exactly the JAX package's fields."""
+
+    # Latent attention (MLA): q through a q_lora_rank bottleneck, one latent KV
+    # row of kv_lora_rank + qk_rope_head_dim values a token.
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rope scaling (factor 0: none)
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 1.0
+    # DeepSeek's MoE: the first `first_k_dense_replace` layers are dense
+    # SwiGLUs of intermediate_size, the rest route over n_routed_experts
+    # SwiGLUs of moe_intermediate_size (sigmoid scores, n_group groups of
+    # which topk_group are kept, num_experts_per_tok experts, weights
+    # normalised then x routed_scaling_factor) beside n_shared_experts.
+    n_routed_experts: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    # the expert share: the ids of the routed experts this card holds
+    # (expert parallelism; () = every one)
+    held_experts: Tuple[int, ...] = ()
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token and layer in the latent (MLA) KV cache."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class StageTopology:
     """Pipeline topology: how base-model layers map onto verify stages.
 

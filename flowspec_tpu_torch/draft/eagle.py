@@ -4,7 +4,10 @@ Port of `flowspec_tpu/draft/eagle.py`: frozen base embeddings, `fc: 2H ->
 W` fusion, one LLaMA decoder layer whose input layernorm is skipped, and
 (thin drafts, W < H) a `w_out: (W, H)` residual projection back to the base
 hidden space. The draft geometry is derived from the parameter shapes
-(`draft_view`), so no second config is threaded through. Drafts come from
+(`draft_view`), so no second config is threaded through; the head dim is
+the base's, unless the draft states its own (`SizedEagleParams`: a base
+whose attention has no head dim of the draft's kind, as DeepSeek-V3's
+latent attention). Drafts come from
 `init_eagle_params` (random, full width or thin), `load_eagle_params` (an
 HF EAGLE head) or `load_thin_draft` (the repo's npz drafts).
 """
@@ -43,6 +46,13 @@ class EagleParams:
     w_out: object = None   # (W, H) thin-draft output projection
 
 
+@dataclasses.dataclass
+class SizedEagleParams(EagleParams):
+    """An EAGLE draft that states its own head dim (the layer is the same
+    plain LLaMA layer, with plain rope)."""
+    head_dim: int | None = None
+
+
 def _odim(x) -> int:
     """Output (last) dim of a possibly-quantized weight."""
     q = getattr(x, "q", None)
@@ -51,26 +61,32 @@ def _odim(x) -> int:
 
 def draft_view(p: EagleParams, base_cfg: ModelConfig) -> ModelConfig:
     """ModelConfig of the draft layer's geometry, from the param shapes;
-    head_dim is the base's so rope matches across widths. A
-    tensor-parallel draft (`parallel/tp.py TPDraft`) gives its unsharded
-    geometry."""
+    head_dim is the draft's own where it states one, else the base's so
+    rope matches across widths. A tensor-parallel draft (`parallel/tp.py
+    TPDraft`) gives its unsharded geometry."""
     if not isinstance(p, EagleParams):
         return p.view(base_cfg)
     return geometry(base_cfg, _odim(p.fc_w), _odim(p.wq), _odim(p.wk),
-                    _odim(p.w_gate))
+                    _odim(p.w_gate), getattr(p, "head_dim", None))
 
 
 def geometry(base_cfg: ModelConfig, width: int, q_out: int, k_out: int,
-             inter: int) -> ModelConfig:
-    """The draft's ModelConfig from its width W, the Out widths of wq / wk
-    and its intermediate size: `base_cfg` itself for the full-width
-    layout."""
-    d = base_cfg.head_dim_
+             inter: int, head_dim: int | None = None) -> ModelConfig:
+    """The draft's ModelConfig from its width W, the Out widths of wq / wk,
+    its intermediate size and head dim (None: the base's): `base_cfg`
+    itself for the full-width layout. Only the LLaMA fields of the base's
+    config carry over (a DeepSeek base's latent-attention and MoE fields
+    describe no layer of the draft)."""
+    if type(base_cfg) is not ModelConfig:
+        base_cfg = ModelConfig(**{f.name: getattr(base_cfg, f.name)
+                                  for f in dataclasses.fields(ModelConfig)})
+    d = head_dim or base_cfg.head_dim_
     nq, nkv = q_out // d, k_out // d
     if (width == base_cfg.hidden_size
             and inter == base_cfg.intermediate_size
             and nq == base_cfg.num_attention_heads
-            and nkv == base_cfg.num_key_value_heads):
+            and nkv == base_cfg.num_key_value_heads
+            and d == base_cfg.head_dim_):
         return base_cfg
     return dataclasses.replace(
         base_cfg, hidden_size=width, intermediate_size=inter,

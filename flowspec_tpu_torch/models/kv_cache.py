@@ -25,6 +25,11 @@ pull the write below the lane's length). That row is scratch: its content
 is undefined (many rows land on it, in no fixed order) and never read. The
 JAX package selects the whole old state back instead; here that would copy
 every cache every round.
+
+A latent cache (DeepSeek's MLA, `models/deepseek.py`) holds one row a token
+and layer shared by every head: `k` is (L, B, 1, S, C) and `v` is None
+(the values are the first columns of the latent rows). Writes, compaction,
+growth and lanes treat it as a cache of one KV head with no V buffer.
 """
 
 from __future__ import annotations
@@ -82,14 +87,19 @@ def lane_tensor(x, lanes: int, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor         # (L, B, H_kv, S, D)
-    v: torch.Tensor         # (L, B, H_kv, S, D)
+    k: torch.Tensor         # (L, B, H_kv, S, D); a latent cache's rows
+    v: torch.Tensor | None  # (L, B, H_kv, S, D); None in a latent cache
     length: torch.Tensor    # () or (B,) int32 — valid positions, on k's
                             #   device
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def buffers(self) -> tuple:
+        """The row buffers: (k, v), or (k,) for a latent cache."""
+        return (self.k,) if self.v is None else (self.k, self.v)
 
     def with_length(self, length) -> "KVCache":
         return KVCache(k=self.k, v=self.v,
@@ -112,14 +122,13 @@ class KVCache:
         src = src.expand(b, pos_cap)
         dst_start = lane_tensor(dst_start, b, dev)
         dst = write_rows(dst_start, pos_cap, s_max, live)
-        kf = self.k.view(n_l, b * h * s_max, d)
-        vf = self.v.view(n_l, b * h * s_max, d)
+        flats = [x.view(n_l, b * h * s_max, d) for x in self.buffers]
         gsrc = flat_rows(src, h, s_max)
-        gk = kf.index_select(1, gsrc)            # gather first (a copy)
-        gv = vf.index_select(1, gsrc)
+        gathered = [f.index_select(1, gsrc)      # gather first (a copy)
+                    for f in flats]
         gdst = flat_rows(dst, h, s_max)
-        kf.index_copy_(1, gdst, gk)
-        vf.index_copy_(1, gdst, gv)
+        for f, g in zip(flats, gathered):
+            f.index_copy_(1, gdst, g)
         length = dst_start + n_src
         if live is not None:
             length = torch.where(live, length, self.length)
@@ -134,7 +143,9 @@ def grow_kv(cache: KVCache, rows: int) -> KVCache:
     if pad < 0:
         raise ValueError(f"grow_kv: {rows} rows < the cache's {cache.max_len}")
     return KVCache(k=F.pad(cache.k, (0, 0, 0, pad)),
-                   v=F.pad(cache.v, (0, 0, 0, pad)), length=cache.length)
+                   v=None if cache.v is None else F.pad(cache.v,
+                                                        (0, 0, 0, pad)),
+                   length=cache.length)
 
 
 def init_kv_cache(num_layers: int, batch: int, num_kv_heads: int,
@@ -144,6 +155,18 @@ def init_kv_cache(num_layers: int, batch: int, num_kv_heads: int,
     shape = (num_layers, batch, num_kv_heads, max_len, head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros((batch,), dtype=torch.int32,
+                                      device=device))
+
+
+def init_latent_cache(num_layers: int, batch: int, max_len: int,
+                      width: int, dtype=torch.bfloat16,
+                      device=None) -> KVCache:
+    """A zero latent cache (the module's note): (L, B, 1, S, width) rows,
+    no V buffer, one (zero) length a lane."""
+    return KVCache(k=torch.zeros((num_layers, batch, 1, max_len, width),
+                                 dtype=dtype, device=device),
+                   v=None,
                    length=torch.zeros((batch,), dtype=torch.int32,
                                       device=device))
 

@@ -1,5 +1,6 @@
 """Quantization containers and the kernel wrappers (int8 dequant-matmul,
-tree attention, fused head top-k), each beside its plain PyTorch version."""
+tree attention, latent attention, fused head top-k), each beside its plain
+PyTorch version."""
 
 from functools import lru_cache
 
@@ -11,6 +12,7 @@ def counted_wrappers() -> dict:
     themselves, as first imported: a caller that routes a module's name to
     another function does not change whose count this reads)."""
     from flowspec_tpu_torch.ops import head_topk as hk
+    from flowspec_tpu_torch.ops import mla_attention as ma
     from flowspec_tpu_torch.ops import quant_matmul as qm
     from flowspec_tpu_torch.ops import tree_attention as ta
     return {"int8_matmul": qm.int8_matmul, "tree_attention": ta.tree_attention,
@@ -22,4 +24,5 @@ def counted_wrappers() -> dict:
             "int4_matmul_strip": qm.int4_matmul_strip,
             "tree_attention_simt": ta.tree_attention_simt,
             "head_topk_strip": hk.head_topk_strip,
-            "int4_matmul_splitk": qm.int4_matmul_splitk}
+            "int4_matmul_splitk": qm.int4_matmul_splitk,
+            "mla_attention": ma.mla_attention}

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("int8_matmul", "tree_attention", "head_topk", "nf4_matmul",
-           "int4_matmul", "int4_matmul_smallm")
+           "int4_matmul", "int4_matmul_smallm", "mla_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,7 +19,8 @@ Two decode paths share that round body, as the JAX package's do:
 alike read nothing back (`tree/posterior.py` walks every depth with masks,
 as the JAX scan does). The base model is any family of
 `models/__init__.py model_forward` (LLaMA / Qwen2 `LlamaParams`, Mixtral
-`MixtralParams`), or the caller's `forward_fn`.
+`MixtralParams`, DeepSeek-V3 `DeepseekParams` over a latent cache), or the
+caller's `forward_fn`.
 
 The state and the round run over a leading lane axis: B requests served
 together, each with its own caches, lengths, tree and draw stream
@@ -43,7 +44,7 @@ from flowspec_tpu_torch.draft.beam import topk_generate
 from flowspec_tpu_torch.draft.eagle import (
     EagleParams, draft_context_forward, draft_view,
 )
-from flowspec_tpu_torch.models import model_forward
+from flowspec_tpu_torch.models import init_base_cache, model_forward
 from flowspec_tpu_torch.models.bias import prefill_bias, tree_bias
 from flowspec_tpu_torch.models.kv_cache import (
     KVCache, grow_kv, init_kv_cache,
@@ -211,9 +212,7 @@ class SpecEngine:
             else (self.draft_kv_len, self.base_kv_len))
         zero = lambda: torch.zeros((1,), dtype=torch.int32, device=dev)
         return EngineState(
-            base_cache=init_kv_cache(mc.num_hidden_layers, 1,
-                                     mc.num_key_value_heads,
-                                     base_rows, mc.head_dim_, dt, dev),
+            base_cache=init_base_cache(mc, 1, base_rows, dt, dev),
             # draft KV geometry follows the draft's own (possibly thin)
             # head layout, not the base's
             draft_cache=init_kv_cache(1, 1, self.dcfg.num_key_value_heads,
@@ -417,13 +416,18 @@ class SpecEngine:
 
         With the recorder on (`utils/profiler.py prof.enabled`) the call is
         one `request` span around `prefill.chunk`, `prefill.finish`,
-        `grow_kv` and each segment's spans (`runtime/graphs.py`)."""
+        `grow_kv` and each segment's spans (`runtime/graphs.py`), and a
+        span for each of the recorder's device tallies that counted in the
+        request (`utils/profiler.py tally`), read once at its end."""
         req = prof.open_request() if prof.enabled else -1
+        if req >= 0:
+            prof.zero_tallies()
         try:
             return self._generate_fused(prompt, max_new_tokens,
                                         eos_token_id, seed)
         finally:
             if req >= 0:
+                prof.read_tallies()
                 prof.close_request(req)
 
     def _generate_fused(self, prompt, max_new_tokens, eos_token_id, seed):

@@ -323,11 +323,13 @@ def serve_loop(b: int, share: ServeLoop) -> ServeLoop:
 
 def _fields(x, payload: bool = True):
     """The tensors of an engine state or loop carry, in field order (a KV
-    cache gives k, v and length; only its length without `payload`)."""
+    cache gives its row buffers and length; only its length without
+    `payload`)."""
     for f in dataclasses.fields(x):
         v = getattr(x, f.name)
         if isinstance(v, KVCache):
-            yield from ((v.k, v.v, v.length) if payload else (v.length,))
+            yield from ((*v.buffers, v.length) if payload
+                        else (v.length,))
         elif isinstance(v, torch.Tensor):
             yield v
 
@@ -336,7 +338,8 @@ def _clone(x):
     """`x` with every tensor field (and KV cache) copied."""
     def one(v):
         if isinstance(v, KVCache):
-            return KVCache(k=v.k.clone(), v=v.v.clone(),
+            return KVCache(k=v.k.clone(),
+                           v=None if v.v is None else v.v.clone(),
                            length=v.length.clone())
         return v.clone() if isinstance(v, torch.Tensor) else v
     return dataclasses.replace(x, **{f.name: one(getattr(x, f.name))

@@ -20,7 +20,8 @@ serving path writes into: set `prof.enabled = True` and
 `SpecEngine.generate_fused` records a `Span` at each layer boundary it
 crosses (the request, each prefill chunk and its finish, a segment's load
 and end reads, each round's replay, each KV growth, each graph capture and
-kernel build), with per-name `counters`. A span's times are
+kernel build, and each device tally's counts over the request), with
+per-name `counters`. A span's times are
 `time.time_ns()`, the clock torch.profiler (kineto) stamps its host events
 with, so spans line up with a device trace. On the card some spans carry
 device figures from CUDA timing events that are made once per engine or
@@ -29,6 +30,14 @@ path makes anyway): the recorder never fences. A segment's rounds are
 written as spans only after its last replay, so between one round's graph
 and the next the recorder adds two clock reads and an event record. Off
 (the default), each call site costs one attribute test.
+
+Device tallies (`tally`) are counts that device code adds into while the
+recorder is on, such as a DeepSeek base's routing (`models/deepseek.py`):
+a call site adds into one only if the recorder is on when it runs, so a
+CUDA graph captured with the recorder on adds into it on every replay and
+one captured while it is off adds nothing. `SpecEngine.generate_fused`
+zeroes them when a request opens and reads each once when it closes, as a
+span of the tally's name that carries the counts as `values`.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ class Span:
     request: int = -1
     device_ms: Optional[float] = None
     gap_ms: Optional[float] = None
+    values: Optional[dict] = None
 
 
 class Profiler:
@@ -93,6 +103,8 @@ class Profiler:
         self._stack: list[int] = []       # the open spans, innermost last
         self._request = -1
         self._pending: list = []          # (span, (start, end) events)
+        # (name, n, device) -> (counts, values, counter)
+        self._tallies: dict = {}
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
@@ -245,15 +257,51 @@ class Profiler:
 
     def add(self, name: str, t0_ns: int, t1_ns: int,
             device_ms: Optional[float] = None,
-            gap_ms: Optional[float] = None) -> int:
+            gap_ms: Optional[float] = None,
+            values: Optional[dict] = None) -> int:
         """Record a span already over, inside the innermost open one;
         returns its index."""
         i = len(self.spans)
         self.spans.append(Span(
             name, t0_ns, t1_ns, self._stack[-1] if self._stack else -1,
-            self._request, device_ms, gap_ms))
+            self._request, device_ms, gap_ms, values))
         self._count(name)
         return i
+
+    def tally(self, name: str, n: int, device, values,
+              counter: str) -> torch.Tensor:
+        """The (n,) int64 tally `name` on `device`: zeros made on the first
+        call, which may not be inside a graph capture, and the same tensor
+        on every later one for the life of the recorder (a captured graph
+        keeps adding into its memory). `values` turns the read counts (a
+        list) into the span's `values`; each such span adds one to the
+        counter named `counter`."""
+        device = torch.device(device)
+        key = (name, n, str(device))
+        entry = self._tallies.get(key)
+        if entry is None:
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"tally {name!r}: first made inside a "
+                                   "graph capture")
+            entry = self._tallies[key] = (
+                torch.zeros((n,), dtype=torch.int64, device=device), values,
+                counter)
+        return entry[0]
+
+    def zero_tallies(self) -> None:
+        for counts, *_ in self._tallies.values():
+            counts.zero_()
+
+    def read_tallies(self) -> None:
+        """A span for each tally that counted anything since
+        `zero_tallies`, its counts read once (`tolist` waits for them)."""
+        for (name, _, _), (counts, values, counter) in self._tallies.items():
+            t0 = time.time_ns()
+            read = counts.tolist()
+            if any(read):
+                self.add(name, t0, time.time_ns(), values=values(read))
+                self.counters[counter] += 1
 
     def open_request(self) -> int:
         """Open a `request` span: every span until it closes carries its
@@ -318,6 +366,8 @@ class Profiler:
         self._stack.clear()
         self._request = -1
         self._pending.clear()
+        # kept, zeroed: a captured graph may still add into a tally
+        self.zero_tallies()
 
 
 # Module singleton mirroring the reference's `prof` (profiler/profiler.py:275),

@@ -61,6 +61,10 @@ Training: every kernel wrapper refuses, naming itself, an operand that
 requires a gradient under grad mode (and launches as before under
 `torch.no_grad()`); one step of a tiny base and of its draft on the card
 gives every field a gradient and launches no kernel.
+DeepSeek-V3: the latent-attention kernel against its plain version at 128
+heads, 576-wide rows and 512 values, T 64 / 81 / 96, 1-4096 live keys read
+from the card (the host count's bits), and two lanes against one-lane
+launches; a tiny DeepSeek's round graph replayed with the eager bits.
 """
 
 import pytest
@@ -1619,3 +1623,144 @@ def test_training_on_the_card_reaches_every_field(cuda):
     norms = [float(t.grad.norm()) for t in leaves_of(masters)]
     norms += list(tr.first_grad_norms.values())
     assert all(torch.isfinite(torch.tensor(n)) and n > 0 for n in norms)
+
+
+# ---- DeepSeek-V3: the latent-attention kernel and a captured round ---------
+
+MLA_S = 4096
+
+
+@pytest.mark.parametrize("t", [64, 81, 96])
+@pytest.mark.parametrize("n_valid", [1, 63, 65, 209, 1000, MLA_S])
+def test_mla_attention_matches_plain_with_a_device_n_valid(cuda, t, n_valid):
+    """The latent kernel at DeepSeek-V3's widths (128 heads, 576-wide rows,
+    512 values) against its plain version, keys 1-4096 live of 4096, the
+    live count read from the card; the host count gives the same bits. bf16
+    outputs at one rounding (1e-2 relative + 2e-2: a peaked softmax gives
+    outputs up to ~4, where one bf16 step is 0.031)."""
+    from flowspec_tpu_torch.ops.mla_attention import (
+        mla_attention, mla_attention_plain)
+    gen = cuda
+    q = torch.randn((1, 128, t, 576), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    latent = torch.randn((1, MLA_S, 576), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bias = torch.where(torch.rand((t, MLA_S), generator=gen, device="cuda")
+                       < 0.8, 0.0, -1e9)
+    bias[:, n_valid:] = -1e9
+    bias[:, n_valid - 1] = 0.0                   # every row sees a key
+    scale = 192 ** -0.5 * 1.3689
+    before = mla_attention.launches
+    dev = mla_attention(q, latent, bias, torch.tensor(
+        [n_valid], dtype=torch.int32, device="cuda"), scale=scale)
+    host = mla_attention(q, latent, bias, n_valid, scale=scale)
+    want = mla_attention_plain(q, latent, bias, n_valid, scale=scale)
+    torch.cuda.synchronize()
+    assert mla_attention.launches == before + 2
+    assert torch.equal(dev, host)
+    torch.testing.assert_close(dev.float(), want.float(), rtol=1e-2,
+                               atol=2e-2)
+
+
+def test_mla_attention_lanes_match_one_lane_launches(cuda):
+    """Two lanes, each with its own (T, S) bias and live rows, in one
+    launch: lane b's bits are those of a one-lane launch of lane b."""
+    from flowspec_tpu_torch.ops.mla_attention import mla_attention
+    gen = cuda
+    t, s = 81, 1024
+    q = torch.randn((2, 128, t, 576), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    latent = torch.randn((2, s, 576), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    n_valid = torch.tensor([300, 777], dtype=torch.int32, device="cuda")
+    bias = torch.zeros((2, t, s), device="cuda")
+    for b in range(2):
+        bias[b, :, int(n_valid[b]):] = -1e9
+    both = mla_attention(q, latent, bias, n_valid)
+    for b in range(2):
+        one = mla_attention(q[b:b + 1], latent[b:b + 1], bias[b],
+                            n_valid[b:b + 1])
+        assert torch.equal(both[b:b + 1], one)
+
+
+TINY_DEEPSEEK = {
+    "hidden_size": 256, "intermediate_size": 384, "moe_intermediate_size": 128,
+    "num_hidden_layers": 3, "first_k_dense_replace": 1,
+    "num_attention_heads": 4, "num_key_value_heads": 4, "q_lora_rank": 64,
+    "kv_lora_rank": 512, "qk_nope_head_dim": 32, "qk_rope_head_dim": 64,
+    "v_head_dim": 32, "n_routed_experts": 8,
+    "published": {"n_routed_experts": 16},
+    "expert_share": {"ep": 2, "rank": 1}, "n_group": 4, "topk_group": 2,
+    "num_experts_per_tok": 4, "n_shared_experts": 1,
+    "routed_scaling_factor": 2.5,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 1, "mscale_all_dim": 1,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rope_theta": 10000, "rms_norm_eps": 1e-6, "vocab_size": 1024,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "weights": {"precision": "bfloat16"}}
+
+
+def _tiny_deepseek_engine():
+    """A 3-layer bf16 DeepSeek (1 dense + 2 MoE layers, latent rows of
+    512 + 64, 8 of 16 experts held, one shared) drawn by the benchmark's
+    family, and an int8 draft of its width with 4 heads of 64."""
+    import dataclasses
+    from benchmark.families import deepseek_v3 as fam
+    from benchmark.families.common import Draw
+    from flowspec_tpu_torch.config import (
+        EngineConfig, ModelConfig, SamplingConfig, TreeConfig)
+    from flowspec_tpu_torch.draft.eagle import (
+        SizedEagleParams, init_eagle_params, quantize_eagle_params)
+    from flowspec_tpu_torch.runtime import SpecEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    w = fam.draw(TINY_DEEPSEEK, Draw(gen, "cuda", torch.bfloat16))
+    params, mc = fam.port_params(w), fam.model_config(TINY_DEEPSEEK)
+    plain = ModelConfig(vocab_size=1024, hidden_size=256,
+                        intermediate_size=384, num_attention_heads=4,
+                        num_key_value_heads=4)
+    d = quantize_eagle_params(init_eagle_params(
+        gen, plain, embed=params.embed), "int8")
+    draft = SizedEagleParams(**{f.name: getattr(d, f.name)
+                                for f in dataclasses.fields(d)}, head_dim=64)
+    tc = TreeConfig(top_k=8, depth=4, total_tokens=24, node_cap=48,
+                    leaf_cap=48, depth_cap=12)
+    cfg = EngineConfig(model=mc, tree=tc, sampling=SamplingConfig(),
+                       max_seq_len=200, prefill_chunk=16)
+    return SpecEngine(params, draft, cfg)
+
+
+def test_deepseek_graph_replay_equals_eager_round_bits(cuda):
+    """A DeepSeek round (latent cache, the MLA kernel, the group-limited
+    router, the expert share through batched products) captures and
+    replays with the eager round's bits; the graph
+    launches the MLA kernel once a layer; fused streams equal eager ones,
+    spec and AR."""
+    from flowspec_tpu_torch.runtime import graphs
+    eng = _tiny_deepseek_engine()
+    prompt = list(range(3, 40))
+    state = eng.prefill(eng.init_state(0), prompt)
+    assert state.base_cache.v is None
+    loop = graphs._loop_buffers(64, -1, state.commit_len.device)
+    eager, eager_loop = graphs._clone(state), graphs._clone(loop)
+    g = graphs.DecodeGraph(eng, graphs._spec_body, state, loop)
+    assert g.launches["mla_attention"] == 3
+    assert "int8_matmul" in g.launches and "head_topk" in g.launches
+    for _ in range(3):
+        g.replay()
+        eager = graphs._spec_body(eng, eager, eager_loop)
+        torch.cuda.synchronize()
+        for a, b in zip(graphs._fields(g.state), graphs._fields(eager)):
+            assert torch.equal(a, b)
+        for a, b in zip(graphs._fields(g.loop), graphs._fields(eager_loop)):
+            assert torch.equal(a, b)
+    spec, stats = eng.generate(prompt, max_new_tokens=30, eos_token_id=-1)
+    fused, fstats = eng.generate_fused(prompt, max_new_tokens=30,
+                                       eos_token_id=-1)
+    assert fused == spec and fstats["rounds"] == stats["rounds"]
+    ar, _ = eng.generate_ar(prompt, max_new_tokens=16, eos_token_id=-1)
+    ar_fused, _ = eng.generate_ar_fused(prompt, max_new_tokens=16,
+                                        eos_token_id=-1)
+    assert ar_fused == ar

@@ -492,7 +492,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_kernel_build_keys_on_source_hash():
     names = {_build.lib_path(n).name for n in _build.KERNELS}
-    assert len(names) == 6
+    assert len(names) == 7
     for n in _build.KERNELS:
         assert (_build.CSRC / f"{n}.cu").exists()
         assert _build.lib_path(n).parent == _build.BUILD_DIR
